@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any mismatch exits non-zero; nothing is caught and passed over):
+
+  0. the card's name and power limit; build the CUDA kernels from
+     ``src/repro_torch/kernels/csrc``; check that fp32 matmuls stay fp32.
+  1. each kernel against its plain PyTorch version on the card, at the
+     Model-1 shapes of the main path (the update kernel also on a padded
+     tail batch) and one ragged shape, with its time
+     (CUDA-graph replay of 20 launches, median of 10), the plain version's
+     time, one PyTorch library call's time where one computes the same
+     function, and the least time the card could take (``bound_ms``).
+  2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
+     32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
+     supervised pass over 16384 synthetic images, then ``evaluate`` on
+     train and test, with every kernel's launch count over that run; then
+     a fit whose data does not divide the batch (1000 images: 7 whole
+     batches and a 104-row tail), which must launch the update kernel on
+     every step, the masked tail's too, and whose masked steps must match
+     the plain backend's from the same state.
+  3. serving on the fitted state: a padded request bucket with its
+     validity mask, the kernel path against the plain-torch path on 2048
+     test rows (hidden rates, both held against fp64, and served
+     probabilities), and feedback
+     folded with ``online_learn_step`` on both backends.
+  4. where a step's time goes, over 20 steps each of the unsupervised
+     step, the readout step and the evaluation batch: wall time per step
+     untraced, then device-busy time per step from ``torch.profiler``, the
+     idle share of the untraced wall time, and the kernels that take the
+     most device time.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
+# fp32 FLOP/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+TIMED_LAUNCHES = 20
+TIMED_REPLAYS = 10
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def device_ms(fn) -> float:
+    """Device time of one call of ``fn``: a CUDA graph of TIMED_LAUNCHES
+    calls replayed TIMED_REPLAYS times, median per call (launch gaps of the
+    host are not in it)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMED_LAUNCHES):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(TIMED_REPLAYS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / TIMED_LAUNCHES)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------- phase 1 --
+
+def kernel_cases(torch, gen):
+    """(kernel, shape label, kernel call, plain call, library call or None,
+    bytes, flops, compare) for every checked shape."""
+    from repro_torch.kernels import ops, ref
+
+    dev = "cuda"
+    f32 = torch.float32
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    def close_abs(tol):
+        def cmp(got, want):
+            err = (got - want).abs().max().item()
+            return err, err <= tol
+        return cmp
+
+    def close_update(got, want):
+        (gp, gw), (wp, ww) = got, want
+        err_p = (gp - wp).abs()
+        ok_p = bool((err_p <= 1e-9 + 1e-5 * wp.abs()).all())
+        err_w = (gw - ww).abs().max().item()
+        return max(err_p.max().item(), err_w), ok_p and err_w <= 1e-4
+
+    cases = []
+    for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
+                           ("ragged", 37, 3, 10)):
+        s = randn(b, h * m) * 4
+        lib = (lambda s=s, b=b, h=h, m=m:
+               torch.softmax(s.view(b, h, m), dim=-1))
+        cases.append(("hc_softmax", label,
+                      lambda s=s, h=h, m=m: ops.hc_softmax(s, h, m),
+                      lambda s=s, h=h, m=m: ref.ref_hc_softmax(s, h, m),
+                      lib, 2 * s.numel() * 4, 6 * s.numel(),
+                      close_abs(2e-6)))
+    for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
+                                 ("readout", 128, 4096, 1, 10),
+                                 ("ragged", 37, 1000, 3, 10)):
+        x, w, bias = rand(b, ni), randn(ni, hj * mj) * 0.1, randn(hj * mj)
+        nj = hj * mj
+        cases.append(("bcpnn_fwd", label,
+                      lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+                      ops.bcpnn_fwd(x, w, bias, hj, mj),
+                      lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+                      ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
+                      None, 4 * (b * ni + ni * nj + nj + b * nj),
+                      2 * b * ni * nj + 7 * b * nj, close_abs(1e-5)))
+    # n: genuine rows of a zero-padded tail batch (None: all rows are)
+    for label, b, n, hi, mi, hj, mj in (
+            ("hidden", 128, None, 784, 2, 32, 128),
+            ("readout", 128, None, 32, 128, 1, 10),
+            ("tail", 128, 104, 784, 2, 32, 128),
+            ("ragged", 37, None, 500, 2, 3, 10)):
+        ni, nj = hi * mi, hj * mj
+        pij = rand(ni, nj) * 0.01 + 1e-5
+        lpi = torch.log(rand(ni) * 0.5 + 1e-4)
+        lpj = torch.log(rand(nj) * 0.5 + 1e-4)
+        x, y = rand(b, ni), rand(b, nj)
+        count = None
+        if n is not None:
+            x[n:], y[n:] = 0.0, 0.0
+            count = torch.tensor(float(n), device=dev, dtype=f32)
+        mask = (rand(hi, hj) > 0.3).to(f32)
+        if label == "ragged":
+            mask[:, 0] = 0.0
+        a = torch.tensor(2e-3, device=dev, dtype=f32)
+        args = (pij, lpi, lpj, x, y, mask, a)
+        cases.append(("bcpnn_update", label,
+                      lambda args=args, count=count:
+                      ops.bcpnn_update(*args, count=count),
+                      lambda args=args, count=count:
+                      ref.ref_bcpnn_update(*args, count=count),
+                      None,
+                      4 * (3 * ni * nj + ni + nj + b * (ni + nj) + hi * hj + 1),
+                      2 * (n or b) * ni * nj + 10 * ni * nj, close_update))
+    return cases
+
+
+SOURCES = {
+    "hc_softmax": ("src/repro_torch/kernels/csrc/bcpnn.cu",
+                   "src/repro/kernels/hc_softmax.py:35"),
+    "bcpnn_fwd": ("src/repro_torch/kernels/csrc/bcpnn.cu",
+                  "src/repro/kernels/bcpnn_fwd.py:56"),
+    "bcpnn_update": ("src/repro_torch/kernels/csrc/bcpnn.cu",
+                     "src/repro/kernels/bcpnn_update.py:63"),
+}
+
+
+def phase1(torch):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = {}
+    for name, label, kern, plain, lib, nbytes, flops, cmp in \
+            kernel_cases(torch, gen):
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        err, ok = cmp(got, want)
+        check(ok, f"{name}[{label}] disagrees with its plain version "
+                  f"(max abs err {err:.3e})")
+        ms = device_ms(kern)
+        plain_ms = device_ms(plain)
+        lib_ms = device_ms(lib) if lib is not None else None
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(f"[phase1] {name}[{label}] ok: max_abs_err {err:.3e}  "
+              f"kernel {ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  "
+              f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
+              f"  bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+        rows.setdefault(name, {})[label] = row
+    return rows
+
+
+# --------------------------------------------------------------- phase 2 --
+
+def phase2(torch):
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST
+    from repro_torch.core import Trainer
+    from repro_torch.data.synthetic import encode_images, make_synthetic
+    from repro_torch.kernels import ops
+
+    t = time.perf_counter()
+    ds = make_synthetic(n_train=16384, n_test=2048, side=28, n_classes=10,
+                        seed=0)
+    xtr, ytr = encode_images(ds.x_train), ds.y_train
+    xte, yte = encode_images(ds.x_test), ds.y_test
+    print(f"[phase2] data {xtr.shape} + {xte.shape} in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    tr = Trainer(MODEL1_MNIST, seed=0, device="cuda")
+    stats = tr.fit(xtr, ytr, epochs=5, batch=128)
+    t_fit = time.perf_counter() - t
+    t = time.perf_counter()
+    acc_train = tr.evaluate(xtr, ytr)
+    acc_test = tr.evaluate(xte, yte)
+    t_eval = time.perf_counter() - t
+    launches = ops.launch_counts()
+    print(f"[phase2] Model 1 fit: unsup_s {stats['unsup_s']:.4f}  "
+          f"sup_s {stats['sup_s']:.4f}  train_ms_per_img "
+          f"{stats['train_ms_per_img']:.6f}  (fit {t_fit:.3f} s incl. "
+          f"init, eval {t_eval:.3f} s for {len(xtr) + len(xte)} images)",
+          flush=True)
+    print(f"[phase2] accuracy train {acc_train:.4f} test {acc_test:.4f}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    check(acc_test > 0.85, f"Model-1 test accuracy {acc_test:.4f} <= 0.85")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched by the main path")
+    tail_fit(torch, xtr, ytr)
+    return tr, xte, yte, launches
+
+
+def state_diff(a, b) -> float:
+    """Largest absolute difference over every trace, weight and bias of
+    two DeepStates."""
+    import numpy as np
+    from repro_torch.convert import state_to_numpy
+    a, b = state_to_numpy(a), state_to_numpy(b)
+    worst = 0.0
+    for pa, pb in zip(a["projs"] + [a["readout"]], b["projs"] + [b["readout"]]):
+        for k in ("pi", "pj", "pij"):
+            worst = max(worst, float(np.abs(pa["traces"][k]
+                                            - pb["traces"][k]).max()))
+        for k in ("w", "b"):
+            worst = max(worst, float(np.abs(pa[k] - pb[k]).max()))
+    return worst
+
+
+def tail_fit(torch, xtr, ytr):
+    """Model 1 on 1000 images at batch 128 (7 whole batches and a 104-row
+    tail), one epoch: every step launches the update kernel, the masked
+    tail's too.  Then one masked unsupervised step (the same noise
+    injected) and one masked readout step from the fitted state, kernels
+    against the plain backend, within 1e-4.  Two whole fits are not
+    compared: the early running-mean steps amplify fp32 rounding 10-100x
+    a step, so fits on the two backends part after a few steps."""
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST
+    from repro_torch.core import Trainer
+    from repro_torch.core.network import (supervised_readout_step,
+                                          train_projection_step)
+    from repro_torch.kernels import ops
+
+    n, batch = 1000, 128
+    steps = 2 * -(-n // batch)  # one unsupervised epoch + the readout pass
+    ops.reset_launch_counts()
+    tr = Trainer(MODEL1_MNIST, seed=0, device="cuda")
+    tr.fit(xtr[:n], ytr[:n], epochs=1, batch=batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"[phase2] tail fit ({n} images, batch {batch}): launches "
+          f"{json.dumps(launches)} over {steps} steps", flush=True)
+    check(launches["bcpnn_update"] == steps,
+          f"bcpnn_update launched {launches['bcpnn_update']} times in a "
+          f"{steps}-step fit with a padded tail")
+
+    dev, spec, state = tr.device, tr.spec, tr.state
+    spec_plain = spec.with_backend("torch")
+    x = torch.zeros((batch, xtr.shape[1]), dtype=torch.float32, device=dev)
+    y = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    tail = n % batch
+    x[:tail] = torch.from_numpy(xtr[n - tail:n]).to(dev)
+    y[:tail] = torch.from_numpy(ytr[n - tail:n]).to(dev)
+    valid = (torch.arange(batch, device=dev) < tail).to(torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    noise = torch.randn((batch, spec.projs[0].post.N), generator=gen,
+                        device=dev)
+    for name, step in (
+            ("unsupervised", lambda sp: train_projection_step(
+                state, sp, x, 0, valid=valid, noise=noise)),
+            ("readout", lambda sp: supervised_readout_step(
+                state, sp, x, y, valid=valid))):
+        worst = state_diff(step(spec), step(spec_plain))
+        print(f"[phase2] masked {name} step on the {tail}-row tail: kernel "
+              f"vs plain state max abs diff {worst:.3e}", flush=True)
+        check(worst <= 1e-4, f"masked {name} steps differ by {worst:.3e} "
+                             f"> 1e-4")
+
+
+# --------------------------------------------------------------- phase 3 --
+
+def phase3(torch, tr, xte, yte):
+    from repro_torch.core.network import (infer, online_learn_step,
+                                          stack_rates)
+
+    dev = tr.device
+    spec, state = tr.spec, tr.state
+    spec_plain = spec.with_backend("torch")
+
+    # a request bucket: 5 genuine rows zero-padded to 8
+    xb = torch.zeros((8, xte.shape[1]), dtype=torch.float32, device=dev)
+    xb[:5] = torch.from_numpy(xte[:5]).to(dev)
+    valid = (torch.arange(8, device=dev) < 5).to(torch.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probs, pred = infer(state, spec, xb, valid)
+    torch.cuda.synchronize()
+    t_req = time.perf_counter() - t
+    check(bool((probs[5:] == 0).all()), "pad rows carry probability")
+    check(bool((pred[5:] == -1).all()), "pad rows carry a prediction")
+    _, pred5 = infer(state, spec, xb[:5])
+    check(bool((pred[:5] == pred5).all()), "padding changed a prediction")
+    print(f"[phase3] bucket of 8 (5 valid) served in {t_req * 1e3:.3f} ms: "
+          f"pad rows zeroed, preds {pred.tolist()}", flush=True)
+
+    x = torch.from_numpy(xte).to(dev)
+    # The hidden rates are not saturated, unlike the fitted readout's
+    # probs.  Fitted log-odds weights are large, so two fp32 summation
+    # orders over Ni terms part by more than phase 1's 1e-5: each path is
+    # held against an fp64 version, and the kernel may be no further from
+    # it than twice the plain (cuBLAS) path, or 1e-5.
+    proj, pspec = state.projs[0], spec.projs[0]
+    s64 = proj.b.double() + x.double() @ proj.w.double()
+    r64 = torch.softmax(s64.view(len(x), pspec.post.H, pspec.post.M) *
+                        pspec.gain, dim=-1).view(len(x), -1)
+    hk = stack_rates(state, spec, x)
+    hp = stack_rates(state, spec_plain, x)
+    err_k = (hk.double() - r64).abs().max().item()
+    err_p = (hp.double() - r64).abs().max().item()
+    err_kp = (hk - hp).abs().max().item()
+    print(f"[phase3] hidden rates on {len(xte)} rows, max abs err vs fp64: "
+          f"kernel {err_k:.3e}, plain {err_p:.3e}; kernel vs plain "
+          f"{err_kp:.3e}", flush=True)
+    check(err_k <= max(1e-5, 2 * err_p),
+          f"kernel hidden rates {err_k:.3e} from fp64, plain {err_p:.3e}")
+    pk, qk = infer(state, spec, x)
+    pp, qp = infer(state, spec_plain, x)
+    err = (pk - pp).abs().max().item()
+    agree = (qk == qp).float().mean().item()
+    print(f"[phase3] kernel vs plain infer on {len(xte)} rows: max abs err "
+          f"{err:.3e}, pred agreement {agree:.6f}", flush=True)
+    check(err <= 1e-4, f"served probs differ by {err:.3e} > 1e-4")
+    check(agree >= 0.999, f"served preds agree on only {agree:.6f}")
+
+    xf = torch.from_numpy(xte[:128]).to(dev)
+    yf = torch.from_numpy(yte[:128]).to(dev)
+    for learn_stack in (False, True):
+        worst = state_diff(
+            online_learn_step(state, spec, xf, yf, learn_stack=learn_stack),
+            online_learn_step(state, spec_plain, xf, yf,
+                              learn_stack=learn_stack))
+        print(f"[phase3] feedback fold learn_stack={learn_stack}: kernel vs "
+              f"plain state max abs diff {worst:.3e}", flush=True)
+        check(worst <= 1e-4, f"folded states differ by {worst:.3e} > 1e-4")
+
+
+# --------------------------------------------------------------- phase 4 --
+
+def phase4(torch, tr, xte, yte):
+    """Time, then trace, 20 steps of each main-path step type on the
+    fitted state (results are dropped; only the state's generator
+    advances).  The trace slows the host, so the idle share divides the
+    traced device-busy time by the untraced wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.network import (infer, supervised_readout_step,
+                                          train_projection_step)
+    dev = tr.device
+    spec, state = tr.spec, tr.state
+    x = torch.from_numpy(xte[:128]).to(dev)
+    y = torch.from_numpy(yte[:128]).to(dev)
+    steps = {
+        "unsup_step": lambda: train_projection_step(state, spec, x, 0),
+        "readout_step": lambda: supervised_readout_step(state, spec, x, y),
+        "eval_batch": lambda: infer(state, spec, x),
+    }
+    n = 20
+    for name, fn in steps.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            traced_us = (time.perf_counter() - t) * 1e6 / n
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels) / n
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        print(f"[phase4] {name}: wall {wall_us:.1f} us/step (traced "
+              f"{traced_us:.1f}), device busy {busy_us:.1f} us/step, idle "
+              f"share {max(0.0, 1 - busy_us / wall_us):.3f}, "
+              f"{sum(e.count for e in kernels) / n:.1f} kernels/step; top: "
+              + "; ".join(f"{e.key[:40]} {e.self_device_time_total / n:.1f}"
+                          f" us" for e in top), flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this script runs on "
+              "the card only", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi gave nothing: {smi.stderr.strip()}", flush=True)
+    print(f"[phase0] python {sys.version.split()[0]} torch {torch.__version__}"
+          f" cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}",
+          flush=True)
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    print(f"[phase0] kernels built/loaded from {lib.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are enabled; the port's fp32 contract needs them off")
+
+    rows = phase1(torch)
+    tr, xte, yte, launches = phase2(torch)
+    phase3(torch, tr, xte, yte)
+    phase4(torch, tr, xte, yte)
+
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        hid = rows[name]["hidden"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
+            "ms": hid["ms"], "plain_ms": hid["plain_ms"],
+            "bound_ms": hid["bound_ms"], "bound_by": hid["bound_by"],
+            "library_ms": hid["library_ms"], "shapes": rows[name],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

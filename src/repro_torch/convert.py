@@ -1,0 +1,93 @@
+"""Carry a network's state between the JAX package and the port as plain
+numpy arrays.
+
+The tree is a nested dict that mirrors the JAX ``DeepState`` fields::
+
+    {"projs": [proj, ...], "readout": proj, "step": int}
+    proj = {"traces": {"pi", "pj", "pij", "t"}, "w", "b", "mask", "table"}
+
+(``table`` is None for the dense layout, the only one ported so far).  The
+JAX PRNG key is not carried over: the port's generator is seeded instead,
+so noisy unsupervised steps draw other numbers than JAX would.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .core.bcpnn_layer import Projection
+from .core.network import DeepState, NetworkSpec, as_spec
+from .core.traces import Traces
+from .device import DeviceLike, make_generator, resolve_device
+
+
+def _projection_from_numpy(d: Dict[str, Any], dev: torch.device) -> Projection:
+    if d.get("table") is not None:
+        raise NotImplementedError(
+            "compact-resident projections (an index table leaf) are not "
+            "ported yet (ROADMAP.md queue A item 4)")
+
+    def f32(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    tr = d["traces"]
+    return Projection(
+        traces=Traces(pi=f32(tr["pi"]), pj=f32(tr["pj"]), pij=f32(tr["pij"]),
+                      t=torch.tensor(int(tr["t"]), dtype=torch.int32,
+                                     device=dev)),
+        w=f32(d["w"]), b=f32(d["b"]), mask=f32(d["mask"]))
+
+
+def state_from_numpy(tree: Dict[str, Any], spec_or_cfg,
+                     device: DeviceLike = None, seed: int = 0) -> DeepState:
+    """Build a port ``DeepState`` on ``device`` from a numpy tree, checking
+    every array's shape against ``spec_or_cfg``."""
+    spec: NetworkSpec = as_spec(spec_or_cfg)
+    dev = resolve_device(device)
+    if len(tree["projs"]) != spec.depth:
+        raise ValueError(f"tree has {len(tree['projs'])} stack projections, "
+                         f"spec has {spec.depth}")
+    state = DeepState(
+        projs=tuple(_projection_from_numpy(p, dev) for p in tree["projs"]),
+        readout=_projection_from_numpy(tree["readout"], dev),
+        step=torch.tensor(int(tree["step"]), dtype=torch.int32, device=dev),
+        generator=make_generator(seed, dev),
+    )
+    for where, proj, ps in zip(
+            [f"projs[{l}]" for l in range(spec.depth)] + ["readout"],
+            state.projs + (state.readout,), spec.projs + (spec.readout,)):
+        want = {"pi": (ps.pre.N,), "pj": (ps.post.N,),
+                "pij": (ps.pre.N, ps.post.N), "w": (ps.pre.N, ps.post.N),
+                "b": (ps.post.N,), "mask": (ps.pre.H, ps.post.H)}
+        got = {"pi": proj.traces.pi, "pj": proj.traces.pj,
+               "pij": proj.traces.pij, "w": proj.w, "b": proj.b,
+               "mask": proj.mask}
+        for name, shape in want.items():
+            if tuple(got[name].shape) != shape:
+                raise ValueError(f"{where}.{name} has shape "
+                                 f"{tuple(got[name].shape)}, spec wants "
+                                 f"{shape}")
+    return state
+
+
+def _projection_to_numpy(p: Projection) -> Dict[str, Any]:
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    return {
+        "traces": {"pi": arr(p.traces.pi), "pj": arr(p.traces.pj),
+                   "pij": arr(p.traces.pij), "t": int(p.traces.t)},
+        "w": arr(p.w), "b": arr(p.b), "mask": arr(p.mask), "table": None,
+    }
+
+
+def state_to_numpy(state: DeepState) -> Dict[str, Any]:
+    """The numpy tree of a port ``DeepState`` (inverse of
+    ``state_from_numpy``, generator aside)."""
+    return {
+        "projs": [_projection_to_numpy(p) for p in state.projs],
+        "readout": _projection_to_numpy(state.readout),
+        "step": int(state.step),
+    }

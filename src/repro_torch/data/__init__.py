@@ -1,0 +1,3 @@
+from .synthetic import Dataset, encode_images, load_or_synthesize, make_synthetic
+
+__all__ = ["Dataset", "encode_images", "load_or_synthesize", "make_synthetic"]

@@ -1,0 +1,80 @@
+"""Fused BCPNN plasticity stage on Hopper:
+
+    co   = XᵀY / n          (n = B, or the genuine rows of a padded batch)
+    pij' = (1 - a)·pij + a·co
+    w    = (log clip(pij', eps², 1) − log_pi − log_pj) · mask
+
+Replaces the Pallas TPU kernel ``repro/kernels/bcpnn_update.py::
+bcpnn_update_pallas``.  CUDA source: ``csrc/bcpnn.cu::bcpnn_update_kernel``:
+a grid of 64x64 (Ni, Nj) tiles, each looping over the batch through shared
+memory with its XᵀY tile in registers, then the EMA and log fold as the
+epilogue.  ``a`` stays on the device (a 0-d tensor, no host sync), and the
+(Hi, Hj) hypercolumn mask is indexed in the kernel instead of streaming an
+expanded (Ni, Nj) unit mask.  A zero-padded tail batch passes ``count``,
+its genuine row count as a 0-d device tensor, which the kernel divides by
+instead of B.  Outputs are fresh tensors: the old trace is left as it was.
+
+Bound: at Model 1's hidden projection (B=128, Ni=1568, Nj=4096) the 77 MB
+of traffic (read pij, write pij' and w) take ~23 us at 3.35 TB/s and the
+1.64 GFLOP of fp32 FMA ~24.5 us at 67 TFLOP/s: ~24.5 us, operations by a
+hair.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._build import (check_launch, library, require, require_current_device,
+                     stream_ptr)
+from .ref import ref_bcpnn_update
+
+# Kernel launches in this process (only where the kernel is launched).
+LAUNCHES = 0
+
+
+def bcpnn_update_cuda(pij: torch.Tensor, log_pi: torch.Tensor,
+                      log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      mask: torch.Tensor, alpha, eps: float = 1e-4,
+                      count: Optional[torch.Tensor] = None):
+    """Returns (new_pij, new_w), both (Ni, Nj) float32.
+
+    pij (Ni, Nj); log_pi (Ni,); log_pj (Nj,); x (B, Ni); y (B, Nj); mask
+    the (Hi, Hj) hypercolumn mask (Hi divides Ni, Hj divides Nj); alpha a
+    scalar (a 0-d tensor on the card avoids a host copy); ``count`` (0-d
+    float32, optional) the divisor of XᵀY in place of B, for a batch whose
+    pad rows are zero.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    global LAUNCHES
+    if pij.device.type == "cpu":
+        return ref_bcpnn_update(pij, log_pi, log_pj, x, y, mask, alpha, eps,
+                                count)
+    require_current_device(pij)
+    dev = pij.device
+    ni, nj = pij.shape
+    b = x.shape[0]
+    hi, hj = mask.shape
+    if b <= 0:
+        raise ValueError("bcpnn_update needs a non-empty batch")
+    if hi <= 0 or hj <= 0 or ni % hi or nj % hj:
+        raise ValueError(f"mask shape {(hi, hj)} does not tile pij {(ni, nj)}")
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    for t, name, shape in ((pij, "pij", (ni, nj)), (log_pi, "log_pi", (ni,)),
+                           (log_pj, "log_pj", (nj,)), (x, "x", (b, ni)),
+                           (y, "y", (b, nj)), (mask, "mask", (hi, hj)),
+                           (a, "alpha", ())):
+        require(t, name, shape, dev)
+    if count is not None:
+        require(count, "count", (), dev)
+    new_pij = torch.empty_like(pij)
+    w = torch.empty_like(pij)
+    rc = library().bcpnn_update(
+        pij.data_ptr(), log_pi.data_ptr(), log_pj.data_ptr(), x.data_ptr(),
+        y.data_ptr(), mask.data_ptr(), a.data_ptr(),
+        None if count is None else count.data_ptr(), new_pij.data_ptr(),
+        w.data_ptr(), b, ni, nj, hi, hj, ctypes.c_float(eps * eps),
+        stream_ptr(pij))
+    check_launch(rc, "bcpnn_update")
+    LAUNCHES += 1
+    return new_pij, w

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``gpu``: the kernels have no CPU mode, so without a card every test
+here skips.  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances (absolute unless noted): rates 1e-5 and softmax 2e-6 (fp32 sums
+in another order); pij' rtol 1e-5; the log-weight fold 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+def _rand(gen, *shape):
+    return torch.rand(shape, generator=gen, device="cuda")
+
+
+def _randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+# (B, H, M): one warp per segment, registers up to M=256, loop beyond
+@pytest.mark.parametrize("b,h,m", [(1, 1, 2), (37, 3, 10), (128, 32, 128),
+                                   (5, 2, 256), (3, 4, 300)])
+def test_hc_softmax_kernel(gen, b, h, m):
+    s = _randn(gen, b, h * m) * 4
+    got = ops.hc_softmax(s, h, m, 1.5)
+    want = ref.ref_hc_softmax(s, h, m, 1.5)
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+# Mj picks the column tile (16, 32, 64, 128 lanes); Mj=256 takes two
+# column chunks and more than 48 KB of shared memory.
+@pytest.mark.parametrize("b,ni,hj,mj", [(1, 7, 1, 2), (37, 1000, 3, 10),
+                                        (33, 100, 5, 20), (64, 257, 4, 40),
+                                        (128, 1568, 32, 128),
+                                        (40, 300, 2, 256)])
+def test_bcpnn_fwd_kernel(gen, b, ni, hj, mj):
+    x = _rand(gen, b, ni)
+    w = _randn(gen, ni, hj * mj) * 0.1
+    bias = _randn(gen, hj * mj)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj, 1.25)
+    want = ref.ref_bcpnn_fwd(x, w, bias, hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj", [(1, 3, 2, 1, 2), (37, 500, 2, 3, 10),
+                                           (128, 784, 2, 32, 128),
+                                           (17, 32, 128, 1, 10)])
+def test_bcpnn_update_kernel(gen, b, hi, mi, hj, mj):
+    ni, nj = hi * mi, hj * mj
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, b, ni), _rand(gen, b, nj)
+    mask = (_rand(gen, hi, hj) > 0.3).float()
+    mask[:, 0] = 0.0
+    a = torch.tensor(0.02, device="cuda")
+    gp, gw = ops.bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    wp, ww = ref.ref_bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
+    assert (gw - ww).abs().max().item() <= 1e-4
+    assert bool((gw[:, :mj] == 0).all())
+
+
+def test_bcpnn_update_kernel_divides_by_count(gen):
+    """A Model-1 hidden tail batch: 104 genuine rows, 24 zero pad rows,
+    divided by the genuine count read on the device."""
+    ni, nj, n = 1568, 4096, 104
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, 128, ni), _rand(gen, 128, nj)
+    x[n:], y[n:] = 0.0, 0.0
+    mask = torch.ones(784, 32, device="cuda")
+    a = torch.tensor(0.02, device="cuda")
+    count = torch.tensor(float(n), device="cuda")
+    gp, gw = ops.bcpnn_update(pij, lpi, lpj, x, y, mask, a, count=count)
+    wp, ww = ref.ref_bcpnn_update(pij, lpi, lpj, x[:n], y[:n], mask, a)
+    assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
+    assert (gw - ww).abs().max().item() <= 1e-4
+
+
+def test_launches_are_counted_and_bad_operands_refused(gen):
+    ops.reset_launch_counts()
+    s = _randn(gen, 4, 6)
+    ops.hc_softmax(s, 2, 3)
+    ops.hc_softmax(s, 2, 3)
+    assert ops.launch_counts()["hc_softmax"] == 2
+    with pytest.raises(ValueError):
+        ops.hc_softmax(s.double(), 2, 3)
+    with pytest.raises(ValueError):
+        ops.hc_softmax(_randn(gen, 6, 4).T, 2, 3)  # not contiguous
+    with pytest.raises(ValueError):
+        ops.bcpnn_fwd(_rand(gen, 4, 5), _randn(gen, 5, 6), torch.zeros(6),
+                      2, 3)  # bias on the CPU
+    assert ops.launch_counts()["hc_softmax"] == 2
+
+
+def test_online_step_on_card_matches_cpu_plain(gen):
+    """A converted state folds one feedback batch on the card (kernels) and
+    on the CPU (plain torch): the states agree within 1e-4."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core.network import init_deep, online_learn_step
+    spec = deep_synth_spec(side=12, depth=2, hidden_hc=4, hidden_mc=8)
+    tree = state_to_numpy(init_deep(spec, seed=0, device="cpu"))
+    rng = np.random.default_rng(0)
+    x = rng.random((37, spec.input_geom.N), dtype=np.float32)
+    labels = rng.integers(0, spec.n_classes, 37)
+    outs = []
+    for dev, sp in (("cuda", spec), ("cpu", spec.with_backend("torch"))):
+        st = state_from_numpy(tree, sp, device=dev)
+        st = online_learn_step(st, sp, torch.from_numpy(x).to(dev),
+                               torch.from_numpy(labels).to(dev))
+        outs.append(state_to_numpy(st))
+    for pa, pb in zip(outs[0]["projs"] + [outs[0]["readout"]],
+                      outs[1]["projs"] + [outs[1]["readout"]]):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(pa[k], pb[k], atol=1e-4)
+        np.testing.assert_allclose(pa["traces"]["pij"], pb["traces"]["pij"],
+                                   atol=1e-5)

@@ -8,8 +8,9 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
   0. the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc``; check that fp32 matmuls stay fp32.
   1. each kernel against its plain PyTorch version on the card, at the
-     Model-1 shapes of the main path (the update kernel also on a padded
-     tail batch) and one ragged shape, with its time
+     Model-1 (dense kernels) and Model 1-struct (patchy kernels) shapes of
+     the main path (the update kernels also on a padded tail batch) and
+     one ragged shape, with its time
      (CUDA-graph replay of 20 launches, median of 10), the plain version's
      time, one PyTorch library call's time where one computes the same
      function, and the least time the card could take (``bound_ms``).
@@ -26,11 +27,23 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      test rows (hidden rates, both held against fp64, and served
      probabilities), and feedback
      folded with ``online_learn_step`` on both backends.
-  4. where a step's time goes, over 20 steps each of the unsupervised
-     step, the readout step and the evaluation batch: wall time per step
-     untraced, then device-busy time per step from ``torch.profiler``, the
-     idle share of the untraced wall time, and the kernels that take the
-     most device time.
+  5. structural plasticity at the full width of Table-1 Model 1-struct
+     (784x2 -> 32x128 -> 10, nact 128, a rewire every 64 steps) in its
+     three plasticity layouts: (c) compact-resident, (b) patchy-held,
+     (a) the paper's default (patchy forward, dense masked update).  Each
+     fits as phase 2 does, with its launch counts checked against the
+     prediction, its masks exactly-nact and valid after 10 rewires, and
+     (c) held to the JAX reference's test accuracy.  Then 70 unsupervised
+     steps across a rewire, a readout step and an online fold with the
+     card forbidden to synchronise; a (c) fit with a padded tail; single
+     steps from one state, kernels against the plain backend (a masked
+     unsupervised step, and an online fold from trace clock 63 that
+     crosses a rewire); and (c)'s hidden rates against fp64.
+  4. (run last) where a step's time goes, over 20 steps each of the
+     unsupervised step, the readout step and the evaluation batch, dense
+     and (c): wall time per step untraced, then device-busy time per step
+     from ``torch.profiler``, the idle share of the untraced wall time,
+     and the kernels that take the most device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -179,16 +192,80 @@ def kernel_cases(torch, gen):
                       None,
                       4 * (3 * ni * nj + ni + nj + b * (ni + nj) + hi * hj + 1),
                       2 * (n or b) * ni * nj + 10 * ni * nj, close_update))
+
+    # Patchy kernels: Model 1-struct (nact 128 of 784 input HCs, K = 256),
+    # its padded tail for the updates, and a ragged shape.  Bytes count the
+    # live (Hj, K, Mj) weights once; patchy_update produces full (Ni, Nj)
+    # outputs, so it also reads and writes all of pij and w.
+    from repro_torch.core.bcpnn_layer import topk_mask
+    from repro_torch.core.compact import build_table
+    for label, b, n, hi, mi, hj, mj, nact in (
+            ("struct", 128, None, 784, 2, 32, 128, 128),
+            ("tail", 128, 104, 784, 2, 32, 128, 128),
+            ("ragged", 37, None, 13, 3, 3, 10, 4)):
+        ni, nj, k = hi * mi, hj * mj, nact * mi
+        table = build_table(topk_mask(rand(hi, hj), nact), nact)
+        x, y = rand(b, ni), rand(b, nj)
+        count = None
+        if n is not None:
+            x[n:], y[n:] = 0.0, 0.0
+            count = torch.tensor(float(n), device=dev, dtype=f32)
+        live = hj * k * mj
+        small = 4 * (b * ni + b * nj + hj * nact)  # x, y or out, table
+        if n is None:
+            w, w_c, bias = randn(ni, nj) * 0.1, randn(hj, k, mj) * 0.1, \
+                randn(nj)
+            for name, kern, plain in (
+                    ("patchy_forward",
+                     lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
+                     ops.patchy_forward(x, w, bias, t, mi, hj, mj),
+                     lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
+                     ref.ref_patchy_forward(x, w, bias, t, mi, hj, mj)),
+                    ("compact_forward",
+                     lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
+                     ops.compact_forward(x, w, bias, t, mi),
+                     lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
+                     ref.ref_compact_forward(x, w, bias, t, mi))):
+                cases.append((name, label, kern, plain, None,
+                              4 * (live + nj) + small,
+                              2 * b * live + 7 * b * nj, close_abs(1e-5)))
+        lpi = torch.log(rand(ni) * 0.5 + 1e-4)
+        lpj = torch.log(rand(nj) * 0.5 + 1e-4)
+        a = torch.tensor(2e-3, device=dev, dtype=f32)
+        pij, pij_c = rand(ni, nj) * 0.01 + 1e-5, rand(hj, k, mj) * 0.01 + 1e-5
+        flops = 2 * (n or b) * live + 10 * live
+        cases.append((
+            "patchy_update", label,
+            lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj, a=a,
+            mi=mi, hj=hj, mj=mj:
+            ops.patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj, count=c),
+            lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj, a=a,
+            mi=mi, hj=hj, mj=mj:
+            ref.ref_patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj,
+                                  count=c),
+            None, 4 * (3 * ni * nj + ni + nj) + small, flops, close_update))
+        cases.append((
+            "compact_update", label,
+            lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+            a=a, mi=mi:
+            ops.compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
+            lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+            a=a, mi=mi:
+            ref.ref_compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
+            None, 4 * (3 * live + ni + nj) + small, flops, close_update))
     return cases
 
 
+CU = "src/repro_torch/kernels/csrc/bcpnn.cu"
+# kernel -> (source, TPU kernel it replaces, shape label of its main row)
 SOURCES = {
-    "hc_softmax": ("src/repro_torch/kernels/csrc/bcpnn.cu",
-                   "src/repro/kernels/hc_softmax.py:35"),
-    "bcpnn_fwd": ("src/repro_torch/kernels/csrc/bcpnn.cu",
-                  "src/repro/kernels/bcpnn_fwd.py:56"),
-    "bcpnn_update": ("src/repro_torch/kernels/csrc/bcpnn.cu",
-                     "src/repro/kernels/bcpnn_update.py:63"),
+    "hc_softmax": (CU, "src/repro/kernels/hc_softmax.py:35", "hidden"),
+    "bcpnn_fwd": (CU, "src/repro/kernels/bcpnn_fwd.py:56", "hidden"),
+    "bcpnn_update": (CU, "src/repro/kernels/bcpnn_update.py:63", "hidden"),
+    "patchy_forward": (CU, "src/repro/kernels/patchy.py:121", "struct"),
+    "compact_forward": (CU, "src/repro/kernels/patchy.py:154", "struct"),
+    "patchy_update": (CU, "src/repro/kernels/patchy.py:241", "struct"),
+    "compact_update": (CU, "src/repro/kernels/patchy.py:289", "struct"),
 }
 
 
@@ -253,9 +330,12 @@ def phase2(torch):
           f"launches {json.dumps(launches)}", flush=True)
     check(acc_test > 0.85, f"Model-1 test accuracy {acc_test:.4f} <= 0.85")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched by the main path")
+        if name in ("bcpnn_fwd", "bcpnn_update", "hc_softmax"):
+            check(n > 0, f"kernel {name} was never launched by the main path")
+        else:
+            check(n == 0, f"the dense fit launched {name} {n} times")
     tail_fit(torch, xtr, ytr)
-    return tr, xte, yte, launches
+    return tr, (xtr, ytr, xte, yte), launches
 
 
 def state_diff(a, b) -> float:
@@ -392,24 +472,281 @@ def phase3(torch, tr, xte, yte):
         check(worst <= 1e-4, f"folded states differ by {worst:.3e} > 1e-4")
 
 
+# --------------------------------------------------------------- phase 5 --
+
+# Test accuracy of the JAX package's own Model 1-struct fit in the compact
+# layout (jnp backend, on the CPU; same data, seed and protocol), printed by
+# ``python tests/test_torch_compact.py --reference-accuracy``.  The two
+# packages draw different random numbers, so only accuracy compares; the
+# port's (c) fit must reach it less ACC_SLACK.
+JAX_REFERENCE_TEST_ACC = 1.0
+ACC_SLACK = 0.03
+# Two rewire decisions may differ only between pre-HCs whose mutual
+# information is this close: trace differences of ~1e-6 reorder near-ties,
+# and silent pairs sit at MI 0 up to rounding.
+MI_TIE_TOL = 1e-5
+
+STRUCT_VARIANTS = {  # label -> MODEL1_MNIST_STRUCT fields
+    "c": dict(patchy_traces=True, compact=True),
+    "b": dict(patchy_traces=True),
+    "a": {},
+}
+# Launches of one fit (5 epochs of 128 steps, the readout pass of 128, and
+# evaluation of 128 + 16 batches), per variant; unnamed kernels: 0.
+STRUCT_LAUNCHES = {
+    "c": {"compact_update": 640, "compact_forward": 272,
+          "bcpnn_update": 128, "hc_softmax": 784},
+    "b": {"patchy_update": 640, "patchy_forward": 272,
+          "bcpnn_update": 128, "hc_softmax": 784},
+    "a": {"patchy_forward": 272, "bcpnn_update": 768, "hc_softmax": 784},
+}
+
+
+def struct_cfg(variant):
+    import dataclasses
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST_STRUCT
+    return dataclasses.replace(MODEL1_MNIST_STRUCT, **STRUCT_VARIANTS[variant])
+
+
+def check_masks(tr, mask0, variant):
+    """Exactly nact live pre-HCs per post-HC, a state that passes the
+    deployment guard, and evidence that the rewires ran."""
+    from repro_torch.core.bcpnn_layer import validate_patchy_state
+    proj, pspec = tr.state.projs[0], tr.spec.projs[0]
+    per_col = proj.mask.sum(dim=0)
+    check(bool((per_col == pspec.nact).all()),
+          f"({variant}) mask columns hold {per_col.unique().tolist()} "
+          f"pre-HCs, not exactly {pspec.nact}")
+    validate_patchy_state(proj, pspec, where=f"({variant}) fitted stack")
+    moved = int((proj.mask != mask0).sum().item()) // 2
+    check(proj.traces.t_host == int(proj.traces.t.item()),
+          f"({variant}) host clock {proj.traces.t_host} != device clock")
+    check(proj.mask is not mask0, f"({variant}) the mask was never rewired")
+    if variant != "c":
+        check(moved > 0, f"({variant}) 10 rewires moved no pre-HC")
+    return moved
+
+
+def struct_fits(torch, xtr, ytr, xte, yte):
+    """The three layouts' fits; returns the (c) trainer and launches."""
+    from repro_torch.core import Trainer
+    from repro_torch.kernels import ops
+
+    fitted, launches = {}, {}
+    for variant in STRUCT_VARIANTS:
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        tr = Trainer(struct_cfg(variant), seed=0, device="cuda")
+        mask0 = tr.state.projs[0].mask
+        stats = tr.fit(xtr, ytr, epochs=5, batch=128)
+        t_fit = time.perf_counter() - t
+        acc_train = tr.evaluate(xtr, ytr)
+        acc_test = tr.evaluate(xte, yte)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        moved = check_masks(tr, mask0, variant)
+        print(f"[phase5] ({variant}) Model 1-struct fit: unsup_s "
+              f"{stats['unsup_s']:.4f}  sup_s {stats['sup_s']:.4f}  "
+              f"train_ms_per_img {stats['train_ms_per_img']:.6f}  (fit "
+              f"{t_fit:.3f} s incl. init); accuracy train {acc_train:.4f} "
+              f"test {acc_test:.4f}; {moved} pre-HCs rewired; launches "
+              f"{json.dumps(got)}", flush=True)
+        want = {name: STRUCT_LAUNCHES[variant].get(name, 0) for name in got}
+        check(got == want, f"({variant}) launches {got}, predicted {want}")
+        fitted[variant], launches[variant] = tr, got
+    floor = JAX_REFERENCE_TEST_ACC - ACC_SLACK
+    acc_c = fitted["c"].evaluate(xte, yte)
+    check(acc_c >= floor, f"(c) test accuracy {acc_c:.4f} < {floor:.4f} "
+                          f"(JAX reference {JAX_REFERENCE_TEST_ACC} less "
+                          f"{ACC_SLACK})")
+    return fitted, launches
+
+
+def no_sync_steps(torch, variant, xtr, ytr):
+    """70 unsupervised steps from a fresh state (across the rewire at
+    clock 64), a masked step, a readout step and an online fold, with any
+    implicit device synchronisation an error."""
+    from repro_torch.core import Trainer
+    from repro_torch.core.network import (online_learn_step,
+                                          supervised_readout_step,
+                                          train_projection_step)
+    fresh = Trainer(struct_cfg(variant), seed=1, device="cuda")
+    spec, state = fresh.spec, fresh.state
+    x = torch.from_numpy(xtr[:128]).cuda()
+    y = torch.from_numpy(ytr[:128]).cuda()
+    valid = (torch.arange(128, device="cuda") < 100).to(torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(70):
+            state = train_projection_step(state, spec, x, 0)
+        state = train_projection_step(state, spec, x, 0, valid=valid)
+        state = supervised_readout_step(state, spec, x, y)
+        state = online_learn_step(state, spec, x, y)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(state.projs[0].traces.t_host == 72, f"({variant}) clock mirror off")
+
+
+def struct_tail_fit(torch, xtr, ytr):
+    """(c) on 1000 images at batch 128: 8 unsupervised steps, the last a
+    masked 104-row tail, each one compact_update launch."""
+    from repro_torch.core import Trainer
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    tr = Trainer(struct_cfg("c"), seed=0, device="cuda")
+    tr.fit(xtr[:1000], ytr[:1000], epochs=1, batch=128)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    print(f"[phase5] (c) tail fit (1000 images, batch 128): launches "
+          f"{json.dumps(got)}", flush=True)
+    check(got["compact_update"] == 8,
+          f"compact_update launched {got['compact_update']} times in 8 "
+          f"unsupervised steps with a padded tail")
+
+
+def dense_mi(proj, pspec):
+    """(Hi, Hj) mutual information of a projection's traces, densified
+    for the compact layout."""
+    from repro_torch.core.compact import densify_pij
+    from repro_torch.core.traces import Traces, mutual_information
+    tr = proj.traces
+    pij = tr.pij
+    if pij.dim() == 3:
+        pij = densify_pij(pij, tr.pi, tr.pj, proj.table, pspec.pre.M)
+    return mutual_information(Traces(pi=tr.pi, pj=tr.pj, pij=pij, t=tr.t,
+                                     t_host=tr.t_host),
+                              pspec.pre.H, pspec.pre.M, pspec.post.H,
+                              pspec.post.M, pspec.eps)
+
+
+def struct_single_steps(torch, fitted, xtr, ytr):
+    """Kernel backend against plain from one shared state per layout: a
+    masked unsupervised step (noise injected), and an online fold from
+    trace clock 63 whose learn crosses the rewire at 64."""
+    import dataclasses
+    from repro_torch.core.bcpnn_layer import forward, learn
+    from repro_torch.core.network import (online_learn_step,
+                                          train_projection_step)
+    dev = "cuda"
+    batch, tail = 128, 104
+    x = torch.zeros((batch, xtr.shape[1]), dtype=torch.float32, device=dev)
+    y = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    x[:tail] = torch.from_numpy(xtr[:tail]).to(dev)
+    y[:tail] = torch.from_numpy(ytr[:tail]).to(dev)
+    valid = (torch.arange(batch, device=dev) < tail).to(torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for variant, tr in fitted.items():
+        spec, state = tr.spec, tr.state
+        plain = spec.with_backend("torch")
+        noise = torch.randn((batch, spec.projs[0].post.N), generator=gen,
+                            device=dev)
+        worst = state_diff(
+            train_projection_step(state, spec, x, 0, valid=valid,
+                                  noise=noise),
+            train_projection_step(state, plain, x, 0, valid=valid,
+                                  noise=noise))
+        print(f"[phase5] ({variant}) masked unsupervised step: kernel vs "
+              f"plain max abs diff {worst:.3e}", flush=True)
+        check(worst <= 1e-4, f"({variant}) masked steps differ by "
+                             f"{worst:.3e} > 1e-4")
+        p = state.projs[0]
+        at63 = dataclasses.replace(state, projs=(dataclasses.replace(
+            p, traces=dataclasses.replace(
+                p.traces, t=torch.full_like(p.traces.t, 63), t_host=63)),))
+        xf = torch.from_numpy(xtr[:batch]).to(dev)
+        yf = torch.from_numpy(ytr[:batch]).to(dev)
+        sk = online_learn_step(at63, spec, xf, yf)
+        sp = online_learn_step(at63, plain, xf, yf)
+        mk, mp = sk.projs[0].mask, sp.projs[0].mask
+        n_diff = int((mk != mp).sum().item())
+        if n_diff == 0:
+            worst = state_diff(sk, sp)
+            print(f"[phase5] ({variant}) online fold across the rewire at "
+                  f"clock 64: masks equal, kernel vs plain max abs diff "
+                  f"{worst:.3e}", flush=True)
+            check(worst <= 1e-4, f"({variant}) folds differ by {worst:.3e}")
+            continue
+        # Masks part only on near-ties: the swapped pre-HCs' MI, from the
+        # plain path's learned traces, must lie within MI_TIE_TOL.
+        p63, pplain = at63.projs[0], plain.projs[0]
+        mi = dense_mi(learn(p63, pplain, xf, forward(p63, pplain, xf)),
+                      pplain)
+        gaps = []
+        for j in torch.nonzero((mk != mp).any(dim=0)).flatten().tolist():
+            only_k = torch.nonzero((mk[:, j] > 0) & (mp[:, j] == 0)).flatten()
+            only_p = torch.nonzero((mp[:, j] > 0) & (mk[:, j] == 0)).flatten()
+            gaps.append((mi[only_k, j].max() - mi[only_p, j].min()).abs()
+                        .item())
+        print(f"[phase5] ({variant}) online fold across the rewire: masks "
+              f"differ in {n_diff // 2} pre-HC swaps, largest MI gap "
+              f"{max(gaps):.3e} (tolerance {MI_TIE_TOL})", flush=True)
+        check(max(gaps) <= MI_TIE_TOL, f"({variant}) rewires part on an MI "
+                                       f"gap of {max(gaps):.3e}")
+
+
+def struct_served_rates(torch, tr, xte):
+    """(c)'s hidden rates on 2048 test rows, kernel and plain path, each
+    against an fp64 forward of the densified weights."""
+    from repro_torch.core.compact import densify_projection
+    from repro_torch.core.network import stack_rates
+    spec, state = tr.spec, tr.state
+    x = torch.from_numpy(xte).cuda()
+    pspec = spec.projs[0]
+    dense = densify_projection(state.projs[0], pspec)
+    s64 = dense.b.double() + x.double() @ dense.w.double()
+    r64 = torch.softmax(s64.view(len(x), pspec.post.H, pspec.post.M) *
+                        pspec.gain, dim=-1).view(len(x), -1)
+    hk = stack_rates(state, spec, x)
+    hp = stack_rates(state, spec.with_backend("torch"), x)
+    err_k = (hk.double() - r64).abs().max().item()
+    err_p = (hp.double() - r64).abs().max().item()
+    print(f"[phase5] (c) hidden rates on {len(xte)} rows, max abs err vs "
+          f"fp64: kernel {err_k:.3e}, plain {err_p:.3e}", flush=True)
+    check(err_k <= max(1e-5, 2 * err_p),
+          f"(c) kernel hidden rates {err_k:.3e} from fp64, plain "
+          f"{err_p:.3e}")
+
+
+def phase5(torch, xtr, ytr, xte, yte):
+    fitted, launches = struct_fits(torch, xtr, ytr, xte, yte)
+    for variant in STRUCT_VARIANTS:
+        no_sync_steps(torch, variant, xtr, ytr)
+    print("[phase5] (c), (b), (a): 70 steps across a rewire, a masked "
+          "step, a readout step and an online fold each ran with no device "
+          "synchronisation", flush=True)
+    struct_tail_fit(torch, xtr, ytr)
+    struct_single_steps(torch, fitted, xtr, ytr)
+    struct_served_rates(torch, fitted["c"], xte)
+    return fitted["c"], launches
+
+
 # --------------------------------------------------------------- phase 4 --
 
-def phase4(torch, tr, xte, yte):
+def phase4(torch, tr, tr_c, xte, yte):
     """Time, then trace, 20 steps of each main-path step type on the
-    fitted state (results are dropped; only the state's generator
-    advances).  The trace slows the host, so the idle share divides the
-    traced device-busy time by the untraced wall time."""
+    fitted dense Model-1 state, and of (c)'s unsupervised step and eval
+    batch on its fitted Model 1-struct state (results are dropped; only
+    the state's generator advances).  The trace slows the host, so the
+    idle share divides the traced device-busy time by the untraced wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.network import (infer, supervised_readout_step,
                                           train_projection_step)
     dev = tr.device
     spec, state = tr.spec, tr.state
+    spec_c, state_c = tr_c.spec, tr_c.state
     x = torch.from_numpy(xte[:128]).to(dev)
     y = torch.from_numpy(yte[:128]).to(dev)
     steps = {
         "unsup_step": lambda: train_projection_step(state, spec, x, 0),
         "readout_step": lambda: supervised_readout_step(state, spec, x, y),
         "eval_batch": lambda: infer(state, spec, x),
+        "(c) unsup_step": lambda: train_projection_step(state_c, spec_c, x,
+                                                        0),
+        "(c) eval_batch": lambda: infer(state_c, spec_c, x),
     }
     n = 20
     for name, fn in steps.items():
@@ -464,20 +801,31 @@ def main() -> int:
           "TF32 matmuls are enabled; the port's fp32 contract needs them off")
 
     rows = phase1(torch)
-    tr, xte, yte, launches = phase2(torch)
+    tr, data, launches = phase2(torch)
+    xtr, ytr, xte, yte = data
     phase3(torch, tr, xte, yte)
-    phase4(torch, tr, xte, yte)
+    tr_c, struct_launches = phase5(torch, xtr, ytr, xte, yte)
+    phase4(torch, tr, tr_c, xte, yte)
 
+    # "launches": the dense kernels' from the Model-1 fit of phase 2, the
+    # patchy kernels' from the struct fit that runs them (compact: (c);
+    # patchy: (b)); every run's counts are under "runs".
+    runs = {"model1": launches, **{f"struct_{v}": c
+                                   for v, c in struct_launches.items()}}
+    main_run = {"patchy_forward": "struct_b", "patchy_update": "struct_b",
+                "compact_forward": "struct_c", "compact_update": "struct_c"}
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        hid = rows[name]["hidden"]
+    for name, (source, replaces, label) in SOURCES.items():
+        row = rows[name][label]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": runs[main_run.get(name, "model1")][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
-            "ms": hid["ms"], "plain_ms": hid["plain_ms"],
-            "bound_ms": hid["bound_ms"], "bound_by": hid["bound_by"],
-            "library_ms": hid["library_ms"], "shapes": rows[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shapes": rows[name],
+            "runs": {run: c[name] for run, c in runs.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

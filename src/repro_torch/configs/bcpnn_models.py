@@ -11,8 +11,8 @@ from ..core.hypercolumns import LayerGeom
 from ..core.network import BCPNNConfig, NetworkSpec, make_network_spec
 
 # The non-struct variants run densely connected (nact_hi = input_hc); the
-# struct variants carry the paper's nactHi=128 sparsity + periodic rewiring,
-# which needs the patchy path (not ported yet).
+# struct variants carry the paper's nactHi=128 sparsity + periodic rewiring
+# on the patchy path (patchy_traces / compact select its plasticity layout).
 
 # Model 1: MNIST — 28x28 input, hidden 32x128, 10 classes, 5 epochs
 MODEL1_MNIST = BCPNNConfig(

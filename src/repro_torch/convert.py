@@ -6,9 +6,10 @@ The tree is a nested dict that mirrors the JAX ``DeepState`` fields::
     {"projs": [proj, ...], "readout": proj, "step": int}
     proj = {"traces": {"pi", "pj", "pij", "t"}, "w", "b", "mask", "table"}
 
-(``table`` is None for the dense layout, the only one ported so far).  The
-JAX PRNG key is not carried over: the port's generator is seeded instead,
-so noisy unsupervised steps draw other numbers than JAX would.
+(``table`` is None for the dense layout; compact-resident projections carry
+``pij``/``w`` as (Hj, K, Mj) and ``table`` as (Hj, nact) int32).  The JAX
+PRNG key is not carried over: the port's generator is seeded instead, so
+noisy unsupervised steps draw other numbers than JAX would.
 """
 from __future__ import annotations
 
@@ -24,20 +25,19 @@ from .device import DeviceLike, make_generator, resolve_device
 
 
 def _projection_from_numpy(d: Dict[str, Any], dev: torch.device) -> Projection:
-    if d.get("table") is not None:
-        raise NotImplementedError(
-            "compact-resident projections (an index table leaf) are not "
-            "ported yet (ROADMAP.md queue A item 4)")
-
     def f32(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     tr = d["traces"]
+    t = int(tr["t"])
+    table = d.get("table")
     return Projection(
         traces=Traces(pi=f32(tr["pi"]), pj=f32(tr["pj"]), pij=f32(tr["pij"]),
-                      t=torch.tensor(int(tr["t"]), dtype=torch.int32,
-                                     device=dev)),
-        w=f32(d["w"]), b=f32(d["b"]), mask=f32(d["mask"]))
+                      t=torch.tensor(t, dtype=torch.int32, device=dev),
+                      t_host=t),
+        w=f32(d["w"]), b=f32(d["b"]), mask=f32(d["mask"]),
+        table=None if table is None else torch.from_numpy(
+            np.array(table, dtype=np.int32)).to(dev))
 
 
 def state_from_numpy(tree: Dict[str, Any], spec_or_cfg,
@@ -58,17 +58,23 @@ def state_from_numpy(tree: Dict[str, Any], spec_or_cfg,
     for where, proj, ps in zip(
             [f"projs[{l}]" for l in range(spec.depth)] + ["readout"],
             state.projs + (state.readout,), spec.projs + (spec.readout,)):
-        want = {"pi": (ps.pre.N,), "pj": (ps.post.N,),
-                "pij": (ps.pre.N, ps.post.N), "w": (ps.pre.N, ps.post.N),
-                "b": (ps.post.N,), "mask": (ps.pre.H, ps.post.H)}
+        if ps.compact:
+            k = ps.nact * ps.pre.M
+            weights = (ps.post.H, k, ps.post.M)
+            table = (ps.post.H, ps.nact)
+        else:
+            weights, table = (ps.pre.N, ps.post.N), None
+        want = {"pi": (ps.pre.N,), "pj": (ps.post.N,), "pij": weights,
+                "w": weights, "b": (ps.post.N,),
+                "mask": (ps.pre.H, ps.post.H), "table": table}
         got = {"pi": proj.traces.pi, "pj": proj.traces.pj,
                "pij": proj.traces.pij, "w": proj.w, "b": proj.b,
-               "mask": proj.mask}
+               "mask": proj.mask, "table": proj.table}
         for name, shape in want.items():
-            if tuple(got[name].shape) != shape:
-                raise ValueError(f"{where}.{name} has shape "
-                                 f"{tuple(got[name].shape)}, spec wants "
-                                 f"{shape}")
+            have = None if got[name] is None else tuple(got[name].shape)
+            if have != shape:
+                raise ValueError(f"{where}.{name} has shape {have}, spec "
+                                 f"wants {shape}")
     return state
 
 
@@ -79,7 +85,8 @@ def _projection_to_numpy(p: Projection) -> Dict[str, Any]:
     return {
         "traces": {"pi": arr(p.traces.pi), "pj": arr(p.traces.pj),
                    "pij": arr(p.traces.pij), "t": int(p.traces.t)},
-        "w": arr(p.w), "b": arr(p.b), "mask": arr(p.mask), "table": None,
+        "w": arr(p.w), "b": arr(p.b), "mask": arr(p.mask),
+        "table": None if p.table is None else arr(p.table),
     }
 
 

@@ -1,12 +1,16 @@
 """BCPNN core — the port's counterpart of ``repro.core`` for the names
-this slice ports (dense layout, single device)."""
+ported so far (dense, patchy and compact layouts, single device)."""
 from .hypercolumns import LayerGeom, encode_scalar_hcs, hc_hardmax, hc_softmax
 from .traces import (Traces, init_traces, mutual_information, update_traces,
                      weights_from_traces)
 from .bcpnn_layer import (
-    BACKENDS, Projection, ProjSpec, forward, init_projection, learn,
-    normalize, support, topk_mask,
+    BACKENDS, InferPack, Projection, ProjSpec, forward, init_projection,
+    is_compact, is_patchy, learn, learn_masked, maybe_rewire, normalize,
+    rewire, support, topk_mask, validate_patchy_mask, validate_patchy_state,
 )
+from .compact import (build_table, cached_table, compact_network_spec,
+                      compactify_projection, compactify_state,
+                      densify_pij, densify_projection, rewire_compact)
 from .network import (
     BCPNNConfig,
     DeepState,
@@ -28,8 +32,13 @@ __all__ = [
     "LayerGeom", "encode_scalar_hcs", "hc_hardmax", "hc_softmax",
     "Traces", "init_traces", "mutual_information", "update_traces",
     "weights_from_traces",
-    "BACKENDS", "Projection", "ProjSpec", "forward", "init_projection",
-    "learn", "normalize", "support", "topk_mask",
+    "BACKENDS", "InferPack", "Projection", "ProjSpec", "forward",
+    "init_projection", "is_compact", "is_patchy", "learn", "learn_masked",
+    "maybe_rewire", "normalize", "rewire", "support", "topk_mask",
+    "validate_patchy_mask", "validate_patchy_state",
+    "build_table", "cached_table", "compact_network_spec",
+    "compactify_projection", "compactify_state", "densify_pij",
+    "densify_projection", "rewire_compact",
     "BCPNNConfig", "DeepState", "NetworkSpec", "as_spec", "infer",
     "init_deep", "make_network_spec", "online_learn_step", "spec_from_dict",
     "spec_to_dict", "stack_rates", "supervised_readout_step",

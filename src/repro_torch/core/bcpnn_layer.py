@@ -1,5 +1,5 @@
-"""BCPNN projection: a plastic weight matrix between two hypercolumnar
-populations, plus its probability traces (mirrors
+"""BCPNN projection: a plastic, patchily connected weight matrix between
+two hypercolumnar populations, plus its probability traces (mirrors
 ``repro/core/bcpnn_layer.py``).
 
 Each projection carries a ``backend`` tag in its spec:
@@ -12,21 +12,25 @@ Each projection carries a ``backend`` tag in its spec:
                   run on a CPU-resident state.
 
 ``forward`` / ``support`` / ``normalize`` / ``learn`` are the single
-dispatch point.  This slice ports the dense layout: a binding ``nact``
-budget (patchy), ``compact`` and ``infer_dtype != "fp32"`` are accepted by
-``ProjSpec`` (so specs round-trip) and raise ``NotImplementedError`` when
-used.
+dispatch point.  Three layouts share ``Projection``: dense (no ``nact``
+budget), patchy dense-resident (a binding ``nact``; with
+``patchy_traces`` silent synapses hold their joint trace), and
+compact-resident (``compact``: ``pij``/``w`` are (Hj, K, Mj) and
+``table`` holds the (Hj, nact) active pre-HCs).  ``infer_dtype != "fp32"``
+is accepted by ``ProjSpec`` (so specs round-trip) and raises
+``NotImplementedError`` when used.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .hypercolumns import LayerGeom, hc_softmax
-from .traces import (Traces, init_traces, update_traces_from_stats,
-                     weights_from_traces)
+from .traces import (Traces, init_traces, mutual_information,
+                     update_traces_from_stats, weights_from_traces)
 
 BACKENDS = ("torch", "cuda")
 
@@ -73,21 +77,27 @@ class ProjSpec:
 
 @dataclasses.dataclass
 class Projection:
-    """Learnable state of a dense projection."""
+    """Learnable state of a projection: the dense layout (``w`` and
+    ``traces.pij`` (Ni, Nj), ``table`` None) or the compact-resident one
+    (``w`` and ``traces.pij`` (Hj, K, Mj) with K = nact*Mi, ``table`` the
+    (Hj, nact) active pre-HCs, rebuilt only by ``rewire``)."""
 
     traces: Traces
-    w: torch.Tensor     # (Ni, Nj) masked log-odds weights
+    w: torch.Tensor     # (Ni, Nj) masked | (Hj, K, Mj) compact log-odds
     b: torch.Tensor     # (Nj,)    log-prior biases
     mask: torch.Tensor  # (Hi, Hj) float {0,1} structural connectivity
+    table: Optional[torch.Tensor] = None  # (Hj, nact) int32, compact only
 
 
 @dataclasses.dataclass
 class InferPack:
     """Forward-only view of one projection in its serving dtype; fp32 packs
-    (the only ones ported) alias the projection's own tensors."""
+    (the only ones ported) alias the projection's own tensors.  Patchy
+    packs carry their index table as data."""
 
     w: torch.Tensor
     b: torch.Tensor
+    table: Optional[torch.Tensor] = None  # (Hj, nact), patchy only
 
 
 def is_patchy(spec: ProjSpec) -> bool:
@@ -95,13 +105,76 @@ def is_patchy(spec: ProjSpec) -> bool:
     return spec.nact is not None and spec.nact < spec.pre.H
 
 
-def require_dense_fp32(spec: ProjSpec, what: str) -> None:
-    """Refuse the layouts and serving dtypes this slice has not ported."""
-    if is_patchy(spec) or spec.compact:
-        raise NotImplementedError(
-            f"{what}: patchy/compact projections (nact={spec.nact} < "
-            f"pre.H={spec.pre.H}, compact={spec.compact}) are not ported "
-            f"yet (ROADMAP.md queue A item 4, queue B items 4-7)")
+def is_compact(spec: ProjSpec) -> bool:
+    """True when the projection keeps its state compact-resident."""
+    return spec.compact
+
+
+def _compact_ops():
+    # Lazy: core.compact imports this module for the Projection type.
+    from . import compact
+    return compact
+
+
+def validate_patchy_mask(mask: torch.Tensor, spec: ProjSpec,
+                         where: str = "projection") -> None:
+    """Host-side deployment guard (reads the mask back; never per step):
+    the patchy kernels assume at most ``nact`` live pre-HCs per column; a
+    column with more would be truncated by the index table."""
+    if not is_patchy(spec):
+        return
+    per_col = mask.detach().cpu().numpy().sum(axis=0)
+    if (per_col > spec.nact).any():
+        raise ValueError(
+            f"{where}: patchy mask has a column with {int(per_col.max())} "
+            f"active pre-HCs, exceeding nact={spec.nact}; the compact "
+            f"kernels would drop connections. Rebuild the mask with "
+            f"topk_mask (e.g. rewire) before serving.")
+
+
+def validate_patchy_state(proj: Projection, spec: ProjSpec,
+                          where: str = "projection") -> None:
+    """Host-side deployment guard over the whole projection: the mask
+    invariant of ``validate_patchy_mask`` plus, for compact-resident
+    projections, an index table of the compact shapes that agrees with
+    the mask."""
+    validate_patchy_mask(proj.mask, spec, where=where)
+    if not is_compact(spec):
+        return
+    hj, mj = spec.post.H, spec.post.M
+    k = spec.nact * spec.pre.M
+    if proj.table is None:
+        raise ValueError(
+            f"{where}: compact-resident projection has no index table "
+            f"leaf; was this state built dense? Convert it with "
+            f"core.compact.compactify_state.")
+    for name, leaf, want in (("pij", proj.traces.pij, (hj, k, mj)),
+                             ("w", proj.w, (hj, k, mj)),
+                             ("table", proj.table, (hj, spec.nact))):
+        if tuple(leaf.shape) != want:
+            raise ValueError(
+                f"{where}: compact leaf {name} has shape "
+                f"{tuple(leaf.shape)}, expected {want}")
+    if not _compact_ops().table_matches_mask(proj.mask, proj.table,
+                                             spec.nact):
+        mask = proj.mask.detach().cpu().numpy()
+        table = proj.table.detach().cpu().numpy()
+        for j in range(hj):
+            live = np.flatnonzero(mask[:, j])
+            if not np.array_equal(np.sort(table[j]), live):
+                raise ValueError(
+                    f"{where}: compact index table disagrees with the mask "
+                    f"at post-HC {j} (table {np.sort(table[j]).tolist()} vs "
+                    f"mask {live.tolist()}); rebuild the table from the "
+                    f"mask (core.compact.build_table) before serving.")
+        raise ValueError(
+            f"{where}: compact index table disagrees with the mask; "
+            f"rebuild it from the mask (core.compact.build_table) before "
+            f"serving.")
+
+
+def require_fp32(spec: ProjSpec, what: str) -> None:
+    """Refuse the serving dtypes the port has not ported yet."""
     if spec.infer_dtype != "fp32":
         raise NotImplementedError(
             f"{what}: infer_dtype={spec.infer_dtype!r} is not ported yet "
@@ -138,16 +211,28 @@ def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 def init_projection(spec: ProjSpec, generator: torch.Generator) -> Projection:
     """Uniform-prior traces with a log-normal joint-trace perturbation
-    drawn from ``generator``, full connectivity, and the weights folded
-    from those traces.  The state lives on the generator's device."""
-    require_dense_fp32(spec, "init_projection")
+    drawn from ``generator``, and the weights folded from those traces.
+    With a binding ``nact`` each post-HC starts from a random exactly-nact
+    set of pre-HCs (scores drawn from ``generator`` after the traces);
+    compact specs are then gathered into the (Hj, K, Mj) layout.  The
+    state lives on the generator's device."""
+    require_fp32(spec, "init_projection")
     tr = init_traces(spec.pre.N, spec.post.N, spec.pre.M, spec.post.M,
                      generator=generator)
-    mask = torch.ones((spec.pre.H, spec.post.H), dtype=torch.float32,
-                      device=generator.device)
+    dev = generator.device
+    if is_patchy(spec):
+        scores = torch.rand((spec.pre.H, spec.post.H), generator=generator,
+                            device=dev)
+        mask = topk_mask(scores, spec.nact)
+    else:
+        mask = torch.ones((spec.pre.H, spec.post.H), dtype=torch.float32,
+                          device=dev)
     w, b = weights_from_traces(tr, spec.eps)
-    w = apply_hc_mask(w, mask, spec)
-    return Projection(traces=tr, w=w, b=b, mask=mask)
+    proj = Projection(traces=tr, w=apply_hc_mask(w, mask, spec), b=b,
+                      mask=mask)
+    if is_compact(spec):
+        proj = _compact_ops().compactify_projection(proj, spec)
+    return proj
 
 
 # ------------------------------------------------------------- dispatch --
@@ -160,18 +245,23 @@ def _kernel_ops():
 
 def forward(proj: Projection, spec: ProjSpec, x: torch.Tensor) -> torch.Tensor:
     """Activation stage: rates -> post-synaptic rates.   x: (B, Ni)."""
-    require_dense_fp32(spec, "forward")
+    require_fp32(spec, "forward")
     if spec.backend == "cuda":
         return _kernel_ops().fused_forward(proj, spec, x)
     return hc_softmax(support(proj, spec, x), spec.post, spec.gain)
 
 
 def support(proj: Projection, spec: ProjSpec, x: torch.Tensor) -> torch.Tensor:
-    """Log-domain support ``b + x @ w`` (both backends: a bare matmul has
-    no epilogue to fuse, and the JAX package also leaves it to its
-    compiler).  fp32 matmuls on the card stay fp32 unless TF32 is enabled
-    globally, which the port never does."""
-    require_dense_fp32(spec, "support")
+    """Log-domain support (both backends: a bare matmul has no epilogue to
+    fuse, and the JAX package also leaves it to its compiler): ``b + x @
+    w``, or for compact-resident state the gather of live pre-rates
+    contracted against the (Hj, K, Mj) weights.  fp32 matmuls on the card
+    stay fp32 unless TF32 is enabled globally, which the port never
+    does."""
+    require_fp32(spec, "support")
+    if proj.w.ndim == 3:
+        return _compact_ops().compact_support(x, proj.w, proj.b, proj.table,
+                                              spec.pre.M)
     return proj.b[None, :] + x @ proj.w
 
 
@@ -186,9 +276,11 @@ def normalize(support_vals: torch.Tensor, spec: ProjSpec) -> torch.Tensor:
 def learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
           y: torch.Tensor) -> Projection:
     """Plasticity stage: one streaming batch update of traces + weights."""
-    require_dense_fp32(spec, "learn")
+    require_fp32(spec, "learn")
     if spec.backend == "cuda":
         return _kernel_ops().fused_learn(proj, spec, x, y)
+    if is_compact(spec) and proj.table is not None:
+        return _compact_ops().learn_compact_torch(proj, spec, x, y)
     return _learn_torch(proj, spec, x, y)
 
 
@@ -196,9 +288,13 @@ def learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
 
 def pack_projection(proj: Projection, spec: ProjSpec) -> InferPack:
     """The forward-only ``InferPack`` of one projection; fp32 packs alias
-    the state's tensors (packing is free)."""
-    require_dense_fp32(spec, "pack_projection")
-    return InferPack(w=proj.w, b=proj.b)
+    the state's tensors (packing is free).  Patchy packs get their index
+    table: the compact state's leaf, or the mask-identity memo's."""
+    require_fp32(spec, "pack_projection")
+    table = proj.table
+    if table is None and is_patchy(spec):
+        table = _compact_ops().cached_table(proj.mask, spec.nact)
+    return InferPack(w=proj.w, b=proj.b, table=table)
 
 
 def packed_forward(pack: InferPack, spec: ProjSpec,
@@ -212,7 +308,10 @@ def packed_forward(pack: InferPack, spec: ProjSpec,
 def packed_support(pack: InferPack, spec: ProjSpec,
                    x: torch.Tensor) -> torch.Tensor:
     """Log-domain support from an fp32 ``InferPack``."""
-    require_dense_fp32(spec, "packed_support")
+    require_fp32(spec, "packed_support")
+    if pack.w.ndim == 3:
+        return _compact_ops().compact_support(x, pack.w, pack.b, pack.table,
+                                              spec.pre.M)
     return pack.b[None, :] + x @ pack.w
 
 
@@ -220,19 +319,33 @@ def packed_support(pack: InferPack, spec: ProjSpec,
 
 def apply_dense_stats(proj: Projection, spec: ProjSpec, xm: torch.Tensor,
                       ym: torch.Tensor, co: torch.Tensor) -> Projection:
-    """EMA + weight fold on dense-layout state from precomputed batch
-    statistics — the one implementation behind ``_learn_torch`` and
-    ``learn_masked``."""
-    require_dense_fp32(spec, "apply_dense_stats")
+    """EMA + plasticity semantics + weight fold on dense-layout state from
+    precomputed batch statistics — the one implementation behind
+    ``_learn_torch`` and ``learn_masked``.  With ``patchy_traces`` silent
+    synapses hold their joint trace (patchy-held), or, for a compact spec
+    on a dense-layout state, sit at the independence product p_i*p_j (the
+    dense-compute oracle of the compact semantics)."""
+    require_fp32(spec, "apply_dense_stats")
     tr = update_traces_from_stats(proj.traces, xm, ym, co, spec.alpha)
+    if is_patchy(spec) and spec.patchy_traces:
+        hi, mi, hj, mj = spec.pre.H, spec.pre.M, spec.post.H, spec.post.M
+        keep = proj.mask[:, None, :, None] > 0
+        if is_compact(spec):
+            off = torch.outer(tr.pi, tr.pj).reshape(hi, mi, hj, mj)
+        else:
+            off = proj.traces.pij.reshape(hi, mi, hj, mj)
+        pij = torch.where(keep, tr.pij.reshape(hi, mi, hj, mj), off)
+        tr = Traces(pi=tr.pi, pj=tr.pj,
+                    pij=pij.reshape(spec.pre.N, spec.post.N), t=tr.t,
+                    t_host=tr.t_host)
     w, b = weights_from_traces(tr, spec.eps)
     w = apply_hc_mask(w, proj.mask, spec)
-    return Projection(traces=tr, w=w, b=b, mask=proj.mask)
+    return Projection(traces=tr, w=w, b=b, mask=proj.mask, table=proj.table)
 
 
 def _learn_torch(proj: Projection, spec: ProjSpec, x: torch.Tensor,
                  y: torch.Tensor) -> Projection:
-    """Dense-layout reference of the plasticity stage."""
+    """Dense-layout reference of all three plasticity semantics."""
     b = x.shape[0]
     return apply_dense_stats(proj, spec, x.mean(dim=0), y.mean(dim=0),
                              (x.T @ y) / b)
@@ -253,13 +366,49 @@ def learn_masked(proj: Projection, spec: ProjSpec, x: torch.Tensor,
     by the number of GENUINE rows (``valid`` 0/1 per row), so pad slots are
     inert.  On ``"cuda"`` the update kernel takes the zeroed rows with that
     count, read on the device, as its divisor.  (The JAX package runs this
-    step plain on both backends: its Pallas kernel bakes in a static batch
+    step plain on both backends: its Pallas kernels bake in a static batch
     divisor.)"""
-    require_dense_fp32(spec, "learn_masked")
+    require_fp32(spec, "learn_masked")
     xv, yv, n = masked_inputs(x, y, valid)
     if spec.backend == "cuda":
         return _kernel_ops().fused_learn(proj, spec, xv, yv, count=n)
     xm = xv.sum(dim=0) / n
     ym = yv.sum(dim=0) / n
+    if is_compact(spec) and proj.table is not None:
+        c = _compact_ops()
+        co_c = c.compact_co_stats(xv, yv, proj.table, spec.pre.M,
+                                  spec.post.M, n_valid=n)
+        return c.apply_compact_stats(proj, spec, xm, ym, co_c)
     co = (xv.T @ yv) / n
     return apply_dense_stats(proj, spec, xm, ym, co)
+
+
+# ------------------------------------------------ structural plasticity ----
+
+def maybe_rewire(proj: Projection, spec: ProjSpec) -> Projection:
+    """Rewire when the projection's trace clock is a ``struct_every``
+    multiple, else pass through.  The decision reads the clock's host
+    mirror (``Traces.t_host``), so it costs no read from the card.  The
+    one rewire entry of the unsupervised step and the online fold."""
+    if spec.struct_every <= 0 or proj.traces.t_host % spec.struct_every:
+        return proj
+    return rewire(proj, spec)
+
+
+def rewire(proj: Projection, spec: ProjSpec) -> Projection:
+    """Structural plasticity: keep the top-nact highest-MI pre-HCs per
+    post-HC, on the device.  Cold path (every ``struct_every`` steps), so
+    plain torch on both backends.  It makes a NEW mask tensor, which
+    misses the identity memo of dense-resident tables
+    (``core.compact.cached_table``); compact-resident state rebuilds its
+    table leaf in ``rewire_compact``."""
+    if not is_patchy(spec):
+        return proj
+    if is_compact(spec) and proj.table is not None:
+        return _compact_ops().rewire_compact(proj, spec)
+    mi = mutual_information(proj.traces, spec.pre.H, spec.pre.M, spec.post.H,
+                            spec.post.M, spec.eps)
+    mask = topk_mask(mi, spec.nact)
+    w, b = weights_from_traces(proj.traces, spec.eps)
+    w = apply_hc_mask(w, mask, spec)
+    return Projection(traces=proj.traces, w=w, b=b, mask=mask)

@@ -14,8 +14,9 @@ supervised readout learning, and inference.
 Every step function returns a NEW ``DeepState`` and leaves its input's
 tensors as they were; the one thing shared and advanced in place is the
 state's ``torch.Generator``, which every draw of exploration noise
-consumes.  Structural plasticity (``maybe_rewire``) is a no-op on dense
-projections, the only layout this slice ports, so the steps do not call it.
+consumes.  Structural plasticity rides along after each stack learn
+(``maybe_rewire``): the rewire decision reads the host mirror of the
+trace clock, so no step reads the card back.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from .bcpnn_layer import (
     init_projection,
     learn,
     learn_masked,
+    maybe_rewire,
     normalize,
     pack_projection,
     packed_forward,
@@ -161,7 +163,8 @@ class DeepState:
 def init_deep(spec: NetworkSpec, seed: int = 0,
               device: DeviceLike = None) -> DeepState:
     """Fresh state on ``device`` (the card unless ``"cpu"`` is asked for),
-    every random draw from one generator seeded with ``seed``."""
+    every random draw (traces, patchy masks) from one generator seeded
+    with ``seed``."""
     dev = resolve_device(device)
     gen = make_generator(seed, dev)
     projs = tuple(init_projection(p, gen) for p in spec.projs)
@@ -219,13 +222,17 @@ def train_projection_step(state: DeepState, spec: NetworkSpec,
         proj = learn(state.projs[layer], pspec, h, y)
     else:
         proj = learn_masked(state.projs[layer], pspec, h, y, valid)
+    proj = maybe_rewire(proj, pspec)
     projs = state.projs[:layer] + (proj,) + state.projs[layer + 1:]
     return DeepState(projs=projs, readout=state.readout,
                      step=state.step + 1, generator=state.generator)
 
 
 def _one_hot(labels: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.one_hot(labels.long(), n).to(like.dtype)
+    """(B,) labels -> (B, n) one-hots, built by comparison: ``F.one_hot``
+    checks the label range on the host, a read from the card per step."""
+    classes = torch.arange(n, device=labels.device)
+    return (labels.long()[:, None] == classes).to(like.dtype)
 
 
 def supervised_readout_step(state: DeepState, spec: NetworkSpec,
@@ -251,14 +258,16 @@ def online_learn_step(state: DeepState, spec: NetworkSpec, x: torch.Tensor,
 
     With ``learn_stack=True`` every stack projection learns from its own
     deterministic activations (post rates from the pre-update weights, no
-    exploration noise); the readout then takes the supervised update.
+    exploration noise), with the ``struct_every`` rewire riding along; the
+    readout then takes the supervised update.
     With ``learn_stack=False`` this is exactly ``supervised_readout_step``.
     """
     h = x
     projs = []
     for proj, pspec in zip(state.projs, spec.projs):
         y = forward(proj, pspec, h)
-        projs.append(learn(proj, pspec, h, y) if learn_stack else proj)
+        projs.append(maybe_rewire(learn(proj, pspec, h, y), pspec)
+                     if learn_stack else proj)
         h = y
     ro = learn(state.readout, spec.readout, h,
                _one_hot(labels, spec.n_classes, h))

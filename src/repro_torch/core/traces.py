@@ -10,6 +10,11 @@ of batch-mean rates.  Learning state is fp32 throughout: the increments
 The JAX module pins its statistics with ``optimization_barrier`` so two
 XLA programs round alike; PyTorch runs eagerly, so there is no
 counterpart.
+
+The clock ``t`` lives on the device, where the smoothing and the noise
+anneal read it.  ``t_host`` mirrors it as a Python int, advanced wherever
+``t`` advances, so the host can take decisions on the clock (the rewire
+period of structural plasticity) without reading the card back.
 """
 from __future__ import annotations
 
@@ -25,8 +30,17 @@ class Traces:
 
     pi: torch.Tensor   # (Ni,)  pre-synaptic marginal
     pj: torch.Tensor   # (Nj,)  post-synaptic marginal
-    pij: torch.Tensor  # (Ni, Nj) joint
+    pij: torch.Tensor  # (Ni, Nj) joint, or (Hj, K, Mj) compact-resident
     t: torch.Tensor    # 0-d int32 update counter (for bias correction)
+    t_host: Optional[int] = None  # host mirror of ``t``
+
+    def __post_init__(self):
+        if self.t_host is None:
+            if self.t.device.type != "cpu":
+                raise ValueError(
+                    "Traces on the card need t_host, the host mirror of the "
+                    "clock t: reading t back would stall every step")
+            self.t_host = int(self.t)
 
 
 def init_traces(ni: int, nj: int, mi: int, mj: int,
@@ -53,6 +67,7 @@ def init_traces(ni: int, nj: int, mi: int, mj: int,
         pj=torch.full((nj,), pj0, dtype=f32, device=device),
         pij=pij,
         t=torch.zeros((), dtype=torch.int32, device=device),
+        t_host=0,
     )
 
 
@@ -66,7 +81,8 @@ def smoothing(tr: Traces, alpha: float) -> torch.Tensor:
 def update_traces_from_stats(tr: Traces, xm: torch.Tensor, ym: torch.Tensor,
                              co: torch.Tensor, alpha: float) -> Traces:
     """EMA step from precomputed batch statistics (means + batch-mean
-    co-activation)."""
+    co-activation).  ``co`` is dense (Ni, Nj) or compact (Hj, K, Mj), the
+    shape of ``tr.pij``."""
     a = smoothing(tr, alpha)
     one = 1.0 - a
     return Traces(
@@ -74,6 +90,7 @@ def update_traces_from_stats(tr: Traces, xm: torch.Tensor, ym: torch.Tensor,
         pj=one * tr.pj + a * ym,
         pij=one * tr.pij + a * co,
         t=tr.t + 1,
+        t_host=tr.t_host + 1,
     )
 
 

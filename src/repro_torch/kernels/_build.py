@@ -38,6 +38,10 @@ _SIGNATURES = {
     "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "bcpnn_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _F, _P),
+    "bcpnn_patchy_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P),
+    "bcpnn_patchy_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -111,14 +115,15 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def require(t: torch.Tensor, name: str, shape: tuple,
-            device: torch.device) -> None:
-    """Validate one kernel operand: on ``device``, fp32, contiguous and of
-    exactly ``shape``.  Raises ``ValueError`` on anything else."""
+            device: torch.device, dtype: torch.dtype = torch.float32) -> None:
+    """Validate one kernel operand: on ``device``, of ``dtype`` (float32
+    unless said), contiguous and of exactly ``shape``.  Raises
+    ``ValueError`` on anything else."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
+    if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}; the CUDA kernels "
-                         f"take float32 only")
+                         f"take {dtype} here")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

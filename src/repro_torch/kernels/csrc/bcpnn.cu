@@ -1,10 +1,21 @@
 // Hand-written Hopper (sm_90a) kernels for the BCPNN main path.
 //
-// Three kernels, one per Pallas TPU kernel of the JAX package:
+// Three kernel bodies for the seven Pallas TPU kernels ported so far:
 //
-//   bcpnn_hc_softmax  <- repro/kernels/hc_softmax.py::hc_softmax_pallas
-//   bcpnn_fwd         <- repro/kernels/bcpnn_fwd.py::bcpnn_fwd_pallas
-//   bcpnn_update      <- repro/kernels/bcpnn_update.py::bcpnn_update_pallas
+//   bcpnn_hc_softmax     <- repro/kernels/hc_softmax.py::hc_softmax_pallas
+//   bcpnn_fwd            <- repro/kernels/bcpnn_fwd.py::bcpnn_fwd_pallas
+//   bcpnn_patchy_fwd     <- repro/kernels/patchy.py::patchy_forward and
+//                           ::compact_forward (the body of bcpnn_fwd)
+//   bcpnn_update         <- repro/kernels/bcpnn_update.py::bcpnn_update_pallas
+//   bcpnn_patchy_update  <- repro/kernels/patchy.py::patchy_update and
+//                           ::compact_update (the body of bcpnn_update)
+//
+// The forward and update bodies are templated on the weight layout
+// (Layout below): dense (Ni, Nj); patchy, the same dense-resident arrays
+// restricted per post-HC to the K = nact*Mi live pre-units named by the
+// (Hj, nact) index table; compact, the resident (Hj, K, Mj) arrays.  The
+// patchy layouts gather their live rows inside the tile loads, so the
+// (Hj, B, K) gathered activations of the TPU kernels never exist.
 //
 // All arithmetic is IEEE fp32 on the CUDA cores: no TF32 tensor cores and
 // no fast-math intrinsics, because trace increments are ~1e-5 and the
@@ -36,6 +47,23 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+// Weight layouts of the forward and update bodies.
+enum Layout : int { kDense = 0, kPatchy = 1, kCompact = 2 };
+
+// Pre-synaptic unit (column of x, row of a dense-resident array) of
+// contraction index k in post-HC h: k itself when dense, else the k-th
+// live unit of the HC's ascending index table.
+template <int L>
+__device__ __forceinline__ int unit_of(const int* __restrict__ table, int h, int k, int Mi,
+                                       int nact) {
+  if constexpr (L == kDense) {
+    return k;
+  } else {
+    const int q = k / Mi;
+    return table[h * nact + q] * Mi + (k - q * Mi);
+  }
 }
 
 // ------------------------------------------------------------ hc_softmax --
@@ -101,7 +129,10 @@ hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
 // rates[b, h*Mj + n] = softmax_n(gain * (bias + x @ w)[b, h*Mj + n]).
 //
 // Grid: one block per (batch tile of kFwdRows rows, post-HC), so the HC's
-// softmax is block-local and the support never leaves the SM.  The block
+// softmax is block-local and the support never leaves the SM.  The
+// contraction runs over K: all Ni pre-units when dense, the HC's K live
+// ones (gathered row by row from x and from w in the tile loads) when
+// patchy or compact.  The block
 // walks the HC's Mj columns in chunks of 16*CPT.  For each chunk its
 // kFwdGroups K-groups of 256 threads take every kFwdGroups-th kFwdK-deep
 // slice of Ni, each staging its slice through its own shared-memory tiles
@@ -117,7 +148,9 @@ hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
 // 1.64 GFLOP, ~24.5 us at 67 TFLOP/s fp32; its 28.6 MB of traffic take
 // ~8.5 us.  Only 4 x 32 = 128 blocks exist at B=128, so the K-groups are
 // what puts 32 warps on each SM.  Still simple: no wgmma (that would be
-// TF32 or lower), no TMA, no pipelining across slices.
+// TF32 or lower), no TMA, no pipelining across slices.  At Model 1-struct
+// (nact = 128, K = 256) the patchy product is 268 MFLOP, ~4.0 us; its
+// traffic is ~7.1 MB, ~2.1 us: operations again.
 
 constexpr int kFwdRows = 32;           // batch rows per block
 constexpr int kFwdK = 32;              // contraction slice per stage
@@ -150,11 +183,12 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kFwdGroupThreads) : "memory");
 }
 
-template <int CPT>
+template <int CPT, int L>
 __global__ void __launch_bounds__(kFwdThreads)
 bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int B, int Ni, int Nj, int Mj, float gain) {
+                 const float* __restrict__ bias, const int* __restrict__ table,
+                 float* __restrict__ out, int B, int Ni, int K, int Nj, int Mj, int Mi,
+                 int nact, float gain) {
   constexpr int V = CPT < 4 ? CPT : 4;  // width of one w read
   constexpr int TN = 16 * CPT;          // columns per chunk
   constexpr int STAGE = fwd_stage<CPT>();
@@ -167,8 +201,9 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* ws = xs + kFwdK * kFwdXS;              // [kFwdK][TN]
   float* sup = smem + kFwdGroups * STAGE;       // [kFwdRows][Mj]
   const int row0 = blockIdx.x * kFwdRows;
-  const int col0 = blockIdx.y * Mj;  // first unit of this post-HC
-  const int slices = (Ni + kFwdK - 1) / kFwdK;
+  const int h = blockIdx.y;
+  const int col0 = h * Mj;  // first unit of this post-HC
+  const int slices = (K + kFwdK - 1) / kFwdK;
 
   for (int c0 = 0; c0 < Mj; c0 += TN) {
     float acc[2][CPT];
@@ -178,20 +213,26 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
     for (int s0 = 0; s0 < slices; s0 += kFwdGroups) {
-      const int k0 = (s0 + g) * kFwdK;  // past Ni: the group loads zeros
+      const int k0 = (s0 + g) * kFwdK;  // past K: the group loads zeros
 #pragma unroll
       for (int q = 0; q < kFwdRows * kFwdK / kFwdGroupThreads; ++q) {
         const int e = gt + q * kFwdGroupThreads;
         const int r = e / kFwdK, kk = e % kFwdK;
         const int gr = row0 + r, gk = k0 + kk;
-        xs[kk * kFwdXS + r] = (gr < B && gk < Ni) ? x[(size_t)gr * Ni + gk] : 0.f;
+        xs[kk * kFwdXS + r] =
+            (gr < B && gk < K) ? x[(size_t)gr * Ni + unit_of<L>(table, h, gk, Mi, nact)] : 0.f;
       }
 #pragma unroll
       for (int q = 0; q < kFwdK * TN / kFwdGroupThreads; ++q) {
         const int e = gt + q * kFwdGroupThreads;
         const int kk = e / TN, c = e % TN;
         const int gk = k0 + kk, gc = c0 + c;
-        ws[kk * TN + c] = (gk < Ni && gc < Mj) ? w[(size_t)gk * Nj + col0 + gc] : 0.f;
+        float v = 0.f;
+        if (gk < K && gc < Mj) {
+          v = L == kCompact ? w[((size_t)h * K + gk) * Mj + gc]
+                            : w[(size_t)unit_of<L>(table, h, gk, Mi, nact) * Nj + col0 + gc];
+        }
+        ws[kk * TN + c] = v;
       }
       group_sync(g);
 #pragma unroll 8
@@ -252,19 +293,32 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int CPT>
-cudaError_t launch_fwd(const float* x, const float* w, const float* bias, float* out,
-                       int B, int Ni, int Hj, int Mj, float gain, cudaStream_t stream) {
+template <int CPT, int L>
+cudaError_t launch_fwd(const float* x, const float* w, const float* bias, const int* table,
+                       float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
+                       float gain, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kFwdGroups * fwd_stage<CPT>() + (size_t)kFwdRows * Mj);
   if (smem > (size_t)kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bcpnn_fwd_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bcpnn_fwd_kernel<CPT, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((B + kFwdRows - 1) / kFwdRows, Hj);
-  bcpnn_fwd_kernel<CPT><<<grid, kFwdThreads, smem, stream>>>(x, w, bias, out, B, Ni, Hj * Mj, Mj, gain);
+  bcpnn_fwd_kernel<CPT, L><<<grid, kFwdThreads, smem, stream>>>(
+      x, w, bias, table, out, B, Ni, K, Hj * Mj, Mj, Mi, nact, gain);
   return cudaGetLastError();
+}
+
+// Picks the column chunk (16*CPT lanes) from the HC width.
+template <int L>
+cudaError_t launch_fwd_any(const float* x, const float* w, const float* bias, const int* table,
+                           float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
+                           float gain, cudaStream_t st) {
+  if (Mj <= 16) return launch_fwd<1, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
+  if (Mj <= 32) return launch_fwd<2, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
+  if (Mj <= 64) return launch_fwd<4, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
+  return launch_fwd<8, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
 }
 
 // ---------------------------------------------------------- bcpnn_update --
@@ -287,25 +341,37 @@ cudaError_t launch_fwd(const float* x, const float* w, const float* bias, float*
 // Bound: the larger of 77 MB of traffic (read pij, write pij' and w),
 // ~23 us at 3.35 TB/s, and 1.64 GFLOP of fp32 FMA, ~24.5 us, at Model 1's
 // hidden projection (B=128, Ni=1568, Nj=4096).
+//
+// Patchy and compact layouts: the grid's z axis is the post-HC h and the
+// (K, Mj) tile rows are its live pre-units, gathered from x in the tile
+// loads; every entry is live, so there is no mask.  Patchy writes pij' and
+// w at the live rows of (Ni, Nj) outputs that the caller filled with the
+// held pij and zero w; compact reads and writes the resident (Hj, K, Mj)
+// arrays and touches nothing else.  At Model 1-struct (K = 256) compact
+// moves 15.5 MB, ~4.6 us: bytes.
 
 constexpr int kUpdTile = 64;
 constexpr int kUpdK = 16;
 constexpr int kUpdThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
+template <int L>
 __global__ void __launch_bounds__(kUpdThreads)
 bcpnn_update_kernel(const float* __restrict__ pij, const float* __restrict__ log_pi,
                     const float* __restrict__ log_pj, const float* __restrict__ x,
                     const float* __restrict__ y, const float* __restrict__ mask,
-                    const float* __restrict__ a_ptr, const float* __restrict__ count_ptr,
-                    float* __restrict__ pij_out, float* __restrict__ w_out, int B, int Ni,
-                    int Nj, int Mi, int Mj, int Hj, float eps2) {
+                    const int* __restrict__ table, const float* __restrict__ a_ptr,
+                    const float* __restrict__ count_ptr, float* __restrict__ pij_out,
+                    float* __restrict__ w_out, int B, int Ni, int Nj, int K, int ncols,
+                    int Mi, int Mj, int Hj, int nact, float eps2) {
   __shared__ float xs[kUpdK][kUpdTile];
   __shared__ float ys[kUpdK][kUpdTile];
   const int tid = threadIdx.x;
   const int ti = tid / 16;
   const int tj = tid % 16;
-  const int i0 = blockIdx.y * kUpdTile;
-  const int j0 = blockIdx.x * kUpdTile;
+  const int h = blockIdx.z;  // post-HC (0 when dense)
+  const int i0 = blockIdx.y * kUpdTile;  // contraction rows [0, K)
+  const int j0 = blockIdx.x * kUpdTile;  // columns [0, ncols) of the HC
+  const int colbase = L == kDense ? 0 : h * Mj;
 
   float acc[4][4];
 #pragma unroll
@@ -319,8 +385,10 @@ bcpnn_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
       const int e = tid + q * kUpdThreads;
       const int bb = e / kUpdTile, u = e % kUpdTile;
       const int gb = b0 + bb;
-      xs[bb][u] = (gb < B && i0 + u < Ni) ? x[(size_t)gb * Ni + i0 + u] : 0.f;
-      ys[bb][u] = (gb < B && j0 + u < Nj) ? y[(size_t)gb * Nj + j0 + u] : 0.f;
+      xs[bb][u] = (gb < B && i0 + u < K)
+                      ? x[(size_t)gb * Ni + unit_of<L>(table, h, i0 + u, Mi, nact)]
+                      : 0.f;
+      ys[bb][u] = (gb < B && j0 + u < ncols) ? y[(size_t)gb * Nj + colbase + j0 + u] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -343,20 +411,21 @@ bcpnn_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
   const float count = count_ptr != nullptr ? *count_ptr : (float)B;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int gi = i0 + ti * 4 + r;
-    if (gi >= Ni) continue;
+    const int gk = i0 + ti * 4 + r;
+    if (gk >= K) continue;
+    const int gi = unit_of<L>(table, h, gk, Mi, nact);
     const float lpi = log_pi[gi];
-    const float* mrow = mask + (size_t)(gi / Mi) * Hj;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int gj = j0 + tj + 16 * c;
-      if (gj >= Nj) continue;
-      const size_t idx = (size_t)gi * Nj + gj;
+      const int jl = j0 + tj + 16 * c;
+      if (jl >= ncols) continue;
+      const int gj = colbase + jl;
+      const size_t idx = L == kCompact ? ((size_t)h * K + gk) * Mj + jl : (size_t)gi * Nj + gj;
       const float co = acc[r][c] / count;
       const float p = one_minus_a * pij[idx] + a * co;
       pij_out[idx] = p;
       const float lw = logf(fminf(fmaxf(p, eps2), 1.f)) - (lpi + log_pj[gj]);
-      w_out[idx] = lw * mrow[gj / Mj];
+      w_out[idx] = L == kDense ? lw * mask[(size_t)(gi / Mi) * Hj + gj / Mj] : lw;
     }
   }
 }
@@ -379,13 +448,22 @@ int bcpnn_hc_softmax(const float* s, float* out, long long segments, int m, floa
 int bcpnn_fwd(const float* x, const float* w, const float* bias, float* out, int B, int Ni,
               int Hj, int Mj, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
+  return (int)launch_fwd_any<kDense>(x, w, bias, nullptr, out, B, Ni, Ni, Hj, Mj, 1, 0, gain,
+                                     (cudaStream_t)stream);
+}
+
+// x (B, Ni); w (Ni, Hj*Mj) dense-resident, or (Hj, K, Mj) when ``compact``;
+// table (Hj, nact) int32 with entries in [0, Ni/Mi).
+int bcpnn_patchy_fwd(const float* x, const float* w, const float* bias, const int* table,
+                     float* out, int B, int Ni, int Hj, int Mj, int Mi, int nact, int compact,
+                     float gain, void* stream) {
+  if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
+  const int K = nact * Mi;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (Mj <= 16) err = launch_fwd<1>(x, w, bias, out, B, Ni, Hj, Mj, gain, st);
-  else if (Mj <= 32) err = launch_fwd<2>(x, w, bias, out, B, Ni, Hj, Mj, gain, st);
-  else if (Mj <= 64) err = launch_fwd<4>(x, w, bias, out, B, Ni, Hj, Mj, gain, st);
-  else err = launch_fwd<8>(x, w, bias, out, B, Ni, Hj, Mj, gain, st);
-  return (int)err;
+  return (int)(compact ? launch_fwd_any<kCompact>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
+                                                  nact, gain, st)
+                       : launch_fwd_any<kPatchy>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
+                                                 nact, gain, st));
 }
 
 int bcpnn_update(const float* pij, const float* log_pi, const float* log_pj, const float* x,
@@ -394,9 +472,31 @@ int bcpnn_update(const float* pij, const float* log_pi, const float* log_pj, con
                  float eps2, void* stream) {
   if (Ni <= 0 || Nj <= 0) return (int)cudaSuccess;
   const dim3 grid((Nj + kUpdTile - 1) / kUpdTile, (Ni + kUpdTile - 1) / kUpdTile);
-  bcpnn_update_kernel<<<grid, kUpdThreads, 0, (cudaStream_t)stream>>>(
-      pij, log_pi, log_pj, x, y, mask, a, count, pij_out, w_out, B, Ni, Nj, Ni / Hi, Nj / Hj,
-      Hj, eps2);
+  bcpnn_update_kernel<kDense><<<grid, kUpdThreads, 0, (cudaStream_t)stream>>>(
+      pij, log_pi, log_pj, x, y, mask, nullptr, a, count, pij_out, w_out, B, Ni, Nj, Ni, Nj,
+      Ni / Hi, Nj / Hj, Hj, 0, eps2);
+  return (int)cudaGetLastError();
+}
+
+// Patchy: pij, pij_out, w_out (Ni, Hj*Mj), only the table's live rows of
+// each post-HC's columns are read and written.  Compact: (Hj, K, Mj).
+int bcpnn_patchy_update(const float* pij, const float* log_pi, const float* log_pj,
+                        const float* x, const float* y, const int* table, const float* a,
+                        const float* count, float* pij_out, float* w_out, int B, int Ni, int Hj,
+                        int Mj, int Mi, int nact, int compact, float eps2, void* stream) {
+  const int K = nact * Mi;
+  if (K <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
+  const dim3 grid((Mj + kUpdTile - 1) / kUpdTile, (K + kUpdTile - 1) / kUpdTile, Hj);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (compact) {
+    bcpnn_update_kernel<kCompact><<<grid, kUpdThreads, 0, st>>>(
+        pij, log_pi, log_pj, x, y, nullptr, table, a, count, pij_out, w_out, B, Ni, Hj * Mj, K,
+        Mj, Mi, Mj, Hj, nact, eps2);
+  } else {
+    bcpnn_update_kernel<kPatchy><<<grid, kUpdThreads, 0, st>>>(
+        pij, log_pi, log_pj, x, y, nullptr, table, a, count, pij_out, w_out, B, Ni, Hj * Mj, K,
+        Mj, Mi, Mj, Hj, nact, eps2);
+  }
   return (int)cudaGetLastError();
 }
 

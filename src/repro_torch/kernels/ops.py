@@ -2,10 +2,12 @@
 ``ProjSpec(backend="cuda")`` (mirrors ``repro/kernels/ops.py``).
 
 ``fused_forward`` and ``fused_learn`` are what the dispatch point in
-``core/bcpnn_layer.py`` calls for a cuda-tagged projection.  This slice
-ports the dense layout; the patchy, compact and int8 branches of the JAX
-module raise ``NotImplementedError`` until their kernels are ported
-(ROADMAP.md queue B, items 4-10).
+``core/bcpnn_layer.py`` calls for a cuda-tagged projection.  Per
+projection they pick the kernels from the layout: dense, patchy
+dense-resident (a binding ``nact``; the update is patchy only with
+``patchy_traces``, else the dense update with the HC mask) or
+compact-resident.  The int8 branches of the JAX module are not ported yet
+(ROADMAP.md queue B, items 8-10).
 """
 from __future__ import annotations
 
@@ -13,18 +15,22 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from ..core.bcpnn_layer import (InferPack, Projection, ProjSpec,
-                                require_dense_fp32)
+from ..core.bcpnn_layer import (InferPack, Projection, ProjSpec, is_compact,
+                                is_patchy, require_fp32)
+from ..core.compact import cached_table
 from ..core.traces import Traces, smoothing
 from . import bcpnn_fwd as _fwd_module
 from . import bcpnn_update as _update_module
 from . import hc_softmax as _softmax_module
+from . import patchy as _patchy_module
 # The kernel entry points under the JAX package's names.  Note: the
 # update kernel takes the (Hi, Hj) hypercolumn mask where the JAX entry
 # point takes it expanded to (Ni, Nj).
 from .bcpnn_fwd import bcpnn_fwd_cuda as bcpnn_fwd
 from .bcpnn_update import bcpnn_update_cuda as bcpnn_update
 from .hc_softmax import hc_softmax_cuda as hc_softmax
+from .patchy import (compact_forward, compact_update, patchy_forward,
+                     patchy_update)
 
 _KERNEL_MODULES = {"bcpnn_fwd": _fwd_module, "bcpnn_update": _update_module,
                    "hc_softmax": _softmax_module}
@@ -33,36 +39,62 @@ _KERNEL_MODULES = {"bcpnn_fwd": _fwd_module, "bcpnn_update": _update_module,
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset (CPU calls, which
     run the plain versions, do not count)."""
-    return {name: m.LAUNCHES for name, m in _KERNEL_MODULES.items()}
+    counts = {name: m.LAUNCHES for name, m in _KERNEL_MODULES.items()}
+    counts.update(_patchy_module.LAUNCHES)
+    return counts
 
 
 def reset_launch_counts() -> None:
     for m in _KERNEL_MODULES.values():
         m.LAUNCHES = 0
+    for name in _patchy_module.LAUNCHES:
+        _patchy_module.LAUNCHES[name] = 0
+
+
+def _table(proj: Union[Projection, InferPack], spec: ProjSpec) -> torch.Tensor:
+    """The patchy index table: the state's or pack's leaf, else the
+    mask-identity memo (dense-resident state)."""
+    if proj.table is not None:
+        return proj.table
+    return cached_table(proj.mask, spec.nact)
 
 
 # ------------------------------------------------- fused core stages ----
 
 def fused_forward(proj: Union[Projection, InferPack], spec: ProjSpec,
                   x: torch.Tensor) -> torch.Tensor:
-    """Kernel-fused equivalent of core.bcpnn_layer.forward (dense), from a
-    projection or its fp32 ``InferPack`` (both carry ``w`` and ``b``)."""
-    require_dense_fp32(spec, "fused_forward")
+    """Kernel-fused equivalent of core.bcpnn_layer.forward, from a
+    projection or its fp32 ``InferPack``.  Patchy projections stream only
+    their live pre-units (exact: masked-out weights are zero);
+    compact-resident ones read their (Hj, K, Mj) weights as they are."""
+    require_fp32(spec, "fused_forward")
+    if proj.w.dim() == 3:
+        return compact_forward(x, proj.w, proj.b, proj.table, spec.pre.M,
+                               spec.gain)
+    if is_patchy(spec):
+        return patchy_forward(x, proj.w, proj.b, _table(proj, spec),
+                              spec.pre.M, spec.post.H, spec.post.M, spec.gain)
     return bcpnn_fwd(x, proj.w, proj.b, spec.post.H, spec.post.M, spec.gain)
 
 
 def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
                 y: torch.Tensor,
                 count: Optional[torch.Tensor] = None) -> Projection:
-    """Kernel-fused equivalent of core.bcpnn_layer.learn (dense).
+    """Kernel-fused equivalent of core.bcpnn_layer.learn.
 
     The cheap vector traces (p_i, p_j) and the smoothing ``a`` update in
     plain torch on the device (``a`` stays a 0-d tensor, so there is no
-    host sync); the O(Ni·Nj) joint-trace EMA and weight fold run in the
-    update kernel.  ``count`` (0-d, optional) is the number of genuine rows
-    of a batch whose pad rows are zero: every batch statistic divides by it
-    instead of B (``learn_masked``)."""
-    require_dense_fp32(spec, "fused_learn")
+    host sync); the joint-trace EMA and weight fold run in the update
+    kernel of the projection's layout.  ``count`` (0-d, optional) is the
+    number of genuine rows of a batch whose pad rows are zero: every batch
+    statistic divides by it instead of B (``learn_masked``)."""
+    require_fp32(spec, "fused_learn")
+    if is_compact(spec) and proj.table is None:
+        raise ValueError(
+            "fused_learn: ProjSpec.compact projection carries a dense-layout "
+            "state (no index-table leaf); convert it with "
+            "core.compact.compactify_state — the dense-compute reference of "
+            "the compact semantics lives on the torch backend only")
     tr = proj.traces
     a = smoothing(tr, spec.alpha)
     if count is None:
@@ -73,9 +105,19 @@ def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
     pj = (1.0 - a) * tr.pj + a * ym
     log_pi = torch.log(torch.clamp(pi, spec.eps, 1.0))
     log_pj = torch.log(torch.clamp(pj, spec.eps, 1.0))
-    new_pij, w = bcpnn_update(tr.pij, log_pi, log_pj, x, y, proj.mask, a,
-                              eps=spec.eps, count=count)
+    if is_compact(spec):
+        new_pij, w = compact_update(tr.pij, log_pi, log_pj, x, y, proj.table,
+                                    a, spec.pre.M, eps=spec.eps, count=count)
+    elif is_patchy(spec) and spec.patchy_traces:
+        new_pij, w = patchy_update(tr.pij, log_pi, log_pj, x, y,
+                                   _table(proj, spec), a, spec.pre.M,
+                                   spec.post.H, spec.post.M, eps=spec.eps,
+                                   count=count)
+    else:
+        new_pij, w = bcpnn_update(tr.pij, log_pi, log_pj, x, y, proj.mask, a,
+                                  eps=spec.eps, count=count)
     return Projection(
-        traces=Traces(pi=pi, pj=pj, pij=new_pij, t=tr.t + 1),
-        w=w, b=log_pj, mask=proj.mask,
+        traces=Traces(pi=pi, pj=pj, pij=new_pij, t=tr.t + 1,
+                      t_host=tr.t_host + 1),
+        w=w, b=log_pj, mask=proj.mask, table=proj.table,
     )

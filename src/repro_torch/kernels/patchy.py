@@ -1,0 +1,174 @@
+"""Patchy-sparse activation and plasticity on Hopper: the four entry points
+of structural plasticity, under the JAX package's names.
+
+Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
+
+  * ``patchy_forward`` / ``compact_forward`` -> ``csrc/bcpnn.cu::
+    bcpnn_fwd_kernel`` with the patchy or compact layout: one block per
+    (32-row batch tile, post-HC) contracts over the HC's K = nact*Mi live
+    pre-units, gathering the rows of x and of w named by the (Hj, nact)
+    index table inside its tile loads, then the HC's softmax.  The JAX
+    wrappers gather x into an (Hj, B, K) array first; here it never
+    exists.
+  * ``patchy_update`` / ``compact_update`` -> ``csrc/bcpnn.cu::
+    bcpnn_update_kernel`` with the patchy or compact layout: (K, Mj)
+    tiles of each post-HC's gathered XᵀY, then the EMA and the log fold.
+    ``patchy_update`` returns fresh (Ni, Nj) arrays: the wrapper copies
+    the held pij and zeroes w (a copy and a memset, as the JAX scatter is
+    outside its kernel too), and the kernel writes the live entries.
+    ``compact_update`` reads and writes the resident (Hj, K, Mj) arrays.
+
+Bounds at Model 1-struct (B=128, Ni=1568, Hj=32, Mj=128, nact=128, K=256):
+the forward's 268 MFLOP take ~4.0 us at 67 TFLOP/s fp32 (its ~7.1 MB
+~2.1 us); ``compact_update`` moves 15.5 MB, ~4.6 us; ``patchy_update``
+produces full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the dense update.
+
+``alpha`` and ``count`` (the genuine rows of a zero-padded batch, which
+divide XᵀY in place of B) are 0-d device tensors: no host sync.  A CPU
+tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
+kernel or raises.  The table must hold pre-HC indices in [0, Ni/Mi): it is
+built by ``core.compact.build_table`` and checked at the deployment
+boundary (``validate_patchy_state``), not per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._build import (check_launch, library, require, require_current_device,
+                     stream_ptr)
+from .ref import (ref_compact_forward, ref_compact_update, ref_patchy_forward,
+                  ref_patchy_update)
+
+# Kernel launches in this process, per entry point (only where a kernel is
+# launched).
+LAUNCHES = {"patchy_forward": 0, "compact_forward": 0, "patchy_update": 0,
+            "compact_update": 0}
+
+
+def _check_table(table: torch.Tensor, hj: int, ni: int, mi: int,
+                 dev: torch.device) -> int:
+    """Validate the (Hj, nact) int32 table against the geometry; return
+    nact."""
+    if table.dim() != 2 or table.shape[0] != hj:
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected "
+                         f"({hj}, nact)")
+    nact = table.shape[1]
+    if mi <= 0 or ni % mi or not 0 < nact <= ni // mi:
+        raise ValueError(f"table of {nact} pre-HCs does not fit Ni={ni} "
+                         f"with Mi={mi}")
+    require(table, "table", (hj, nact), dev, torch.int32)
+    return nact
+
+
+def _forward(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             table: torch.Tensor, mi: int, hj: int, mj: int, gain: float,
+             compact: bool) -> torch.Tensor:
+    require_current_device(x)
+    dev = x.device
+    b, ni = x.shape
+    nact = _check_table(table, hj, ni, mi, dev)
+    require(x, "x", (b, ni), dev)
+    require(w, "w", (hj, nact * mi, mj) if compact else (ni, hj * mj), dev)
+    require(bias, "bias", (hj * mj,), dev)
+    out = torch.empty((b, hj * mj), dtype=torch.float32, device=dev)
+    rc = library().bcpnn_patchy_fwd(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), table.data_ptr(),
+        out.data_ptr(), b, ni, hj, mj, mi, nact, int(compact),
+        ctypes.c_float(gain), stream_ptr(x))
+    check_launch(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def patchy_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   table: torch.Tensor, mi: int, hj: int, mj: int,
+                   gain: float = 1.0) -> torch.Tensor:
+    """x (B, Ni), dense-resident masked w (Ni, Hj*Mj), bias (Hj*Mj,),
+    table (Hj, nact) -> rates (B, Hj*Mj)."""
+    if x.device.type == "cpu":
+        return ref_patchy_forward(x, w, bias, table, mi, hj, mj, gain)
+    return _forward("patchy_forward", x, w, bias, table, mi, hj, mj, gain,
+                    compact=False)
+
+
+def compact_forward(x: torch.Tensor, w_c: torch.Tensor, bias: torch.Tensor,
+                    table: torch.Tensor, mi: int,
+                    gain: float = 1.0) -> torch.Tensor:
+    """x (B, Ni), compact-resident w_c (Hj, K, Mj), bias (Hj*Mj,), table
+    (Hj, nact) -> rates (B, Hj*Mj)."""
+    if x.device.type == "cpu":
+        return ref_compact_forward(x, w_c, bias, table, mi, gain)
+    if w_c.dim() != 3:
+        raise ValueError(f"w_c has shape {tuple(w_c.shape)}, expected "
+                         f"(Hj, K, Mj)")
+    hj, _, mj = w_c.shape
+    return _forward("compact_forward", x, w_c, bias, table, mi, hj, mj, gain,
+                    compact=True)
+
+
+def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
+            log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+            table: torch.Tensor, alpha, mi: int, hj: int, mj: int, eps: float,
+            count: Optional[torch.Tensor], compact: bool):
+    require_current_device(pij)
+    dev = pij.device
+    b, ni = x.shape
+    if b <= 0:
+        raise ValueError(f"{name} needs a non-empty batch")
+    nact = _check_table(table, hj, ni, mi, dev)
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
+    shape = (hj, nact * mi, mj) if compact else (ni, hj * mj)
+    for t, what, want in ((pij, "pij", shape), (log_pi, "log_pi", (ni,)),
+                          (log_pj, "log_pj", (hj * mj,)), (x, "x", (b, ni)),
+                          (y, "y", (b, hj * mj)), (a, "alpha", ())):
+        require(t, what, want, dev)
+    if count is not None:
+        require(count, "count", (), dev)
+    if compact:
+        new_pij, w = torch.empty_like(pij), torch.empty_like(pij)
+    else:
+        new_pij, w = pij.clone(), torch.zeros_like(pij)
+    rc = library().bcpnn_patchy_update(
+        pij.data_ptr(), log_pi.data_ptr(), log_pj.data_ptr(), x.data_ptr(),
+        y.data_ptr(), table.data_ptr(), a.data_ptr(),
+        None if count is None else count.data_ptr(), new_pij.data_ptr(),
+        w.data_ptr(), b, ni, hj, mj, mi, nact, int(compact),
+        ctypes.c_float(eps * eps), stream_ptr(pij))
+    check_launch(rc, name)
+    LAUNCHES[name] += 1
+    return new_pij, w
+
+
+def patchy_update(pij: torch.Tensor, log_pi: torch.Tensor,
+                  log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  table: torch.Tensor, alpha, mi: int, hj: int, mj: int,
+                  eps: float = 1e-4, count: Optional[torch.Tensor] = None):
+    """Patchy-held plasticity on dense-resident traces.  pij (Ni, Hj*Mj);
+    log_pi (Ni,); log_pj (Hj*Mj,); x (B, Ni); y (B, Hj*Mj); table
+    (Hj, nact).  Returns fresh (new_pij, new_w), (Ni, Hj*Mj): live entries
+    the EMA and the fold, silent pij held, silent w 0."""
+    if pij.device.type == "cpu":
+        return ref_patchy_update(pij, log_pi, log_pj, x, y, table, alpha, mi,
+                                 hj, mj, eps, count)
+    return _update("patchy_update", pij, log_pi, log_pj, x, y, table, alpha,
+                   mi, hj, mj, eps, count, compact=False)
+
+
+def compact_update(pij_c: torch.Tensor, log_pi: torch.Tensor,
+                   log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   table: torch.Tensor, alpha, mi: int, eps: float = 1e-4,
+                   count: Optional[torch.Tensor] = None):
+    """Scatter-free compact plasticity on the resident (Hj, K, Mj) trace.
+    Returns fresh (new_pij_c, new_w_c), both (Hj, K, Mj)."""
+    if pij_c.device.type == "cpu":
+        return ref_compact_update(pij_c, log_pi, log_pj, x, y, table, alpha,
+                                  mi, eps, count)
+    if pij_c.dim() != 3:
+        raise ValueError(f"pij_c has shape {tuple(pij_c.shape)}, expected "
+                         f"(Hj, K, Mj)")
+    hj, _, mj = pij_c.shape
+    return _update("compact_update", pij_c, log_pi, log_pj, x, y, table,
+                   alpha, mi, hj, mj, eps, count, compact=True)

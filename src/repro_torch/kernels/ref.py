@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each repeats its kernel's arithmetic with stock tensor ops (mirroring
 ``repro/kernels/ref.py``).  A kernel wrapper calls its plain version for
@@ -10,6 +10,10 @@ tensors are on the card.
 from __future__ import annotations
 
 import torch
+
+from ..core.compact import (compact_co_stats, fold_weights_compact,
+                            gather_dense, gather_pre, scatter_dense,
+                            unit_indices)
 
 
 def ref_hc_softmax(support: torch.Tensor, n_hc: int, n_mc: int,
@@ -54,3 +58,70 @@ def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
         - (log_pi[:, None] + log_pj[None, :])
     w = w.reshape(hi, ni // hi, hj, nj // hj) * mask[:, None, :, None]
     return new_pij, w.reshape(ni, nj)
+
+
+# ------------------------------------------------- patchy / compact ----
+#
+# These follow the semantics of the JAX wrappers in
+# ``repro/kernels/patchy.py``, not their pad plans: K = nact*Mi live
+# pre-units per post-HC, named by the (Hj, nact) index table.
+
+def _patchy_rates(xg: torch.Tensor, wg: torch.Tensor, bias: torch.Tensor,
+                  gain: float) -> torch.Tensor:
+    """(Hj, B, K) gathered rates x (Hj, K, Mj) weights -> rates (B, Nj)."""
+    hj, b, _ = xg.shape
+    mj = wg.shape[2]
+    s = torch.einsum("jbk,jkm->bjm", xg, wg).reshape(b, hj * mj) + bias
+    return ref_hc_softmax(s, hj, mj, gain)
+
+
+def ref_patchy_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       table: torch.Tensor, mi: int, hj: int, mj: int,
+                       gain: float = 1.0) -> torch.Tensor:
+    """Patchy activation over dense-resident weights: each post-HC's live
+    pre-units of x and rows of w (Ni, Hj*Mj), matmul, bias, softmax."""
+    ui = unit_indices(table, mi, sentinel=x.shape[1])
+    return _patchy_rates(gather_pre(x, ui), gather_dense(w, ui, hj, mj),
+                         bias, gain)
+
+
+def ref_compact_forward(x: torch.Tensor, w_c: torch.Tensor,
+                        bias: torch.Tensor, table: torch.Tensor, mi: int,
+                        gain: float = 1.0) -> torch.Tensor:
+    """Patchy activation over compact-resident (Hj, K, Mj) weights."""
+    ui = unit_indices(table, mi, sentinel=x.shape[1])
+    return _patchy_rates(gather_pre(x, ui), w_c, bias, gain)
+
+
+def _compact_step(pij_c, log_pi, log_pj, x, y, table, alpha, mi, eps,
+                  count):
+    """EMA of the compact joint trace and its log-odds fold."""
+    co = compact_co_stats(x, y, table, mi, pij_c.shape[2], n_valid=count)
+    new_c = (1.0 - alpha) * pij_c + alpha * co
+    return new_c, fold_weights_compact(new_c, log_pi, log_pj, table, mi, eps)
+
+
+def ref_patchy_update(pij: torch.Tensor, log_pi: torch.Tensor,
+                      log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      table: torch.Tensor, alpha, mi: int, hj: int, mj: int,
+                      eps: float = 1e-4, count=None):
+    """Patchy-held plasticity on dense-resident (Ni, Hj*Mj) traces: live
+    entries take the EMA and the fold; silent pij entries hold their
+    value and silent w entries are 0.  Returns (new_pij, new_w)."""
+    ni = pij.shape[0]
+    ui = unit_indices(table, mi, sentinel=ni)
+    new_c, w_c = _compact_step(gather_dense(pij, ui, hj, mj), log_pi, log_pj,
+                               x, y, table, alpha, mi, eps, count)
+    new_pij = scatter_dense(pij.reshape(ni, hj, mj), ui, new_c)
+    w = scatter_dense(pij.new_zeros((ni, hj, mj)), ui, w_c)
+    return new_pij.reshape(ni, hj * mj), w.reshape(ni, hj * mj)
+
+
+def ref_compact_update(pij_c: torch.Tensor, log_pi: torch.Tensor,
+                       log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                       table: torch.Tensor, alpha, mi: int,
+                       eps: float = 1e-4, count=None):
+    """Compact plasticity on resident (Hj, K, Mj) traces.  Returns
+    (new_pij_c, new_w_c)."""
+    return _compact_step(pij_c, log_pi, log_pj, x, y, table, alpha, mi, eps,
+                         count)

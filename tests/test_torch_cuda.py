@@ -8,6 +8,8 @@ here skips.  On a machine with one:
 Tolerances (absolute unless noted): rates 1e-5 and softmax 2e-6 (fp32 sums
 in another order); pij' rtol 1e-5; the log-weight fold 1e-4.
 """
+from repro_torch.core.compact import build_table
+from repro_torch.core.bcpnn_layer import topk_mask
 import numpy as np
 import pytest
 import torch
@@ -135,3 +137,124 @@ def test_online_step_on_card_matches_cpu_plain(gen):
             np.testing.assert_allclose(pa[k], pb[k], atol=1e-4)
         np.testing.assert_allclose(pa["traces"]["pij"], pb["traces"]["pij"],
                                    atol=1e-5)
+
+
+# ------------------------------------------------- patchy / compact ----
+
+def _patchy_operands(gen, b, hi, mi, hj, mj, nact):
+    ni, nj = hi * mi, hj * mj
+    table = build_table(topk_mask(_rand(gen, hi, hj), nact), nact)
+    return ni, nj, table
+
+
+def _close_update(got, want):
+    (gp, gw), (wp, ww) = got, want
+    assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
+    assert (gw - ww).abs().max().item() <= 1e-4
+
+
+# (B, Hi, Mi, Hj, Mj, nact): Model 1-struct, the ragged shape, a wide HC
+PATCHY_SHAPES = [(128, 784, 2, 32, 128, 128), (37, 13, 3, 3, 10, 4),
+                 (19, 13, 2, 5, 10, 4), (40, 30, 2, 2, 256, 7)]
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
+def test_patchy_and_compact_forward_kernels(gen, b, hi, mi, hj, mj, nact):
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni)
+    w = _randn(gen, ni, nj) * 0.1
+    bias = _randn(gen, nj)
+    got = ops.patchy_forward(x, w, bias, table, mi, hj, mj, 1.25)
+    want = ref.ref_patchy_forward(x, w, bias, table, mi, hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+    w_c = _randn(gen, hj, nact * mi, mj) * 0.1
+    got = ops.compact_forward(x, w_c, bias, table, mi, 1.25)
+    want = ref.ref_compact_forward(x, w_c, bias, table, mi, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
+@pytest.mark.parametrize("n", [None, 5])
+def test_patchy_and_compact_update_kernels(gen, b, hi, mi, hj, mj, nact, n):
+    """Whole batches, and a zero-padded batch of ``n`` genuine rows divided
+    by its count.  Patchy: silent pij held, silent w 0, input untouched."""
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, b, ni), _rand(gen, b, nj)
+    count = None
+    if n is not None:
+        x[n:], y[n:] = 0.0, 0.0
+        count = torch.tensor(float(n), device="cuda")
+    a = torch.tensor(0.02, device="cuda")
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    before = pij.clone()
+    got = ops.patchy_update(pij, lpi, lpj, x, y, table, a, mi, hj, mj,
+                            count=count)
+    want = ref.ref_patchy_update(pij, lpi, lpj, x, y, table, a, mi, hj, mj,
+                                 count=count)
+    _close_update(got, want)
+    assert torch.equal(pij, before)
+    pij_c = _rand(gen, hj, nact * mi, mj) * 0.01 + 1e-5
+    got = ops.compact_update(pij_c, lpi, lpj, x, y, table, a, mi,
+                             count=count)
+    want = ref.ref_compact_update(pij_c, lpi, lpj, x, y, table, a, mi,
+                                  count=count)
+    _close_update(got, want)
+
+
+def test_patchy_launches_counted_and_bad_operands_refused(gen):
+    ni, nj, table = _patchy_operands(gen, 8, 13, 2, 5, 10, 4)
+    x, w, bias = _rand(gen, 8, ni), _randn(gen, ni, nj), _randn(gen, nj)
+    ops.reset_launch_counts()
+    ops.patchy_forward(x, w, bias, table, 2, 5, 10)
+    ops.compact_forward(x, _randn(gen, 5, 8, 10), bias, table, 2)
+    counts = ops.launch_counts()
+    assert counts["patchy_forward"] == 1 and counts["compact_forward"] == 1
+    with pytest.raises(ValueError):  # table of the wrong shape
+        ops.patchy_forward(x, w, bias, table[:4], 2, 5, 10)
+    with pytest.raises(ValueError):  # int64 table
+        ops.patchy_forward(x, w, bias, table.long(), 2, 5, 10)
+    with pytest.raises(ValueError):  # table on the CPU
+        ops.patchy_forward(x, w, bias, table.cpu(), 2, 5, 10)
+    with pytest.raises(ValueError):  # compact weights of the wrong K
+        ops.compact_forward(x, _randn(gen, 5, 9, 10), bias, table, 2)
+    with pytest.raises(ValueError):  # more pre-HCs than the input has
+        ops.patchy_forward(x, w, bias, table, 4, 5, 10)
+    assert ops.launch_counts() == counts
+
+
+def test_struct_fit_steps_on_card_match_cpu_plain(gen):
+    """One unsupervised step (noise injected) and one online fold across
+    a rewire from one converted state, in each plasticity layout, on the
+    card (kernels) and on the CPU (plain torch): within 1e-4."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core.network import (init_deep, online_learn_step,
+                                          train_projection_step)
+    rng = np.random.default_rng(0)
+    for pt, cp in ((False, False), (True, False), (True, True)):
+        spec = deep_synth_spec(side=12, depth=1, hidden_hc=4, hidden_mc=8,
+                               nact=[40], patchy_traces=pt, compact=cp,
+                               struct_every=1)
+        tree = state_to_numpy(init_deep(spec, seed=0, device="cpu"))
+        x = rng.random((37, spec.input_geom.N), dtype=np.float32)
+        labels = rng.integers(0, spec.n_classes, 37)
+        noise = rng.standard_normal((37, spec.projs[0].post.N),
+                                    dtype=np.float32)
+        outs = []
+        for dev, sp in (("cuda", spec), ("cpu", spec.with_backend("torch"))):
+            st = state_from_numpy(tree, sp, device=dev)
+            xt = torch.from_numpy(x).to(dev)
+            st = train_projection_step(st, sp, xt, 0,
+                                       noise=torch.from_numpy(noise).to(dev))
+            st = online_learn_step(st, sp, xt,
+                                   torch.from_numpy(labels).to(dev))
+            outs.append(state_to_numpy(st))
+        for pa, pb in zip(outs[0]["projs"] + [outs[0]["readout"]],
+                          outs[1]["projs"] + [outs[1]["readout"]]):
+            np.testing.assert_array_equal(pa["mask"], pb["mask"])
+            for k in ("w", "b"):
+                np.testing.assert_allclose(pa[k], pb[k], atol=1e-4)
+            np.testing.assert_allclose(pa["traces"]["pij"],
+                                       pb["traces"]["pij"], atol=1e-5)

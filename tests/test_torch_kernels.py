@@ -127,7 +127,9 @@ def test_bcpnn_update_count_on_zeroed_rows_matches_jax_on_genuine_rows(b, n):
 def test_cpu_tensors_take_plain_versions_without_counting():
     """A CPU tensor runs the plain version; only a kernel launch counts."""
     before = tops.launch_counts()
-    assert set(before) == {"hc_softmax", "bcpnn_fwd", "bcpnn_update"}
+    assert set(before) == {"hc_softmax", "bcpnn_fwd", "bcpnn_update",
+                           "patchy_forward", "compact_forward",
+                           "patchy_update", "compact_update"}
     s = torch.randn(4, 6)
     tops.hc_softmax(s, 2, 3)
     tops.bcpnn_fwd(torch.rand(4, 5), torch.randn(5, 6), torch.zeros(6), 2, 3)

@@ -165,12 +165,16 @@ def test_layer_learn_masked_matches_jax(jb, tb):
 
 
 def test_unported_layouts_raise():
+    """The low-precision serving dtypes are not ported: they raise.  The
+    patchy layout is ported: it builds an exactly-nact mask."""
     patchy = tl.ProjSpec(LayerGeom(8, 2), LayerGeom(2, 4), nact=3)
-    with pytest.raises(NotImplementedError):
-        tl.init_projection(patchy, torch.Generator().manual_seed(0))
-    bf16 = tl.ProjSpec(LayerGeom(8, 2), LayerGeom(2, 4), infer_dtype="bf16")
-    with pytest.raises(NotImplementedError):
-        tl.init_projection(bf16, torch.Generator().manual_seed(0))
+    proj = tl.init_projection(patchy, torch.Generator().manual_seed(0))
+    assert proj.mask.sum(0).tolist() == [3.0, 3.0]
+    for dtype in ("bf16", "int8"):
+        spec = tl.ProjSpec(LayerGeom(8, 2), LayerGeom(2, 4), nact=3,
+                           infer_dtype=dtype)
+        with pytest.raises(NotImplementedError):
+            tl.init_projection(spec, torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------- network ----

@@ -14,6 +14,10 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      (CUDA-graph replay of 20 launches, median of 10), the plain version's
      time, one PyTorch library call's time where one computes the same
      function, and the least time the card could take (``bound_ms``).
+     The forward kernels also read bf16 weights (a bf16 serving pack);
+     the three int8 kernels run at Model 1's hidden shape, Model 1-struct's
+     and a ragged one, with ``torch._int_mm`` timed beside ``quant_fwd``
+     as a yardstick for the int8 product alone.
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
      32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
      supervised pass over 16384 synthetic images, then ``evaluate`` on
@@ -39,11 +43,19 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      steps from one state, kernels against the plain backend (a masked
      unsupervised step, and an online fold from trace clock 63 that
      crosses a rewire); and (c)'s hidden rates against fp64.
+  6. low-precision serving of the fitted Model 1 and Model 1-struct
+     (a), (b), (c) states: test accuracy in int8 and bf16 against fp32
+     (the repo's 0.5-point gate), with the launch counts of those
+     evaluations as predicted; for int8, a padded request bucket, the
+     kernel path against the plain path on 2048 test rows, a repack after
+     a feedback fold that must serve the new scales, and packing and
+     serving with the card forbidden to synchronise.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
-     and (c): wall time per step untraced, then device-busy time per step
-     from ``torch.profiler``, the idle share of the untraced wall time,
-     and the kernels that take the most device time.
+     and (c), and of the int8 and bf16 evaluation and served batches:
+     wall time per step untraced, then device-busy time per step from
+     ``torch.profiler``, the idle share of the untraced wall time, and the
+     kernels that take the most device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -60,10 +72,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
+# fp32 FLOP/s outside the tensor cores, and dense int8 tensor-core OP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_INT8_OPS_S = 1979e12
 TIMED_LAUNCHES = 20
 TIMED_REPLAYS = 10
 
@@ -106,9 +119,9 @@ def device_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, ops: float, peak: float):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -116,7 +129,8 @@ def bound(nbytes: float, flops: float):
 
 def kernel_cases(torch, gen):
     """(kernel, shape label, kernel call, plain call, library call or None,
-    bytes, flops, compare) for every checked shape."""
+    bytes, operations, compare, peak rate of those operations) for every
+    checked shape."""
     from repro_torch.kernels import ops, ref
 
     dev = "cuda"
@@ -142,28 +156,32 @@ def kernel_cases(torch, gen):
         return max(err_p.max().item(), err_w), ok_p and err_w <= 1e-4
 
     cases = []
+
+    def add(*case, peak=PEAK_FP32_FLOP_S):
+        cases.append((*case, peak))
+
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
                            ("ragged", 37, 3, 10)):
         s = randn(b, h * m) * 4
         lib = (lambda s=s, b=b, h=h, m=m:
                torch.softmax(s.view(b, h, m), dim=-1))
-        cases.append(("hc_softmax", label,
-                      lambda s=s, h=h, m=m: ops.hc_softmax(s, h, m),
-                      lambda s=s, h=h, m=m: ref.ref_hc_softmax(s, h, m),
-                      lib, 2 * s.numel() * 4, 6 * s.numel(),
-                      close_abs(2e-6)))
+        add("hc_softmax", label,
+            lambda s=s, h=h, m=m: ops.hc_softmax(s, h, m),
+            lambda s=s, h=h, m=m: ref.ref_hc_softmax(s, h, m),
+            lib, 2 * s.numel() * 4, 6 * s.numel(),
+            close_abs(2e-6))
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
                                  ("readout", 128, 4096, 1, 10),
                                  ("ragged", 37, 1000, 3, 10)):
         x, w, bias = rand(b, ni), randn(ni, hj * mj) * 0.1, randn(hj * mj)
         nj = hj * mj
-        cases.append(("bcpnn_fwd", label,
-                      lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
-                      ops.bcpnn_fwd(x, w, bias, hj, mj),
-                      lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
-                      ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
-                      None, 4 * (b * ni + ni * nj + nj + b * nj),
-                      2 * b * ni * nj + 7 * b * nj, close_abs(1e-5)))
+        add("bcpnn_fwd", label,
+            lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+            ops.bcpnn_fwd(x, w, bias, hj, mj),
+            lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+            ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
+            None, 4 * (b * ni + ni * nj + nj + b * nj),
+            2 * b * ni * nj + 7 * b * nj, close_abs(1e-5))
     # n: genuine rows of a zero-padded tail batch (None: all rows are)
     for label, b, n, hi, mi, hj, mj in (
             ("hidden", 128, None, 784, 2, 32, 128),
@@ -184,14 +202,14 @@ def kernel_cases(torch, gen):
             mask[:, 0] = 0.0
         a = torch.tensor(2e-3, device=dev, dtype=f32)
         args = (pij, lpi, lpj, x, y, mask, a)
-        cases.append(("bcpnn_update", label,
-                      lambda args=args, count=count:
-                      ops.bcpnn_update(*args, count=count),
-                      lambda args=args, count=count:
-                      ref.ref_bcpnn_update(*args, count=count),
-                      None,
-                      4 * (3 * ni * nj + ni + nj + b * (ni + nj) + hi * hj + 1),
-                      2 * (n or b) * ni * nj + 10 * ni * nj, close_update))
+        add("bcpnn_update", label,
+            lambda args=args, count=count:
+            ops.bcpnn_update(*args, count=count),
+            lambda args=args, count=count:
+            ref.ref_bcpnn_update(*args, count=count),
+            None,
+            4 * (3 * ni * nj + ni + nj + b * (ni + nj) + hi * hj + 1),
+            2 * (n or b) * ni * nj + 10 * ni * nj, close_update)
 
     # Patchy kernels: Model 1-struct (nact 128 of 784 input HCs, K = 256),
     # its padded tail for the updates, and a ragged shape.  Bytes count the
@@ -226,15 +244,15 @@ def kernel_cases(torch, gen):
                      ops.compact_forward(x, w, bias, t, mi),
                      lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
                      ref.ref_compact_forward(x, w, bias, t, mi))):
-                cases.append((name, label, kern, plain, None,
-                              4 * (live + nj) + small,
-                              2 * b * live + 7 * b * nj, close_abs(1e-5)))
+                add(name, label, kern, plain, None,
+                    4 * (live + nj) + small,
+                    2 * b * live + 7 * b * nj, close_abs(1e-5))
         lpi = torch.log(rand(ni) * 0.5 + 1e-4)
         lpj = torch.log(rand(nj) * 0.5 + 1e-4)
         a = torch.tensor(2e-3, device=dev, dtype=f32)
         pij, pij_c = rand(ni, nj) * 0.01 + 1e-5, rand(hj, k, mj) * 0.01 + 1e-5
         flops = 2 * (n or b) * live + 10 * live
-        cases.append((
+        add(
             "patchy_update", label,
             lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj, a=a,
             mi=mi, hj=hj, mj=mj:
@@ -243,8 +261,8 @@ def kernel_cases(torch, gen):
             mi=mi, hj=hj, mj=mj:
             ref.ref_patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj,
                                   count=c),
-            None, 4 * (3 * ni * nj + ni + nj) + small, flops, close_update))
-        cases.append((
+            None, 4 * (3 * ni * nj + ni + nj) + small, flops, close_update)
+        add(
             "compact_update", label,
             lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
             a=a, mi=mi:
@@ -252,11 +270,93 @@ def kernel_cases(torch, gen):
             lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
             a=a, mi=mi:
             ref.ref_compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
-            None, 4 * (3 * live + ni + nj) + small, flops, close_update))
+            None, 4 * (3 * live + ni + nj) + small, flops, close_update)
+
+    # bf16 serving packs through the forward kernels: weights and bias
+    # rounded to bf16 (2 bytes each), against the plain forward, which
+    # widens them to fp32.
+    bf16 = torch.bfloat16
+    b, ni, hj, mj = 128, 1568, 32, 128
+    nj = hj * mj
+    x, w, bias = rand(b, ni), (randn(ni, nj) * 0.1).to(bf16), \
+        randn(nj).to(bf16)
+    add("bcpnn_fwd", "hidden-bf16",
+        lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+        ops.bcpnn_fwd(x, w, bias, hj, mj),
+        lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
+        ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
+        None, 4 * b * ni + 2 * (ni * nj + nj) + 4 * b * nj,
+        2 * b * ni * nj + 7 * b * nj, close_abs(1e-5))
+    hi, mi, nact = 784, 2, 128
+    k, live = nact * mi, hj * nact * mi * mj
+    table = build_table(topk_mask(rand(hi, hj), nact), nact)
+    w_c = (randn(hj, k, mj) * 0.1).to(bf16)
+    small = 4 * (b * ni + b * nj + hj * nact)
+    for name, kern, plain in (
+            ("patchy_forward",
+             lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
+             ops.patchy_forward(x, w, bias, t, mi, hj, mj),
+             lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
+             ref.ref_patchy_forward(x, w, bias, t, mi, hj, mj)),
+            ("compact_forward",
+             lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
+             ops.compact_forward(x, w, bias, t, mi),
+             lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
+             ref.ref_compact_forward(x, w, bias, t, mi))):
+        add(name, "struct-bf16", kern, plain, None, 2 * (live + nj) + small,
+            2 * b * live + 7 * b * nj, close_abs(1e-5))
+
+    # The int8 kernels: Model 1's hidden layer (dense codes), Model
+    # 1-struct (patchy and compact codes) and a ragged shape whose rates
+    # leave [0, 1], so the codes clip.  Bytes: fp32 x, 1-byte codes (the
+    # live ones for the patchy layouts), fp32 bias, scale and rates;
+    # operations: the int8 products at the tensor cores' int8 rate.
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
+                                 ("ragged", 37, 1000, 3, 10)):
+        nj = hj * mj
+        x = rand(b, ni) if label == "hidden" else rand(b, ni) * 1.2 - 0.1
+        w_q, bias, scale = codes(ni, nj), randn(nj), rand(hj) * 0.02 + 1e-3
+        add("quant_fwd", label,
+            lambda x=x, w=w_q, bias=bias, sc=scale, hj=hj, mj=mj:
+            ops.quant_fwd(x, w, bias, sc, hj, mj),
+            lambda x=x, w=w_q, bias=bias, sc=scale, hj=hj, mj=mj:
+            ref.ref_quant_fwd(x, w, bias, sc, hj, mj),
+            None, 4 * b * ni + ni * nj + 4 * (nj + hj + b * nj),
+            2 * b * ni * nj, close_abs(1e-6), peak=PEAK_INT8_OPS_S)
+    for label, b, hi, mi, hj, mj, nact in (
+            ("struct", 128, 784, 2, 32, 128, 128),
+            ("ragged", 37, 13, 3, 3, 10, 4)):
+        ni, nj, k = hi * mi, hj * mj, nact * mi
+        live = hj * k * mj
+        table = build_table(topk_mask(rand(hi, hj), nact), nact)
+        x = rand(b, ni) if label == "struct" else rand(b, ni) * 1.2 - 0.1
+        w_q, w_c = codes(ni, nj), codes(hj, k, mj)
+        bias, scale = randn(nj), rand(hj) * 0.02 + 1e-3
+        for name, kern, plain in (
+                ("quant_patchy_forward",
+                 lambda x=x, w=w_q, bias=bias, sc=scale, t=table, mi=mi,
+                 hj=hj, mj=mj:
+                 ops.quant_patchy_forward(x, w, bias, sc, t, mi, hj, mj),
+                 lambda x=x, w=w_q, bias=bias, sc=scale, t=table, mi=mi,
+                 hj=hj, mj=mj:
+                 ref.ref_quant_patchy_forward(x, w, bias, sc, t, mi, hj, mj)),
+                ("quant_compact_forward",
+                 lambda x=x, w=w_c, bias=bias, sc=scale, t=table, mi=mi:
+                 ops.quant_compact_forward(x, w, bias, sc, t, mi),
+                 lambda x=x, w=w_c, bias=bias, sc=scale, t=table, mi=mi:
+                 ref.ref_quant_compact_forward(x, w, bias, sc, t, mi))):
+            add(name, label, kern, plain, None,
+                live + 4 * (b * ni + nj + hj + hj * nact + b * nj),
+                2 * b * live, close_abs(1e-6), peak=PEAK_INT8_OPS_S)
     return cases
 
 
 CU = "src/repro_torch/kernels/csrc/bcpnn.cu"
+QU = "src/repro_torch/kernels/csrc/quant.cu"
 # kernel -> (source, TPU kernel it replaces, shape label of its main row)
 SOURCES = {
     "hc_softmax": (CU, "src/repro/kernels/hc_softmax.py:35", "hidden"),
@@ -266,6 +366,9 @@ SOURCES = {
     "compact_forward": (CU, "src/repro/kernels/patchy.py:154", "struct"),
     "patchy_update": (CU, "src/repro/kernels/patchy.py:241", "struct"),
     "compact_update": (CU, "src/repro/kernels/patchy.py:289", "struct"),
+    "quant_fwd": (QU, "src/repro/kernels/quant.py:175", "hidden"),
+    "quant_compact_forward": (QU, "src/repro/kernels/quant.py:267", "struct"),
+    "quant_patchy_forward": (QU, "src/repro/kernels/quant.py:317", "struct"),
 }
 
 
@@ -273,7 +376,7 @@ def phase1(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
-    for name, label, kern, plain, lib, nbytes, flops, cmp in \
+    for name, label, kern, plain, lib, nbytes, n_ops, cmp, peak in \
             kernel_cases(torch, gen):
         got = kern()
         want = plain()
@@ -284,7 +387,7 @@ def phase1(torch):
         ms = device_ms(kern)
         plain_ms = device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, n_ops, peak)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
@@ -293,7 +396,28 @@ def phase1(torch):
               f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
               f"  bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
         rows.setdefault(name, {})[label] = row
+    int_mm_yardstick(torch, gen, rows["quant_fwd"]["hidden"])
     return rows
+
+
+def int_mm_yardstick(torch, gen, row):
+    """``torch._int_mm`` on quant_fwd's Model-1 operands: the int8 product
+    alone (codes in, int32 sums out; no quantization, dequant or softmax),
+    a yardstick for the product's share, not a library call computing the
+    kernel's function (``library_ms`` stays null).  Timed with the codes
+    row-major, as the packs hold them, and column-major, the layout the
+    int8 GEMMs of cuBLASLt take without a transpose."""
+    from repro_torch.kernels.quant import quantize_acts
+    a = quantize_acts(torch.rand((128, 1568), generator=gen, device="cuda"))
+    b = torch.randint(-127, 128, (1568, 4096), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b_cols = b.t().contiguous().t()
+    row["int_mm_ms"] = device_ms(lambda: torch._int_mm(a, b))
+    row["int_mm_col_major_ms"] = device_ms(lambda: torch._int_mm(a, b_cols))
+    print(f"[phase1] yardstick: torch._int_mm (128x1568 @ 1568x4096 int8, "
+          f"the product alone) {row['int_mm_ms'] * 1e3:.2f} us, with the "
+          f"codes column-major {row['int_mm_col_major_ms'] * 1e3:.2f} us",
+          flush=True)
 
 
 # --------------------------------------------------------------- phase 2 --
@@ -720,7 +844,155 @@ def phase5(torch, xtr, ytr, xte, yte):
     struct_tail_fit(torch, xtr, ytr)
     struct_single_steps(torch, fitted, xtr, ytr)
     struct_served_rates(torch, fitted["c"], xte)
-    return fitted["c"], launches
+    return fitted, launches
+
+
+# --------------------------------------------------------------- phase 6 --
+
+# The repo's accuracy gate for low-precision serving
+# (benchmarks/run.py:36, DESIGN.md §8): bf16 or int8 evaluation of a state
+# may lose at most this much test accuracy against fp32, in points.
+MAX_QUANT_ACC_DELTA_PP = 0.5
+# The forward kernel each state's stack projection runs per serving dtype.
+SERVE_KERNELS = {
+    "model1": {"int8": "quant_fwd", "bf16": "bcpnn_fwd"},
+    "struct_a": {"int8": "quant_patchy_forward", "bf16": "patchy_forward"},
+    "struct_b": {"int8": "quant_patchy_forward", "bf16": "patchy_forward"},
+    "struct_c": {"int8": "quant_compact_forward", "bf16": "compact_forward"},
+}
+
+
+def phase6_accuracy(torch, trainers, xte, yte):
+    """Each fitted state evaluated on the test rows in fp32, then in int8
+    and bf16 with the launch counts set to 0 just before and read just
+    after: accuracy within the gate, and exactly one forward-kernel and one
+    hc_softmax launch per batch (the readout's product is a plain matmul,
+    as in the reference)."""
+    from repro_torch.core import evaluate_padded
+    from repro_torch.kernels import ops
+    batches = -(-len(xte) // 128)
+    runs = {}
+    for run, tr in trainers.items():
+        acc32 = tr.evaluate(xte, yte)
+        line = [f"fp32 {acc32:.4f}"]
+        for dtype in ("int8", "bf16"):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            acc = evaluate_padded(tr.state, tr.spec.with_infer_dtype(dtype),
+                                  xte, yte)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            want = {name: 0 for name in got}
+            want[SERVE_KERNELS[run][dtype]] = batches
+            want["hc_softmax"] = batches
+            check(got == want, f"({run}, {dtype}) evaluation launched {got}, "
+                               f"predicted {want}")
+            delta = (acc32 - acc) * 100
+            check(delta <= MAX_QUANT_ACC_DELTA_PP,
+                  f"({run}) {dtype} test accuracy {acc:.4f} loses "
+                  f"{delta:.2f} pp against fp32 {acc32:.4f} (gate "
+                  f"{MAX_QUANT_ACC_DELTA_PP} pp)")
+            line.append(f"{dtype} {acc:.4f} ({(acc - acc32) * 100:+.2f} pp)")
+            runs[f"{run}_{dtype}"] = got
+        print(f"[phase6] ({run}) test accuracy on {len(xte)} rows: "
+              + ", ".join(line) + f"; launches as predicted ({batches} "
+              f"batches)", flush=True)
+    return runs
+
+
+def phase6_serving(torch, run, tr, xte, yte):
+    """int8 serving of one fitted state: a padded request bucket, the
+    kernel path against the plain path on the test rows, and a repack
+    after a feedback fold."""
+    from repro_torch.core.bcpnn_layer import packed_forward, packed_support
+    from repro_torch.core.network import (infer, infer_packed,
+                                          online_learn_step, pack_state)
+    dev = tr.device
+    spec, state = tr.spec.with_infer_dtype("int8"), tr.state
+    params = pack_state(state, spec)
+    xb = torch.zeros((8, xte.shape[1]), dtype=torch.float32, device=dev)
+    xb[:5] = torch.from_numpy(xte[:5]).to(dev)
+    valid = (torch.arange(8, device=dev) < 5).to(torch.float32)
+    probs, pred = infer_packed(params, spec, xb, valid)
+    check(bool((probs[5:] == 0).all()), f"({run}) int8 pad rows carry "
+                                        f"probability")
+    check(bool((pred[5:] == -1).all()), f"({run}) int8 pad rows carry a "
+                                        f"prediction")
+    _, pred5 = infer_packed(params, spec, xb[:5])
+    check(bool((pred[:5] == pred5).all()), f"({run}) padding changed an int8 "
+                                           f"prediction")
+
+    x = torch.from_numpy(xte).to(dev)
+    pk, qk = infer(state, spec, x)
+    pp, qp = infer(state, spec.with_backend("torch"), x)
+    err = (pk - pp).abs().max().item()
+    agree = (qk == qp).float().mean().item()
+    check(err <= 1e-4, f"({run}) int8 served probs differ by {err:.3e} > 1e-4")
+    check(agree >= 0.999, f"({run}) int8 served preds agree on only "
+                          f"{agree:.6f}")
+
+    # Stale-scale rule: after a fold, packing again gives new scales and
+    # serving reads them.  The fitted readout's probabilities saturate, so
+    # the packs are told apart by the hidden rates and the readout support.
+    xf = torch.from_numpy(xte[:128]).to(dev)
+    yf = torch.from_numpy(yte[:128]).to(dev)
+    folded = online_learn_step(state, spec, xf, yf)
+    fresh = pack_state(folded, spec)
+    moved = [bool((a.scale != b.scale).any())
+             for a, b in zip(fresh.projs + (fresh.readout,),
+                             params.projs + (params.readout,))]
+    check(all(moved), f"({run}) repacking after a fold left a projection's "
+                      f"scales as they were: {moved}")
+    p_fresh, _ = infer_packed(fresh, spec, x)
+    check(torch.equal(p_fresh, infer(folded, spec, x)[0]),
+          f"({run}) the repacked serving path disagrees with infer on the "
+          f"folded state")
+    ps, rs = spec.projs[0], spec.readout
+    h_fresh = packed_forward(fresh.projs[0], ps, xf)
+    h_stale = packed_forward(params.projs[0], ps, xf)
+    d_hidden = (h_fresh - h_stale).abs().max().item()
+    d_support = (packed_support(fresh.readout, rs, h_fresh)
+                 - packed_support(params.readout, rs, h_fresh)
+                 ).abs().max().item()
+    check(d_hidden > 0 and d_support > 0,
+          f"({run}) the stale pack serves what the fresh one does (hidden "
+          f"rates {d_hidden:.3e}, readout support {d_support:.3e} apart)")
+    print(f"[phase6] ({run}) int8 serving: bucket of 8 (5 valid) pad rows "
+          f"inert; kernel vs plain infer on {len(xte)} rows max abs err "
+          f"{err:.3e}, pred agreement {agree:.6f}; after a fold every "
+          f"projection's scales moved and serving read them (stale pack's "
+          f"hidden rates {d_hidden:.3e} and readout support {d_support:.3e} "
+          f"away)", flush=True)
+
+
+def phase6_no_sync(torch, trainers, xte):
+    """Packing and serving in int8 with any implicit device
+    synchronisation an error."""
+    from repro_torch.core.network import infer_packed, pack_state
+    x = torch.from_numpy(xte[:128]).cuda()
+    for run in ("model1", "struct_c"):
+        spec = trainers[run].spec.with_infer_dtype("int8")
+        state = trainers[run].state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params = pack_state(state, spec)
+            for _ in range(3):
+                infer_packed(params, spec, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print("[phase6] int8 pack_state and infer_packed of Model 1 and (c) ran "
+          "with no device synchronisation", flush=True)
+
+
+def phase6(torch, tr, fitted, xte, yte):
+    trainers = {"model1": tr, **{f"struct_{v}": t for v, t in fitted.items()}}
+    runs = phase6_accuracy(torch, trainers, xte, yte)
+    for run in trainers:
+        phase6_serving(torch, run, trainers[run], xte, yte)
+    phase6_no_sync(torch, trainers, xte)
+    return runs
 
 
 # --------------------------------------------------------------- phase 4 --
@@ -729,11 +1001,14 @@ def phase4(torch, tr, tr_c, xte, yte):
     """Time, then trace, 20 steps of each main-path step type on the
     fitted dense Model-1 state, and of (c)'s unsupervised step and eval
     batch on its fitted Model 1-struct state (results are dropped; only
-    the state's generator advances).  The trace slows the host, so the
-    idle share divides the traced device-busy time by the untraced wall
-    time."""
+    the state's generator advances); then, for both states, the eval
+    batch in int8 and bf16 (``infer``, which packs the state on every
+    call) and the served batch (``infer_packed`` on a pack made once).
+    The trace slows the host, so the idle share divides the traced
+    device-busy time by the untraced wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.network import (infer, supervised_readout_step,
+    from repro_torch.core.network import (infer, infer_packed, pack_state,
+                                          supervised_readout_step,
                                           train_projection_step)
     dev = tr.device
     spec, state = tr.spec, tr.state
@@ -748,6 +1023,14 @@ def phase4(torch, tr, tr_c, xte, yte):
                                                         0),
         "(c) eval_batch": lambda: infer(state_c, spec_c, x),
     }
+    for label, st, sp in (("", state, spec), ("(c) ", state_c, spec_c)):
+        for dtype in ("int8", "bf16"):
+            sp_d = sp.with_infer_dtype(dtype)
+            params = pack_state(st, sp_d)
+            steps[f"{label}{dtype} eval_batch"] = \
+                lambda st=st, sp_d=sp_d: infer(st, sp_d, x)
+            steps[f"{label}{dtype} served_batch"] = \
+                lambda params=params, sp_d=sp_d: infer_packed(params, sp_d, x)
     n = 20
     for name, fn in steps.items():
         for _ in range(3):
@@ -804,16 +1087,22 @@ def main() -> int:
     tr, data, launches = phase2(torch)
     xtr, ytr, xte, yte = data
     phase3(torch, tr, xte, yte)
-    tr_c, struct_launches = phase5(torch, xtr, ytr, xte, yte)
-    phase4(torch, tr, tr_c, xte, yte)
+    fitted, struct_launches = phase5(torch, xtr, ytr, xte, yte)
+    serve_launches = phase6(torch, tr, fitted, xte, yte)
+    phase4(torch, tr, fitted["c"], xte, yte)
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);
-    # patchy: (b)); every run's counts are under "runs".
+    # patchy: (b)), the int8 kernels' from phase 6's int8 evaluation of
+    # the state that runs them; every run's counts are under "runs".
     runs = {"model1": launches, **{f"struct_{v}": c
-                                   for v, c in struct_launches.items()}}
+                                   for v, c in struct_launches.items()},
+            **serve_launches}
     main_run = {"patchy_forward": "struct_b", "patchy_update": "struct_b",
-                "compact_forward": "struct_c", "compact_update": "struct_c"}
+                "compact_forward": "struct_c", "compact_update": "struct_c",
+                "quant_fwd": "model1_int8",
+                "quant_patchy_forward": "struct_b_int8",
+                "quant_compact_forward": "struct_c_int8"}
     kernels = []
     for name, (source, replaces, label) in SOURCES.items():
         row = rows[name][label]

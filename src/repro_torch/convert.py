@@ -10,6 +10,16 @@ The tree is a nested dict that mirrors the JAX ``DeepState`` fields::
 ``pij``/``w`` as (Hj, K, Mj) and ``table`` as (Hj, nact) int32).  The JAX
 PRNG key is not carried over: the port's generator is seeded instead, so
 noisy unsupervised steps draw other numbers than JAX would.
+
+Serving packs (the JAX ``InferParams``) cross the same way::
+
+    {"projs": [pack, ...], "readout": pack}
+    pack = {"w", "b", "scale", "table"}
+
+with ``w``/``b`` in the serving dtype (float32; bfloat16 as the
+``ml_dtypes`` arrays JAX hands to numpy; int8 codes with float32 ``b``),
+``scale`` (Hj,) float32 for int8 packs and ``table`` (Hj, nact) int32 for
+patchy ones, else None.
 """
 from __future__ import annotations
 
@@ -18,8 +28,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .core.bcpnn_layer import Projection
-from .core.network import DeepState, NetworkSpec, as_spec
+from .core.bcpnn_layer import InferPack, Projection, ProjSpec, is_patchy
+from .core.network import DeepState, InferParams, NetworkSpec, as_spec
 from .core.traces import Traces
 from .device import DeviceLike, make_generator, resolve_device
 
@@ -98,3 +108,59 @@ def state_to_numpy(state: DeepState) -> Dict[str, Any]:
         "readout": _projection_to_numpy(state.readout),
         "step": int(state.step),
     }
+
+
+# infer_dtype -> numpy dtype name of a pack's weights
+_PACK_DTYPES = {"fp32": "float32", "bf16": "bfloat16", "int8": "int8"}
+
+
+def _pack_tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16: move the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _pack_from_numpy(d: Dict[str, Any], ps: ProjSpec, dev: torch.device,
+                     where: str) -> InferPack:
+    name = _PACK_DTYPES[ps.infer_dtype]
+    if ps.compact:
+        weights = (ps.post.H, ps.nact * ps.pre.M, ps.post.M)
+    else:
+        weights = (ps.pre.N, ps.post.N)
+    want = {"w": (weights, name),
+            "b": ((ps.post.N,), "float32" if name == "int8" else name),
+            "scale": (((ps.post.H,), "float32")
+                      if ps.infer_dtype == "int8" else None),
+            "table": (((ps.post.H, ps.nact), "int32")
+                      if is_patchy(ps) else None)}
+    got = {}
+    for key, spec in want.items():
+        a = d.get(key)
+        have = None if a is None else (tuple(np.shape(a)),
+                                       np.asarray(a).dtype.name)
+        if have != spec:
+            raise ValueError(f"{where}.{key} is {have}, a {ps.infer_dtype} "
+                             f"pack of this spec needs {spec}")
+        got[key] = None if a is None else _pack_tensor(a, dev)
+    # The JAX package's pack_projection built this pack at a fold boundary:
+    # repro: suppress[infer-pack-mutation] — only its arrays move here
+    return InferPack(**got)
+
+
+def params_from_numpy(tree: Dict[str, Any], spec_or_cfg,
+                      device: DeviceLike = None) -> InferParams:
+    """Build the port's ``InferParams`` on ``device`` from a numpy tree of
+    serving packs (a JAX ``pack_state`` result), checking every array's
+    shape and dtype against ``spec_or_cfg`` and its ``infer_dtype``s."""
+    spec: NetworkSpec = as_spec(spec_or_cfg)
+    dev = resolve_device(device)
+    if len(tree["projs"]) != spec.depth:
+        raise ValueError(f"tree has {len(tree['projs'])} stack packs, spec "
+                         f"has {spec.depth}")
+    return InferParams(
+        projs=tuple(_pack_from_numpy(p, ps, dev, f"projs[{l}]")
+                    for l, (p, ps) in enumerate(zip(tree["projs"],
+                                                    spec.projs))),
+        readout=_pack_from_numpy(tree["readout"], spec.readout, dev,
+                                 "readout"))

@@ -16,9 +16,12 @@ dispatch point.  Three layouts share ``Projection``: dense (no ``nact``
 budget), patchy dense-resident (a binding ``nact``; with
 ``patchy_traces`` silent synapses hold their joint trace), and
 compact-resident (``compact``: ``pij``/``w`` are (Hj, K, Mj) and
-``table`` holds the (Hj, nact) active pre-HCs).  ``infer_dtype != "fp32"``
-is accepted by ``ProjSpec`` (so specs round-trip) and raises
-``NotImplementedError`` when used.
+``table`` holds the (Hj, nact) active pre-HCs).
+
+Learning state is fp32 whatever ``infer_dtype`` says (DESIGN.md §8): the
+serving dtype enters only through the derived ``InferPack`` of
+``pack_projection`` (bf16 casts, int8 per-post-HC codes and scales), read
+by ``packed_forward``/``packed_support``.
 """
 from __future__ import annotations
 
@@ -34,8 +37,7 @@ from .traces import (Traces, init_traces, mutual_information,
 
 BACKENDS = ("torch", "cuda")
 
-# Serving dtypes of the JAX package's dtype-polymorphic inference path;
-# only fp32 is ported.
+# Serving dtypes of the dtype-polymorphic inference path.
 INFER_DTYPES = ("fp32", "bf16", "int8")
 
 
@@ -74,6 +76,9 @@ class ProjSpec:
     def with_backend(self, backend: str) -> "ProjSpec":
         return dataclasses.replace(self, backend=backend)
 
+    def with_infer_dtype(self, infer_dtype: str) -> "ProjSpec":
+        return dataclasses.replace(self, infer_dtype=infer_dtype)
+
 
 @dataclasses.dataclass
 class Projection:
@@ -91,12 +96,16 @@ class Projection:
 
 @dataclasses.dataclass
 class InferPack:
-    """Forward-only view of one projection in its serving dtype; fp32 packs
-    (the only ones ported) alias the projection's own tensors.  Patchy
+    """Forward-only view of one projection in its serving dtype (DESIGN.md
+    §8), built by ``pack_projection`` from the fp32 state at fold
+    boundaries: ``w`` is cast (bf16) or per-post-HC quantized (int8, with
+    ``scale``), in the dense (Ni, Nj) or compact (Hj, K, Mj) layout of its
+    projection; fp32 packs alias the projection's own tensors.  Patchy
     packs carry their index table as data."""
 
-    w: torch.Tensor
-    b: torch.Tensor
+    w: torch.Tensor                       # weights in the serving dtype
+    b: torch.Tensor                       # (Nj,) log-prior bias
+    scale: Optional[torch.Tensor] = None  # (Hj,) per-post-HC scales, int8
     table: Optional[torch.Tensor] = None  # (Hj, nact), patchy only
 
 
@@ -114,6 +123,12 @@ def _compact_ops():
     # Lazy: core.compact imports this module for the Projection type.
     from . import compact
     return compact
+
+
+def _quant_ops():
+    # Lazy: the kernels package imports this module for the state types.
+    from ..kernels import quant
+    return quant
 
 
 def validate_patchy_mask(mask: torch.Tensor, spec: ProjSpec,
@@ -173,14 +188,6 @@ def validate_patchy_state(proj: Projection, spec: ProjSpec,
             f"serving.")
 
 
-def require_fp32(spec: ProjSpec, what: str) -> None:
-    """Refuse the serving dtypes the port has not ported yet."""
-    if spec.infer_dtype != "fp32":
-        raise NotImplementedError(
-            f"{what}: infer_dtype={spec.infer_dtype!r} is not ported yet "
-            f"(ROADMAP.md queue A item 5, queue B items 8-10)")
-
-
 def apply_hc_mask(w: torch.Tensor, mask: torch.Tensor,
                   spec: ProjSpec) -> torch.Tensor:
     """Mask a (Ni, Nj) unit matrix with the (Hi, Hj) HC-level mask through
@@ -216,7 +223,6 @@ def init_projection(spec: ProjSpec, generator: torch.Generator) -> Projection:
     set of pre-HCs (scores drawn from ``generator`` after the traces);
     compact specs are then gathered into the (Hj, K, Mj) layout.  The
     state lives on the generator's device."""
-    require_fp32(spec, "init_projection")
     tr = init_traces(spec.pre.N, spec.post.N, spec.pre.M, spec.post.M,
                      generator=generator)
     dev = generator.device
@@ -245,7 +251,6 @@ def _kernel_ops():
 
 def forward(proj: Projection, spec: ProjSpec, x: torch.Tensor) -> torch.Tensor:
     """Activation stage: rates -> post-synaptic rates.   x: (B, Ni)."""
-    require_fp32(spec, "forward")
     if spec.backend == "cuda":
         return _kernel_ops().fused_forward(proj, spec, x)
     return hc_softmax(support(proj, spec, x), spec.post, spec.gain)
@@ -258,7 +263,6 @@ def support(proj: Projection, spec: ProjSpec, x: torch.Tensor) -> torch.Tensor:
     contracted against the (Hj, K, Mj) weights.  fp32 matmuls on the card
     stay fp32 unless TF32 is enabled globally, which the port never
     does."""
-    require_fp32(spec, "support")
     if proj.w.ndim == 3:
         return _compact_ops().compact_support(x, proj.w, proj.b, proj.table,
                                               spec.pre.M)
@@ -276,7 +280,6 @@ def normalize(support_vals: torch.Tensor, spec: ProjSpec) -> torch.Tensor:
 def learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
           y: torch.Tensor) -> Projection:
     """Plasticity stage: one streaming batch update of traces + weights."""
-    require_fp32(spec, "learn")
     if spec.backend == "cuda":
         return _kernel_ops().fused_learn(proj, spec, x, y)
     if is_compact(spec) and proj.table is not None:
@@ -287,32 +290,57 @@ def learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
 # ------------------------------------------- packed (serving) dispatch ----
 
 def pack_projection(proj: Projection, spec: ProjSpec) -> InferPack:
-    """The forward-only ``InferPack`` of one projection; fp32 packs alias
-    the state's tensors (packing is free).  Patchy packs get their index
-    table: the compact state's leaf, or the mask-identity memo's."""
-    require_fp32(spec, "pack_projection")
+    """The forward-only ``InferPack`` of one projection in
+    ``spec.infer_dtype``, derived from the fp32 state: the fold-boundary
+    half of the precision contract (DESIGN.md §8).  fp32 packs alias the
+    state's tensors (packing is free); bf16 casts ``w`` and ``b``; int8
+    quantizes ``w`` per post-HC.  Patchy packs get their index table: the
+    compact state's leaf, or the mask-identity memo's."""
     table = proj.table
     if table is None and is_patchy(spec):
         table = _compact_ops().cached_table(proj.mask, spec.nact)
+    if spec.infer_dtype == "bf16":
+        return InferPack(w=proj.w.to(torch.bfloat16),
+                         b=proj.b.to(torch.bfloat16), table=table)
+    if spec.infer_dtype == "int8":
+        q = _quant_ops()
+        if proj.w.ndim == 3:
+            w_q, scale = q.quantize_compact(proj.w)
+        else:
+            w_q, scale = q.quantize_dense(proj.w, spec.post.H, spec.post.M)
+        return InferPack(w=w_q, b=proj.b, scale=scale, table=table)
     return InferPack(w=proj.w, b=proj.b, table=table)
 
 
 def packed_forward(pack: InferPack, spec: ProjSpec,
                    x: torch.Tensor) -> torch.Tensor:
-    """Activation stage from an ``InferPack``."""
+    """Activation stage from an ``InferPack`` (same dispatch contract as
+    ``forward``, over the serving-dtype weights)."""
     if spec.backend == "cuda":
-        return _kernel_ops().fused_forward(pack, spec, x)
+        return _kernel_ops().fused_packed_forward(pack, spec, x)
     return hc_softmax(packed_support(pack, spec, x), spec.post, spec.gain)
 
 
 def packed_support(pack: InferPack, spec: ProjSpec,
                    x: torch.Tensor) -> torch.Tensor:
-    """Log-domain support from an fp32 ``InferPack``."""
-    require_fp32(spec, "packed_support")
+    """Log-domain support from an ``InferPack``, always fp32: fp32 and bf16
+    packs contract in fp32; int8 runs the fixed-point plain arithmetic
+    (quantized activations, scale-folded dequant).  Plain torch on both
+    backends, as the JAX package leaves it to its compiler."""
+    if pack.w.dtype == torch.int8:
+        q = _quant_ops()
+        if pack.w.ndim == 3:
+            return q.quant_support_compact_torch(x, pack.w, pack.scale,
+                                                 pack.b, pack.table,
+                                                 spec.pre.M)
+        return q.quant_support_dense_torch(x, pack.w, pack.scale, pack.b,
+                                           spec.post.H, spec.post.M)
+    w = pack.w.to(torch.float32)
+    b = pack.b.to(torch.float32)
     if pack.w.ndim == 3:
-        return _compact_ops().compact_support(x, pack.w, pack.b, pack.table,
+        return _compact_ops().compact_support(x, w, b, pack.table,
                                               spec.pre.M)
-    return pack.b[None, :] + x @ pack.w
+    return b[None, :] + x @ w
 
 
 # ------------------------------------------------------ torch reference ----
@@ -325,7 +353,6 @@ def apply_dense_stats(proj: Projection, spec: ProjSpec, xm: torch.Tensor,
     synapses hold their joint trace (patchy-held), or, for a compact spec
     on a dense-layout state, sit at the independence product p_i*p_j (the
     dense-compute oracle of the compact semantics)."""
-    require_fp32(spec, "apply_dense_stats")
     tr = update_traces_from_stats(proj.traces, xm, ym, co, spec.alpha)
     if is_patchy(spec) and spec.patchy_traces:
         hi, mi, hj, mj = spec.pre.H, spec.pre.M, spec.post.H, spec.post.M
@@ -368,7 +395,6 @@ def learn_masked(proj: Projection, spec: ProjSpec, x: torch.Tensor,
     count, read on the device, as its divisor.  (The JAX package runs this
     step plain on both backends: its Pallas kernels bake in a static batch
     divisor.)"""
-    require_fp32(spec, "learn_masked")
     xv, yv, n = masked_inputs(x, y, valid)
     if spec.backend == "cuda":
         return _kernel_ops().fused_learn(proj, spec, xv, yv, count=n)

@@ -92,6 +92,18 @@ class NetworkSpec:
             readout=self.readout.with_backend(backend),
         )
 
+    def with_infer_dtype(self, infer_dtype: str) -> "NetworkSpec":
+        """Same network, every projection serving in ``infer_dtype``."""
+        return NetworkSpec(
+            projs=tuple(p.with_infer_dtype(infer_dtype) for p in self.projs),
+            readout=self.readout.with_infer_dtype(infer_dtype),
+        )
+
+    @property
+    def uses_low_precision(self) -> bool:
+        return any(p.infer_dtype != "fp32"
+                   for p in self.projs + (self.readout,))
+
 
 def _as_geom(g: GeomLike) -> LayerGeom:
     return g if isinstance(g, LayerGeom) else LayerGeom(*g)
@@ -279,15 +291,18 @@ def online_learn_step(state: DeepState, spec: NetworkSpec, x: torch.Tensor,
 
 @dataclasses.dataclass
 class InferParams:
-    """Forward-only network view: one ``InferPack`` per stack projection
-    plus the readout."""
+    """Forward-only network view in the serving dtypes: one ``InferPack``
+    per stack projection plus the readout, derived from the fp32
+    ``DeepState`` by ``pack_state`` at fold boundaries (DESIGN.md §8)."""
 
     projs: Tuple[InferPack, ...]
     readout: InferPack
 
 
 def pack_state(state: DeepState, spec_or_cfg) -> InferParams:
-    """Every projection's inference weights (fp32: aliases of the state)."""
+    """Every projection's inference weights in its spec'd ``infer_dtype``:
+    fp32 packs alias the state's tensors, bf16 casts, int8 quantizes with
+    per-post-HC scales.  A pack is a snapshot: after a fold, pack again."""
     spec = as_spec(spec_or_cfg)
     return InferParams(
         projs=tuple(pack_projection(p, ps)
@@ -309,7 +324,10 @@ def _mask_invalid(probs: torch.Tensor, pred: torch.Tensor,
 def infer_packed(params: InferParams, spec_or_cfg, x: torch.Tensor,
                  valid: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``infer`` over pre-derived ``InferParams``: the serving hot path."""
+    """``infer`` over pre-derived ``InferParams``: the serving hot path.
+    Equal to ``infer`` for all-fp32 specs (the packs alias the state);
+    low-precision specs serve the weights packed at the last fold boundary,
+    never requantized per request."""
     spec = as_spec(spec_or_cfg)
     h = x
     for pack, pspec in zip(params.projs, spec.projs):
@@ -325,9 +343,13 @@ def infer(state: DeepState, spec_or_cfg, x: torch.Tensor,
     """Inference-only path: class probabilities + argmax predictions (the
     first maximum wins, as in JAX).  ``valid`` (optional, (B,) 0/1) marks
     genuine rows of a padded batch: pad rows get probs 0 and pred -1.
-    Low-precision specs (served through ``infer_packed`` in the JAX
-    package) raise: only fp32 is ported."""
+    Specs with a low-precision ``infer_dtype`` evaluate through the pack
+    and packed forward the serving path uses (packing on every call), so
+    offline accuracy is the serving dtype's; all-fp32 specs read the state
+    directly."""
     spec = as_spec(spec_or_cfg)
+    if spec.uses_low_precision:
+        return infer_packed(pack_state(state, spec), spec, x, valid)
     h = stack_rates(state, spec, x)
     s = support(state.readout, spec.readout, h)
     probs = normalize(s, spec.readout)

@@ -1,12 +1,14 @@
 """Build, load and launch helpers for the hand-written CUDA kernels.
 
-``csrc/bcpnn.cu`` is compiled at first use with ``nvcc`` into a shared
-library with a plain C interface and loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds).  The library lands in
+Every ``csrc/*.cu`` is compiled at first use with ``nvcc``, one process
+per source, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds).  The library lands in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once.  Nothing here runs at import time: the CPU tests import
-every module of the port on a machine without ``nvcc``.
+every file in ``csrc/`` and the flags, so an edit to any of them rebuilds
+and an unchanged tree loads at once.  Nothing here runs at import time:
+the CPU tests import every module of the port on a machine without
+``nvcc``.
 
 No ``--use_fast_math``: ``expf``/``logf`` and division stay IEEE, or the
 ``log(pij)`` weight fold drifts beyond the 1e-4 parity tolerance.
@@ -20,14 +22,14 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "bcpnn.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,13 +37,15 @@ _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream are void*).
 _SIGNATURES = {
     "bcpnn_hc_softmax": (_P, _P, ctypes.c_longlong, _I, _F, _P),
-    "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _F, _P),
-    "bcpnn_patchy_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _P),
+    "bcpnn_patchy_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P),
     "bcpnn_patchy_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "bcpnn_quant_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -58,30 +62,53 @@ def _nvcc() -> str:
                        "the CUDA kernels are built on the machine with the card")
 
 
+def sources() -> List[Path]:
+    """The kernel sources, each compiled on its own."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libbcpnn_{digest}.so"
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libbcpnn_{h.hexdigest()[:16]}.so"
+
+
+def _check(proc: subprocess.CompletedProcess, cmd: List[str]) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
 
 
 def build() -> Path:
-    """Compile the kernels if this source has no library yet; return its
-    path.  The compile writes to a temporary name and renames, so two
-    processes building at once never load a half-written file."""
+    """Compile the kernels if these sources have no library yet; return its
+    path.  The sources compile in parallel into a temporary directory; the
+    link writes to a temporary name and renames, so two processes building
+    at once never load a half-written file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, jobs = [], []
+        for src in sources():
+            obj = str(Path(tmpdir, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE,
+                                               text=True)))
+            objs.append(obj)
+        outputs = [job.communicate() for _, job in jobs]  # all end first
+        for (cmd, job), (stdout, stderr) in zip(jobs, outputs):
+            _check(subprocess.CompletedProcess(cmd, job.returncode, stdout,
+                                               stderr), cmd)
+        tmp = str(Path(tmpdir, out.name))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _check(subprocess.run(cmd, capture_output=True, text=True), cmd)
+        os.replace(tmp, out)
     return out
 
 
@@ -139,3 +166,27 @@ def require_current_device(t: torch.Tensor) -> None:
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"tensor on {t.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
+
+
+def weight_dtype(w: torch.Tensor) -> torch.dtype:
+    """The element type of a forward kernel's weights and bias: float32, or
+    the bfloat16 of a bf16 serving pack.  Raises on anything else."""
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w has dtype {w.dtype}; the forward kernels take "
+                         f"float32 or bfloat16 weights")
+    return w.dtype
+
+
+def check_table(table: torch.Tensor, hj: int, ni: int, mi: int,
+                dev: torch.device) -> int:
+    """Validate a patchy kernel's (Hj, nact) int32 index table against the
+    geometry; return nact."""
+    if table.dim() != 2 or table.shape[0] != hj:
+        raise ValueError(f"table has shape {tuple(table.shape)}, expected "
+                         f"({hj}, nact)")
+    nact = table.shape[1]
+    if mi <= 0 or ni % mi or not 0 < nact <= ni // mi:
+        raise ValueError(f"table of {nact} pre-HCs does not fit Ni={ni} "
+                         f"with Mi={mi}")
+    require(table, "table", (hj, nact), dev, torch.int32)
+    return nact

@@ -12,6 +12,10 @@ Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the product is
 1.64 GFLOP, ~24.5 us at the H100's 67 TFLOP/s fp32 rate; its 28.6 MB of
 traffic take ~8.5 us.  It stays in fp32 on the CUDA cores: TF32 tensor
 cores would break the 1e-5 rate parity.
+
+A bf16 serving pack's weights and bias are read as bf16 and widened to
+fp32 in the tile load (the TPU kernel casts its operands the same way):
+half the weight bytes, the same fp32 arithmetic.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import ctypes
 import torch
 
 from ._build import (check_launch, library, require, require_current_device,
-                     stream_ptr)
+                     stream_ptr, weight_dtype)
 from .ref import ref_bcpnn_fwd
 
 # Kernel launches in this process (only where the kernel is launched).
@@ -32,7 +36,8 @@ def bcpnn_fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """x: (B, Ni), w: (Ni, n_hc*n_mc), bias: (n_hc*n_mc,) -> rates (B, Nj).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32, contiguous, one device) or raise."""
+    (x float32; w and bias both float32 or both bfloat16; contiguous, one
+    device) or raise."""
     global LAUNCHES
     if x.device.type == "cpu":
         return ref_bcpnn_fwd(x, w, bias, n_hc, n_mc, gain)
@@ -40,12 +45,14 @@ def bcpnn_fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     b, ni = x.shape
     nj = n_hc * n_mc
     require(x, "x", (b, ni), x.device)
-    require(w, "w", (ni, nj), x.device)
-    require(bias, "bias", (nj,), x.device)
+    wt = weight_dtype(w)
+    require(w, "w", (ni, nj), x.device, wt)
+    require(bias, "bias", (nj,), x.device, wt)
     out = torch.empty((b, nj), dtype=torch.float32, device=x.device)
     rc = library().bcpnn_fwd(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, ni, n_hc, n_mc, ctypes.c_float(gain), stream_ptr(x))
+        b, ni, n_hc, n_mc, int(wt == torch.bfloat16), ctypes.c_float(gain),
+        stream_ptr(x))
     check_launch(rc, "bcpnn_fwd")
     LAUNCHES += 1
     return out

@@ -21,50 +21,24 @@
 // no fast-math intrinsics, because trace increments are ~1e-5 and the
 // log-weight fold must stay within 1e-4 of the fp32 reference.  Each kernel
 // computes its own offsets and masks ragged edges itself (no pad plan).
+// The forward body is also templated on its weight and bias element type:
+// fp32, or the bf16 of a serving pack, widened to fp32 in the tile load
+// (the TPU kernels cast their operands to f32 in-kernel the same way).
+// The int8 forwards of a serving pack are in quant.cu.
 //
 // C interface: every entry point takes raw device pointers, sizes and the
 // CUDA stream, launches on that stream without synchronising, allocates
 // nothing, and returns cudaGetLastError() so the Python wrapper can raise
-// on a refused launch.  Built by repro_torch/kernels/_build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// on a refused launch.  Built by repro_torch/kernels/_build.py, with
+// quant.cu, into one library: each source compiled on its own with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
+// and the objects linked with the same flags and -shared.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Weight layouts of the forward and update bodies.
-enum Layout : int { kDense = 0, kPatchy = 1, kCompact = 2 };
-
-// Pre-synaptic unit (column of x, row of a dense-resident array) of
-// contraction index k in post-HC h: k itself when dense, else the k-th
-// live unit of the HC's ascending index table.
-template <int L>
-__device__ __forceinline__ int unit_of(const int* __restrict__ table, int h, int k, int Mi,
-                                       int nact) {
-  if constexpr (L == kDense) {
-    return k;
-  } else {
-    const int q = k / Mi;
-    return table[h * nact + q] * Mi + (k - q * Mi);
-  }
-}
+using namespace bcpnn;
 
 // ------------------------------------------------------------ hc_softmax --
 //
@@ -179,14 +153,12 @@ __device__ __forceinline__ void lds(const float* p, float* d) {
 
 // Barrier of one K-group only (ids 1.. ; 0 is __syncthreads), so the
 // groups drift apart and one group's loads overlap another's FMAs.
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kFwdGroupThreads) : "memory");
-}
+__device__ __forceinline__ void group_sync(int g) { group_barrier(g, kFwdGroupThreads); }
 
-template <int CPT, int L>
+template <int CPT, int L, typename T>
 __global__ void __launch_bounds__(kFwdThreads)
-bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, const int* __restrict__ table,
+bcpnn_fwd_kernel(const float* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, const int* __restrict__ table,
                  float* __restrict__ out, int B, int Ni, int K, int Nj, int Mj, int Mi,
                  int nact, float gain) {
   constexpr int V = CPT < 4 ? CPT : 4;  // width of one w read
@@ -229,8 +201,9 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int gk = k0 + kk, gc = c0 + c;
         float v = 0.f;
         if (gk < K && gc < Mj) {
-          v = L == kCompact ? w[((size_t)h * K + gk) * Mj + gc]
-                            : w[(size_t)unit_of<L>(table, h, gk, Mi, nact) * Nj + col0 + gc];
+          v = to_f32(L == kCompact
+                         ? w[((size_t)h * K + gk) * Mj + gc]
+                         : w[(size_t)unit_of<L>(table, h, gk, Mi, nact) * Nj + col0 + gc]);
         }
         ws[kk * TN + c] = v;
       }
@@ -267,58 +240,54 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
           for (int o = 1; o < kFwdGroups; ++o)
             s += smem[o * STAGE + kFwdK * kFwdXS + (r * CPT + c) * kFwdGroupThreads + gt];
           const int lc = c0 + (c / V) * 16 * V + tc * V + (c % V);
-          if (lc < Mj) sup[(tr * 2 + r) * Mj + lc] = (s + bias[col0 + lc]) * gain;
+          if (lc < Mj) sup[(tr * 2 + r) * Mj + lc] = (s + to_f32(bias[col0 + lc])) * gain;
         }
     }
     __syncthreads();
   }
 
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int lr = warp; lr < kFwdRows; lr += kFwdThreads / kWarp) {
-    const int gr = row0 + lr;
-    if (gr >= B) break;  // warp-uniform; rows only grow
-    float* srow = sup + lr * Mj;
-    float mx = -INFINITY;
-    for (int c = lane; c < Mj; c += kWarp) mx = fmaxf(mx, srow[c]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < Mj; c += kWarp) {
-      const float e = expf(srow[c] - mx);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float* orow = out + (size_t)gr * Nj + col0;
-    for (int c = lane; c < Mj; c += kWarp) orow[c] = srow[c] / sum;
-  }
+  softmax_rows_to(sup, kFwdRows, Mj, out, row0, B, Nj, col0);
 }
 
-template <int CPT, int L>
-cudaError_t launch_fwd(const float* x, const float* w, const float* bias, const int* table,
+template <int CPT, int L, typename T>
+cudaError_t launch_fwd(const float* x, const T* w, const T* bias, const int* table,
                        float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
                        float gain, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kFwdGroups * fwd_stage<CPT>() + (size_t)kFwdRows * Mj);
   if (smem > (size_t)kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bcpnn_fwd_kernel<CPT, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        bcpnn_fwd_kernel<CPT, L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((B + kFwdRows - 1) / kFwdRows, Hj);
-  bcpnn_fwd_kernel<CPT, L><<<grid, kFwdThreads, smem, stream>>>(
+  bcpnn_fwd_kernel<CPT, L, T><<<grid, kFwdThreads, smem, stream>>>(
       x, w, bias, table, out, B, Ni, K, Hj * Mj, Mj, Mi, nact, gain);
   return cudaGetLastError();
 }
 
 // Picks the column chunk (16*CPT lanes) from the HC width.
-template <int L>
-cudaError_t launch_fwd_any(const float* x, const float* w, const float* bias, const int* table,
+template <int L, typename T>
+cudaError_t launch_fwd_any(const float* x, const T* w, const T* bias, const int* table,
                            float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
                            float gain, cudaStream_t st) {
   if (Mj <= 16) return launch_fwd<1, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
   if (Mj <= 32) return launch_fwd<2, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
   if (Mj <= 64) return launch_fwd<4, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
   return launch_fwd<8, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
+}
+
+// The weight element type: fp32, or the bf16 of a serving pack.
+template <int L>
+cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, const int* table,
+                             float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
+                             int bf16, float gain, cudaStream_t st) {
+  if (bf16) {
+    return launch_fwd_any<L>(x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias, table, out,
+                             B, Ni, K, Hj, Mj, Mi, nact, gain, st);
+  }
+  return launch_fwd_any<L>(x, (const float*)w, (const float*)bias, table, out, B, Ni, K, Hj, Mj,
+                           Mi, nact, gain, st);
 }
 
 // ---------------------------------------------------------- bcpnn_update --
@@ -445,25 +414,26 @@ int bcpnn_hc_softmax(const float* s, float* out, long long segments, int m, floa
   return (int)cudaGetLastError();
 }
 
-int bcpnn_fwd(const float* x, const float* w, const float* bias, float* out, int B, int Ni,
-              int Hj, int Mj, float gain, void* stream) {
+// ``bf16``: w and bias are __nv_bfloat16 (a bf16 serving pack), else float.
+int bcpnn_fwd(const float* x, const void* w, const void* bias, float* out, int B, int Ni,
+              int Hj, int Mj, int bf16, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
-  return (int)launch_fwd_any<kDense>(x, w, bias, nullptr, out, B, Ni, Ni, Hj, Mj, 1, 0, gain,
-                                     (cudaStream_t)stream);
+  return (int)launch_fwd_typed<kDense>(x, w, bias, nullptr, out, B, Ni, Ni, Hj, Mj, 1, 0, bf16,
+                                       gain, (cudaStream_t)stream);
 }
 
 // x (B, Ni); w (Ni, Hj*Mj) dense-resident, or (Hj, K, Mj) when ``compact``;
 // table (Hj, nact) int32 with entries in [0, Ni/Mi).
-int bcpnn_patchy_fwd(const float* x, const float* w, const float* bias, const int* table,
+int bcpnn_patchy_fwd(const float* x, const void* w, const void* bias, const int* table,
                      float* out, int B, int Ni, int Hj, int Mj, int Mi, int nact, int compact,
-                     float gain, void* stream) {
+                     int bf16, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
   const int K = nact * Mi;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(compact ? launch_fwd_any<kCompact>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
-                                                  nact, gain, st)
-                       : launch_fwd_any<kPatchy>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
-                                                 nact, gain, st));
+  return (int)(compact ? launch_fwd_typed<kCompact>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
+                                                    nact, bf16, gain, st)
+                       : launch_fwd_typed<kPatchy>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
+                                                   nact, bf16, gain, st));
 }
 
 int bcpnn_update(const float* pij, const float* log_pi, const float* log_pj, const float* x,

@@ -1,13 +1,13 @@
 """Kernel entry points and the fused core stages behind
 ``ProjSpec(backend="cuda")`` (mirrors ``repro/kernels/ops.py``).
 
-``fused_forward`` and ``fused_learn`` are what the dispatch point in
-``core/bcpnn_layer.py`` calls for a cuda-tagged projection.  Per
-projection they pick the kernels from the layout: dense, patchy
-dense-resident (a binding ``nact``; the update is patchy only with
+``fused_forward``, ``fused_packed_forward`` and ``fused_learn`` are what
+the dispatch point in ``core/bcpnn_layer.py`` calls for a cuda-tagged
+projection.  Per projection they pick the kernels from the layout: dense,
+patchy dense-resident (a binding ``nact``; the update is patchy only with
 ``patchy_traces``, else the dense update with the HC mask) or
-compact-resident.  The int8 branches of the JAX module are not ported yet
-(ROADMAP.md queue B, items 8-10).
+compact-resident; a serving pack's int8 codes go to the int8 kernels of
+``quant.py``, its fp32 or bf16 weights to the forward kernels.
 """
 from __future__ import annotations
 
@@ -16,13 +16,14 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..core.bcpnn_layer import (InferPack, Projection, ProjSpec, is_compact,
-                                is_patchy, require_fp32)
+                                is_patchy)
 from ..core.compact import cached_table
 from ..core.traces import Traces, smoothing
 from . import bcpnn_fwd as _fwd_module
 from . import bcpnn_update as _update_module
 from . import hc_softmax as _softmax_module
 from . import patchy as _patchy_module
+from . import quant as _quant_module
 # The kernel entry points under the JAX package's names.  Note: the
 # update kernel takes the (Hi, Hj) hypercolumn mask where the JAX entry
 # point takes it expanded to (Ni, Nj).
@@ -31,6 +32,7 @@ from .bcpnn_update import bcpnn_update_cuda as bcpnn_update
 from .hc_softmax import hc_softmax_cuda as hc_softmax
 from .patchy import (compact_forward, compact_update, patchy_forward,
                      patchy_update)
+from .quant import quant_compact_forward, quant_fwd, quant_patchy_forward
 
 _KERNEL_MODULES = {"bcpnn_fwd": _fwd_module, "bcpnn_update": _update_module,
                    "hc_softmax": _softmax_module}
@@ -41,14 +43,16 @@ def launch_counts() -> Dict[str, int]:
     run the plain versions, do not count)."""
     counts = {name: m.LAUNCHES for name, m in _KERNEL_MODULES.items()}
     counts.update(_patchy_module.LAUNCHES)
+    counts.update(_quant_module.LAUNCHES)
     return counts
 
 
 def reset_launch_counts() -> None:
     for m in _KERNEL_MODULES.values():
         m.LAUNCHES = 0
-    for name in _patchy_module.LAUNCHES:
-        _patchy_module.LAUNCHES[name] = 0
+    for per_entry in (_patchy_module.LAUNCHES, _quant_module.LAUNCHES):
+        for name in per_entry:
+            per_entry[name] = 0
 
 
 def _table(proj: Union[Projection, InferPack], spec: ProjSpec) -> torch.Tensor:
@@ -64,10 +68,9 @@ def _table(proj: Union[Projection, InferPack], spec: ProjSpec) -> torch.Tensor:
 def fused_forward(proj: Union[Projection, InferPack], spec: ProjSpec,
                   x: torch.Tensor) -> torch.Tensor:
     """Kernel-fused equivalent of core.bcpnn_layer.forward, from a
-    projection or its fp32 ``InferPack``.  Patchy projections stream only
-    their live pre-units (exact: masked-out weights are zero);
+    projection or its fp32 or bf16 ``InferPack``.  Patchy projections
+    stream only their live pre-units (exact: masked-out weights are zero);
     compact-resident ones read their (Hj, K, Mj) weights as they are."""
-    require_fp32(spec, "fused_forward")
     if proj.w.dim() == 3:
         return compact_forward(x, proj.w, proj.b, proj.table, spec.pre.M,
                                spec.gain)
@@ -75,6 +78,29 @@ def fused_forward(proj: Union[Projection, InferPack], spec: ProjSpec,
         return patchy_forward(x, proj.w, proj.b, _table(proj, spec),
                               spec.pre.M, spec.post.H, spec.post.M, spec.gain)
     return bcpnn_fwd(x, proj.w, proj.b, spec.post.H, spec.post.M, spec.gain)
+
+
+def fused_packed_forward(pack: InferPack, spec: ProjSpec,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Kernel-fused forward from an ``InferPack`` (DESIGN.md §8).  int8
+    packs run the int8 kernels with the pack's per-HC scales folded into
+    the softmax epilogue: compact-resident codes ``quant_compact_forward``,
+    patchy dense-resident ones ``quant_patchy_forward``, dense ones
+    ``quant_fwd``.  fp32 and bf16 packs run the forward kernels of
+    ``fused_forward``, which widen bf16 weights to fp32 in their tile
+    loads.  The patchy index table comes from the pack, never from the
+    mask."""
+    if pack.w.dtype != torch.int8:
+        return fused_forward(pack, spec, x)
+    if pack.w.dim() == 3:
+        return quant_compact_forward(x, pack.w, pack.b, pack.scale,
+                                     pack.table, spec.pre.M, spec.gain)
+    if is_patchy(spec) and pack.table is not None:
+        return quant_patchy_forward(x, pack.w, pack.b, pack.scale, pack.table,
+                                    spec.pre.M, spec.post.H, spec.post.M,
+                                    spec.gain)
+    return quant_fwd(x, pack.w, pack.b, pack.scale, spec.post.H, spec.post.M,
+                     spec.gain)
 
 
 def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
@@ -88,7 +114,6 @@ def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
     kernel of the projection's layout.  ``count`` (0-d, optional) is the
     number of genuine rows of a batch whose pad rows are zero: every batch
     statistic divides by it instead of B (``learn_masked``)."""
-    require_fp32(spec, "fused_learn")
     if is_compact(spec) and proj.table is None:
         raise ValueError(
             "fused_learn: ProjSpec.compact projection carries a dense-layout "

@@ -26,7 +26,9 @@ produces full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the dense update.
 ``alpha`` and ``count`` (the genuine rows of a zero-padded batch, which
 divide XᵀY in place of B) are 0-d device tensors: no host sync.  A CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
-kernel or raises.  The table must hold pre-HC indices in [0, Ni/Mi): it is
+kernel or raises.  The forwards also read the bf16 weights and bias of a
+bf16 serving pack, widened to fp32 in the tile load.  The table must hold
+pre-HC indices in [0, Ni/Mi): it is
 built by ``core.compact.build_table`` and checked at the deployment
 boundary (``validate_patchy_state``), not per launch.
 """
@@ -37,8 +39,8 @@ from typing import Optional
 
 import torch
 
-from ._build import (check_launch, library, require, require_current_device,
-                     stream_ptr)
+from ._build import (check_launch, check_table, library, require,
+                     require_current_device, stream_ptr, weight_dtype)
 from .ref import (ref_compact_forward, ref_compact_update, ref_patchy_forward,
                   ref_patchy_update)
 
@@ -48,36 +50,23 @@ LAUNCHES = {"patchy_forward": 0, "compact_forward": 0, "patchy_update": 0,
             "compact_update": 0}
 
 
-def _check_table(table: torch.Tensor, hj: int, ni: int, mi: int,
-                 dev: torch.device) -> int:
-    """Validate the (Hj, nact) int32 table against the geometry; return
-    nact."""
-    if table.dim() != 2 or table.shape[0] != hj:
-        raise ValueError(f"table has shape {tuple(table.shape)}, expected "
-                         f"({hj}, nact)")
-    nact = table.shape[1]
-    if mi <= 0 or ni % mi or not 0 < nact <= ni // mi:
-        raise ValueError(f"table of {nact} pre-HCs does not fit Ni={ni} "
-                         f"with Mi={mi}")
-    require(table, "table", (hj, nact), dev, torch.int32)
-    return nact
-
-
 def _forward(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              table: torch.Tensor, mi: int, hj: int, mj: int, gain: float,
              compact: bool) -> torch.Tensor:
     require_current_device(x)
     dev = x.device
     b, ni = x.shape
-    nact = _check_table(table, hj, ni, mi, dev)
+    nact = check_table(table, hj, ni, mi, dev)
+    wt = weight_dtype(w)
     require(x, "x", (b, ni), dev)
-    require(w, "w", (hj, nact * mi, mj) if compact else (ni, hj * mj), dev)
-    require(bias, "bias", (hj * mj,), dev)
+    require(w, "w", (hj, nact * mi, mj) if compact else (ni, hj * mj), dev,
+            wt)
+    require(bias, "bias", (hj * mj,), dev, wt)
     out = torch.empty((b, hj * mj), dtype=torch.float32, device=dev)
     rc = library().bcpnn_patchy_fwd(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), table.data_ptr(),
         out.data_ptr(), b, ni, hj, mj, mi, nact, int(compact),
-        ctypes.c_float(gain), stream_ptr(x))
+        int(wt == torch.bfloat16), ctypes.c_float(gain), stream_ptr(x))
     check_launch(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -118,7 +107,7 @@ def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
     b, ni = x.shape
     if b <= 0:
         raise ValueError(f"{name} needs a non-empty batch")
-    nact = _check_table(table, hj, ni, mi, dev)
+    nact = check_table(table, hj, ni, mi, dev)
     a = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     shape = (hj, nact * mi, mj) if compact else (ni, hj * mj)
     for t, what, want in ((pij, "pij", shape), (log_pi, "log_pi", (ni,)),

@@ -14,6 +14,7 @@ import torch
 from ..core.compact import (compact_co_stats, fold_weights_compact,
                             gather_dense, gather_pre, scatter_dense,
                             unit_indices)
+from .quant import dequant_factor, quantize_acts
 
 
 def ref_hc_softmax(support: torch.Tensor, n_hc: int, n_mc: int,
@@ -31,7 +32,8 @@ def ref_bcpnn_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                   n_hc: int, n_mc: int, gain: float = 1.0) -> torch.Tensor:
     """Activation stage: support matmul + bias + per-HC softmax.
 
-    x: (B, Ni), w: (Ni, Nj), bias: (Nj,)  ->  rates (B, Nj).
+    x: (B, Ni), w: (Ni, Nj), bias: (Nj,)  ->  rates (B, Nj).  bf16 weights
+    and bias (a bf16 serving pack) are widened to fp32 first.
     """
     support = x.to(torch.float32) @ w.to(torch.float32) + bias.to(torch.float32)
     return ref_hc_softmax(support, n_hc, n_mc, gain).to(x.dtype)
@@ -68,10 +70,12 @@ def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
 
 def _patchy_rates(xg: torch.Tensor, wg: torch.Tensor, bias: torch.Tensor,
                   gain: float) -> torch.Tensor:
-    """(Hj, B, K) gathered rates x (Hj, K, Mj) weights -> rates (B, Nj)."""
+    """(Hj, B, K) gathered rates x (Hj, K, Mj) weights -> rates (B, Nj).
+    bf16 weights and bias are widened to fp32 first."""
     hj, b, _ = xg.shape
     mj = wg.shape[2]
-    s = torch.einsum("jbk,jkm->bjm", xg, wg).reshape(b, hj * mj) + bias
+    s = torch.einsum("jbk,jkm->bjm", xg, wg.to(torch.float32))
+    s = s.reshape(b, hj * mj) + bias.to(torch.float32)
     return ref_hc_softmax(s, hj, mj, gain)
 
 
@@ -125,3 +129,65 @@ def ref_compact_update(pij_c: torch.Tensor, log_pi: torch.Tensor,
     (new_pij_c, new_w_c)."""
     return _compact_step(pij_c, log_pi, log_pj, x, y, table, alpha, mi, eps,
                          count)
+
+
+# ------------------------------------------------------------- int8 ----
+#
+# The int8 forwards of ``repro/kernels/quant.py``.  The accumulator is
+# computed exactly, as a float64 product of the integer codes (|acc| <=
+# K * 127**2 is far below 2**53, so every summation order gives the same
+# integer), then cast to fp32 as the kernel casts its int32 sum; the
+# epilogue rounds each operation on its own, as the kernel does.
+
+def _quant_rates(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 hj: int, mj: int, gain: float) -> torch.Tensor:
+    """Exact (B, Hj, Mj) float64 accumulators -> rates (B, Hj*Mj)."""
+    b = acc.shape[0]
+    s = acc.to(torch.float32) * dequant_factor(scale)[None, :, None]
+    s = s.reshape(b, hj * mj) + bias.to(torch.float32)
+    return ref_hc_softmax(s, hj, mj, gain)
+
+
+def quant_acc_dense(x: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int8 accumulators of the dense layout: Q0.7 codes of x (B, Ni)
+    times codes w_q (Ni, Nj), as a (B, Nj) float64 tensor."""
+    return quantize_acts(x).to(torch.float64) @ w_q.to(torch.float64)
+
+
+def quant_acc_compact(x: torch.Tensor, w_q: torch.Tensor, table: torch.Tensor,
+                      mi: int) -> torch.Tensor:
+    """Exact int8 accumulators over each post-HC's live pre-units against
+    (Hj, K, Mj) codes, as a (B, Hj, Mj) float64 tensor."""
+    ui = unit_indices(table, mi, sentinel=x.shape[1])
+    xg = gather_pre(quantize_acts(x).to(torch.float64), ui)  # (Hj, B, K)
+    return torch.einsum("jbk,jkm->bjm", xg, w_q.to(torch.float64))
+
+
+def ref_quant_fwd(x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
+                  scale: torch.Tensor, n_hc: int, n_mc: int,
+                  gain: float = 1.0) -> torch.Tensor:
+    """Dense int8 forward: Q0.7 activation codes x int8 weight codes
+    (Ni, Nj), exact accumulator, per-HC dequant + bias, softmax."""
+    acc = quant_acc_dense(x, w_q).reshape(x.shape[0], n_hc, n_mc)
+    return _quant_rates(acc, scale, bias, n_hc, n_mc, gain)
+
+
+def ref_quant_compact_forward(x: torch.Tensor, w_q: torch.Tensor,
+                              bias: torch.Tensor, scale: torch.Tensor,
+                              table: torch.Tensor, mi: int,
+                              gain: float = 1.0) -> torch.Tensor:
+    """int8 forward over compact-resident (Hj, K, Mj) codes."""
+    hj, _, mj = w_q.shape
+    return _quant_rates(quant_acc_compact(x, w_q, table, mi), scale, bias,
+                        hj, mj, gain)
+
+
+def ref_quant_patchy_forward(x: torch.Tensor, w_q: torch.Tensor,
+                             bias: torch.Tensor, scale: torch.Tensor,
+                             table: torch.Tensor, mi: int, hj: int, mj: int,
+                             gain: float = 1.0) -> torch.Tensor:
+    """int8 forward over dense-resident (Ni, Hj*Mj) codes: each post-HC's
+    live rows, gathered."""
+    ui = unit_indices(table, mi, sentinel=x.shape[1])
+    return ref_quant_compact_forward(x, gather_dense(w_q, ui, hj, mj), bias,
+                                     scale, table, mi, gain)

@@ -258,3 +258,160 @@ def test_struct_fit_steps_on_card_match_cpu_plain(gen):
                 np.testing.assert_allclose(pa[k], pb[k], atol=1e-4)
             np.testing.assert_allclose(pa["traces"]["pij"],
                                        pb["traces"]["pij"], atol=1e-5)
+
+
+# ------------------------------------------- int8 and bf16 serving ----
+#
+# The int8 kernels and their plain versions compute one exact integer
+# accumulator and the same fp32 epilogue, operation by operation: rates
+# agree within 1e-6 (sums of exp in another order).  The bf16 reads are
+# held against the plain fp32 forward of the same bf16-rounded weights.
+
+QUANT_TOL = 1e-6
+
+
+def _codes(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                         dtype=torch.int8)
+
+
+def _quant_operands(gen, hj, nj):
+    return _randn(gen, nj), _rand(gen, hj) * 0.02 + 1e-3
+
+
+# (B, Ni, Hj, Mj): Model 1's hidden layer, ragged and odd HC widths (Mj not
+# a multiple of 4 takes the bytewise weight loads), two column chunks.
+@pytest.mark.parametrize("b,ni,hj,mj", [(128, 1568, 32, 128), (37, 1000, 3, 10),
+                                        (1, 7, 1, 2), (33, 100, 5, 20),
+                                        (64, 257, 4, 40), (40, 300, 2, 256)])
+def test_quant_fwd_kernel(gen, b, ni, hj, mj):
+    x = _rand(gen, b, ni) * 1.2 - 0.1  # codes clip outside [0, 1]
+    w_q = _codes(gen, ni, hj * mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    got = ops.quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+def test_quant_fwd_kernel_on_unaligned_codes(gen):
+    """Codes at an odd byte offset (a contiguous view) take the bytewise
+    loads even where Mj is a multiple of 4."""
+    b, ni, hj, mj = 16, 50, 3, 8
+    w_q = _codes(gen, ni * hj * mj + 1)[1:].view(ni, hj * mj)
+    x = _rand(gen, b, ni)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    got = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
+def test_quant_patchy_and_compact_kernels(gen, b, hi, mi, hj, mj, nact):
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni) * 1.2 - 0.1
+    bias, scale = _quant_operands(gen, hj, nj)
+    w_q = _codes(gen, ni, nj)
+    got = ops.quant_patchy_forward(x, w_q, bias, scale, table, mi, hj, mj,
+                                   1.25)
+    want = ref.ref_quant_patchy_forward(x, w_q, bias, scale, table, mi, hj,
+                                        mj, 1.25)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+    w_c = _codes(gen, hj, nact * mi, mj)
+    got = ops.quant_compact_forward(x, w_c, bias, scale, table, mi, 1.25)
+    want = ref.ref_quant_compact_forward(x, w_c, bias, scale, table, mi, 1.25)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+@pytest.mark.parametrize("b,ni,hj,mj", [(128, 1568, 32, 128), (37, 1000, 3, 10),
+                                        (40, 300, 2, 256)])
+def test_bcpnn_fwd_kernel_reads_bf16(gen, b, ni, hj, mj):
+    x = _rand(gen, b, ni)
+    w = (_randn(gen, ni, hj * mj) * 0.1).to(torch.bfloat16)
+    bias = _randn(gen, hj * mj).to(torch.bfloat16)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj, 1.25)
+    want = ref.ref_bcpnn_fwd(x, w.float(), bias.float(), hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
+def test_patchy_and_compact_forward_kernels_read_bf16(gen, b, hi, mi, hj, mj,
+                                                      nact):
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni)
+    w = (_randn(gen, ni, nj) * 0.1).to(torch.bfloat16)
+    bias = _randn(gen, nj).to(torch.bfloat16)
+    got = ops.patchy_forward(x, w, bias, table, mi, hj, mj, 1.25)
+    want = ref.ref_patchy_forward(x, w.float(), bias.float(), table, mi, hj,
+                                  mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+    w_c = (_randn(gen, hj, nact * mi, mj) * 0.1).to(torch.bfloat16)
+    got = ops.compact_forward(x, w_c, bias, table, mi, 1.25)
+    want = ref.ref_compact_forward(x, w_c.float(), bias.float(), table, mi,
+                                   1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_quant_launches_counted_and_bad_operands_refused(gen):
+    ni, nj, table = _patchy_operands(gen, 8, 13, 2, 5, 10, 4)
+    x, w_q = _rand(gen, 8, ni), _codes(gen, ni, nj)
+    bias, scale = _quant_operands(gen, 5, nj)
+    w_c = _codes(gen, 5, 8, 10)
+    ops.reset_launch_counts()
+    ops.quant_fwd(x, w_q, bias, scale, 5, 10)
+    ops.quant_patchy_forward(x, w_q, bias, scale, table, 2, 5, 10)
+    ops.quant_compact_forward(x, w_c, bias, scale, table, 2)
+    counts = ops.launch_counts()
+    assert counts["quant_fwd"] == 1 and counts["quant_patchy_forward"] == 1
+    assert counts["quant_compact_forward"] == 1
+    bad = [
+        lambda: ops.quant_fwd(x, w_q.float(), bias, scale, 5, 10),  # fp32 w
+        lambda: ops.quant_fwd(x, w_q[:, :40], bias, scale, 5, 10),  # shape
+        lambda: ops.quant_fwd(x, w_q, bias, scale[:4], 5, 10),      # scale
+        lambda: ops.quant_fwd(x, w_q, bias.double(), scale, 5, 10),
+        lambda: ops.quant_patchy_forward(x, w_q, bias, scale, table.long(), 2,
+                                         5, 10),
+        lambda: ops.quant_compact_forward(x, w_q, bias, scale, table, 2),
+        lambda: ops.quant_compact_forward(x, _codes(gen, 5, 9, 10), bias,
+                                          scale, table, 2),
+        lambda: ops.bcpnn_fwd(x, w_q, bias, 5, 10),                 # int8 w
+        lambda: ops.bcpnn_fwd(x, w_q.to(torch.bfloat16), bias, 5, 10),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert ops.launch_counts() == counts
+
+
+@pytest.mark.parametrize("layout", ["dense", "patchy", "compact"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_low_precision_infer_on_card_matches_cpu_plain(gen, layout, dtype):
+    """A converted, briefly trained state served in ``dtype`` on the card
+    (kernels) and on the CPU (plain torch): probabilities within 1e-5,
+    predictions equal, pad rows inert."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core.network import (BCPNNConfig, infer, init_deep,
+                                          online_learn_step)
+    nact = 16 if layout == "dense" else 6
+    spec = BCPNNConfig(input_hc=16, hidden_hc=4, hidden_mc=8, n_classes=4,
+                       nact_hi=nact, patchy_traces=layout == "compact",
+                       compact=layout == "compact").network_spec()
+    rng = np.random.default_rng(0)
+    x = rng.random((16, 32), dtype=np.float32)
+    y = rng.integers(0, 4, 16)
+    st = init_deep(spec.with_backend("torch"), seed=0, device="cpu")
+    for _ in range(5):
+        st = online_learn_step(st, spec.with_backend("torch"),
+                               torch.from_numpy(x), torch.from_numpy(y))
+    tree = state_to_numpy(st)
+    valid = np.array([1.0] * 8 + [0.0] * 8, np.float32)
+    outs = []
+    for dev, sp in (("cuda", spec), ("cpu", spec.with_backend("torch"))):
+        sp = sp.with_infer_dtype(dtype)
+        p, q = infer(state_from_numpy(tree, sp, device=dev), sp,
+                     torch.from_numpy(x).to(dev),
+                     torch.from_numpy(valid).to(dev))
+        outs.append((p.cpu(), q.cpu()))
+    (pk, qk), (pp, qp) = outs
+    assert (pk - pp).abs().max().item() <= 1e-5
+    assert torch.equal(qk, qp)
+    assert (pk[8:] == 0).all() and (qk[8:] == -1).all()

@@ -129,7 +129,8 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     before = tops.launch_counts()
     assert set(before) == {"hc_softmax", "bcpnn_fwd", "bcpnn_update",
                            "patchy_forward", "compact_forward",
-                           "patchy_update", "compact_update"}
+                           "patchy_update", "compact_update", "quant_fwd",
+                           "quant_compact_forward", "quant_patchy_forward"}
     s = torch.randn(4, 6)
     tops.hc_softmax(s, 2, 3)
     tops.bcpnn_fwd(torch.rand(4, 5), torch.randn(5, 6), torch.zeros(6), 2, 3)

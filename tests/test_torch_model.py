@@ -165,16 +165,32 @@ def test_layer_learn_masked_matches_jax(jb, tb):
 
 
 def test_unported_layouts_raise():
-    """The low-precision serving dtypes are not ported: they raise.  The
-    patchy layout is ported: it builds an exactly-nact mask."""
-    patchy = tl.ProjSpec(LayerGeom(8, 2), LayerGeom(2, 4), nact=3)
-    proj = tl.init_projection(patchy, torch.Generator().manual_seed(0))
-    assert proj.mask.sum(0).tolist() == [3.0, 3.0]
-    for dtype in ("bf16", "int8"):
-        spec = tl.ProjSpec(LayerGeom(8, 2), LayerGeom(2, 4), nact=3,
-                           infer_dtype=dtype)
-        with pytest.raises(NotImplementedError):
-            tl.init_projection(spec, torch.Generator().manual_seed(0))
+    """Nothing is left unported here any more: bf16 and int8 specs
+    initialise and learn exactly as fp32 ones (learning state stays fp32,
+    DESIGN.md §8) and pack into their serving dtype; the patchy layout
+    builds an exactly-nact mask."""
+    geo = (LayerGeom(8, 2), LayerGeom(2, 4))
+    rng = np.random.default_rng(0)
+    x, y = _t(rng.random((5, 16))), _t(rng.random((5, 8)))
+    fp32 = tl.ProjSpec(*geo, nact=3)
+    want = tl.learn(tl.init_projection(fp32, torch.Generator().manual_seed(0)),
+                    fp32, x, y)
+    assert want.mask.sum(0).tolist() == [3.0, 3.0]
+    for dtype, wdt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        spec = tl.ProjSpec(*geo, nact=3, infer_dtype=dtype)
+        proj = tl.learn(
+            tl.init_projection(spec, torch.Generator().manual_seed(0)), spec,
+            x, y)
+        for got, ref in ((proj.w, want.w), (proj.b, want.b),
+                         (proj.traces.pij, want.traces.pij),
+                         (proj.traces.pi, want.traces.pi)):
+            assert got.dtype == torch.float32
+            assert torch.equal(got, ref)
+        pack = tl.pack_projection(proj, spec)
+        assert pack.w.dtype == wdt and pack.w.shape == proj.w.shape
+        assert (pack.scale is not None) == (dtype == "int8")
+        assert pack.table.tolist() == tl.pack_projection(want, fp32)\
+            .table.tolist()
 
 
 # ---------------------------------------------------------- network ----

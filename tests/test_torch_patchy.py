@@ -236,7 +236,8 @@ def test_cpu_tensors_take_plain_patchy_versions_without_counting():
     before = tops.launch_counts()
     assert set(before) == {"hc_softmax", "bcpnn_fwd", "bcpnn_update",
                            "patchy_forward", "compact_forward",
-                           "patchy_update", "compact_update"}
+                           "patchy_update", "compact_update", "quant_fwd",
+                           "quant_compact_forward", "quant_patchy_forward"}
     table = torch.tensor([[0, 2], [1, 2]], dtype=torch.int32)
     x = torch.rand(3, 6)
     tops.patchy_forward(x, torch.randn(6, 8), torch.zeros(8), table, 2, 2, 4)

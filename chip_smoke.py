@@ -9,8 +9,10 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      ``src/repro_torch/kernels/csrc``; check that fp32 matmuls stay fp32.
   1. each kernel against its plain PyTorch version on the card, at the
      Model-1 (dense kernels) and Model 1-struct (patchy kernels) shapes of
-     the main path (the update kernels also on a padded tail batch) and
-     one ragged shape, with its time
+     the main path (the update kernels also on a padded tail batch, and
+     the resident-trace ones at a = 1, a fit's first step, where pij' is
+     the product itself; patchy_update's silent entries held bit for bit)
+     and one ragged shape, with its time
      (CUDA-graph replay of 20 launches, median of 10), the plain version's
      time, one PyTorch library call's time where one computes the same
      function, and the least time the card could take (``bound_ms``).
@@ -52,7 +54,8 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      serving with the card forbidden to synchronise.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
-     and (c), and of the int8 and bf16 evaluation and served batches:
+     and (c), of (b)'s unsupervised step, and of the int8 and bf16
+     evaluation and served batches:
      wall time per step untraced, then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
      kernels that take the most device time.
@@ -73,9 +76,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores, and dense int8 tensor-core OP/s.
+# fp32 FLOP/s outside the tensor cores, and dense TF32 FLOP/s and int8
+# OP/s of the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_INT8_OPS_S = 1979e12
 TIMED_LAUNCHES = 20
 TIMED_REPLAYS = 10
@@ -119,9 +124,12 @@ def device_ms(fn) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, peak: float):
+def bound(nbytes: float, ops):
+    """The least time in ms: the bytes at the memory's rate, or the
+    operations, ((count, peak rate), ...), one pair for each unit they run
+    on (units run at once, so the slowest sets the time)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / peak * 1e3
+    t_ops = max(count / peak for count, peak in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -129,7 +137,7 @@ def bound(nbytes: float, ops: float, peak: float):
 
 def kernel_cases(torch, gen):
     """(kernel, shape label, kernel call, plain call, library call or None,
-    bytes, operations, compare, peak rate of those operations) for every
+    bytes, operations as ((count, peak rate), ...), compare) for every
     checked shape."""
     from repro_torch.kernels import ops, ref
 
@@ -155,10 +163,32 @@ def kernel_cases(torch, gen):
         err_w = (gw - ww).abs().max().item()
         return max(err_p.max().item(), err_w), ok_p and err_w <= 1e-4
 
+    def close_patchy_update(pij, live_units):
+        """close_update, and the silent entries exactly as the layout
+        defines them: pij' the input bit for bit, w 0."""
+        silent = ~live_units
+
+        def cmp(got, want):
+            err, ok = close_update(got, want)
+            gp, gw = got
+            held = torch.equal(gp[silent], pij[silent]) and \
+                bool((gw[silent] == 0).all())
+            return err, ok and held
+        return cmp
+
     cases = []
 
-    def add(*case, peak=PEAK_FP32_FLOP_S):
-        cases.append((*case, peak))
+    def add(name, label, kern, plain, lib, nbytes, n_ops, cmp,
+            peak=PEAK_FP32_FLOP_S):
+        """n_ops: a count at ``peak``, or ((count, peak rate), ...)."""
+        ops = n_ops if isinstance(n_ops, tuple) else ((n_ops, peak),)
+        cases.append((name, label, kern, plain, lib, nbytes, ops, cmp))
+
+    def trace_ops(product, epilogue):
+        """The resident-trace update's operations: its product in 3xTF32
+        on the tensor cores (three TF32 products for each), its EMA and
+        fold on the CUDA cores."""
+        return ((3 * product, PEAK_TF32_FLOP_S), (epilogue, PEAK_FP32_FLOP_S))
 
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
                            ("ragged", 37, 3, 10)):
@@ -182,12 +212,15 @@ def kernel_cases(torch, gen):
             ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
             None, 4 * (b * ni + ni * nj + nj + b * nj),
             2 * b * ni * nj + 7 * b * nj, close_abs(1e-5))
-    # n: genuine rows of a zero-padded tail batch (None: all rows are)
-    for label, b, n, hi, mi, hj, mj in (
-            ("hidden", 128, None, 784, 2, 32, 128),
-            ("readout", 128, None, 32, 128, 1, 10),
-            ("tail", 128, 104, 784, 2, 32, 128),
-            ("ragged", 37, None, 500, 2, 3, 10)):
+    # n: genuine rows of a zero-padded tail batch (None: all rows are).
+    # a = 1 is the first step of every fit: there pij' is XᵀY/n itself, so
+    # an error in the product is not damped by a small smoothing.
+    for label, b, n, hi, mi, hj, mj, alpha in (
+            ("hidden", 128, None, 784, 2, 32, 128, 2e-3),
+            ("hidden-a1", 128, None, 784, 2, 32, 128, 1.0),
+            ("readout", 128, None, 32, 128, 1, 10, 2e-3),
+            ("tail", 128, 104, 784, 2, 32, 128, 2e-3),
+            ("ragged", 37, None, 500, 2, 3, 10, 2e-3)):
         ni, nj = hi * mi, hj * mj
         pij = rand(ni, nj) * 0.01 + 1e-5
         lpi = torch.log(rand(ni) * 0.5 + 1e-4)
@@ -200,7 +233,7 @@ def kernel_cases(torch, gen):
         mask = (rand(hi, hj) > 0.3).to(f32)
         if label == "ragged":
             mask[:, 0] = 0.0
-        a = torch.tensor(2e-3, device=dev, dtype=f32)
+        a = torch.tensor(alpha, device=dev, dtype=f32)
         args = (pij, lpi, lpj, x, y, mask, a)
         add("bcpnn_update", label,
             lambda args=args, count=count:
@@ -209,7 +242,7 @@ def kernel_cases(torch, gen):
             ref.ref_bcpnn_update(*args, count=count),
             None,
             4 * (3 * ni * nj + ni + nj + b * (ni + nj) + hi * hj + 1),
-            2 * (n or b) * ni * nj + 10 * ni * nj, close_update)
+            trace_ops(2 * (n or b) * ni * nj, 10 * ni * nj), close_update)
 
     # Patchy kernels: Model 1-struct (nact 128 of 784 input HCs, K = 256),
     # its padded tail for the updates, and a ragged shape.  Bytes count the
@@ -222,7 +255,10 @@ def kernel_cases(torch, gen):
             ("tail", 128, 104, 784, 2, 32, 128, 128),
             ("ragged", 37, None, 13, 3, 3, 10, 4)):
         ni, nj, k = hi * mi, hj * mj, nact * mi
-        table = build_table(topk_mask(rand(hi, hj), nact), nact)
+        hc_mask = topk_mask(rand(hi, hj), nact)
+        table = build_table(hc_mask, nact)
+        live_units = hc_mask.repeat_interleave(mi, 0).repeat_interleave(
+            mj, 1) > 0
         x, y = rand(b, ni), rand(b, nj)
         count = None
         if n is not None:
@@ -251,17 +287,24 @@ def kernel_cases(torch, gen):
         lpj = torch.log(rand(nj) * 0.5 + 1e-4)
         a = torch.tensor(2e-3, device=dev, dtype=f32)
         pij, pij_c = rand(ni, nj) * 0.01 + 1e-5, rand(hj, k, mj) * 0.01 + 1e-5
-        flops = 2 * (n or b) * live + 10 * live
-        add(
-            "patchy_update", label,
-            lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj, a=a,
-            mi=mi, hj=hj, mj=mj:
-            ops.patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj, count=c),
-            lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj, a=a,
-            mi=mi, hj=hj, mj=mj:
-            ref.ref_patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj,
+        product, epilogue = 2 * (n or b) * live, 10 * live
+        # the first-step smoothing (a = 1) at Model 1-struct as well
+        alphas = (("", a), ("-a1", torch.tensor(1.0, device=dev, dtype=f32))
+                  ) if label == "struct" else (("", a),)
+        for suffix, a_p in alphas:
+            add(
+                "patchy_update", label + suffix,
+                lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+                a=a_p, mi=mi, hj=hj, mj=mj:
+                ops.patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj,
                                   count=c),
-            None, 4 * (3 * ni * nj + ni + nj) + small, flops, close_update)
+                lambda p=pij, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+                a=a_p, mi=mi, hj=hj, mj=mj:
+                ref.ref_patchy_update(p, lpi, lpj, x, y, t, a, mi, hj, mj,
+                                      count=c),
+                None, 4 * (3 * ni * nj + ni + nj) + small,
+                trace_ops(product, epilogue),
+                close_patchy_update(pij, live_units))
         add(
             "compact_update", label,
             lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
@@ -270,7 +313,8 @@ def kernel_cases(torch, gen):
             lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
             a=a, mi=mi:
             ref.ref_compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
-            None, 4 * (3 * live + ni + nj) + small, flops, close_update)
+            None, 4 * (3 * live + ni + nj) + small, product + epilogue,
+            close_update)
 
     # bf16 serving packs through the forward kernels: weights and bias
     # rounded to bf16 (2 bytes each), against the plain forward, which
@@ -376,7 +420,7 @@ def phase1(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
-    for name, label, kern, plain, lib, nbytes, n_ops, cmp, peak in \
+    for name, label, kern, plain, lib, nbytes, ops, cmp in \
             kernel_cases(torch, gen):
         got = kern()
         want = plain()
@@ -387,7 +431,7 @@ def phase1(torch):
         ms = device_ms(kern)
         plain_ms = device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, n_ops, peak)
+        bound_ms, bound_by = bound(nbytes, ops)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
@@ -397,7 +441,55 @@ def phase1(torch):
               f"  bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
         rows.setdefault(name, {})[label] = row
     int_mm_yardstick(torch, gen, rows["quant_fwd"]["hidden"])
+    copy_yardstick(torch, gen, rows["bcpnn_update"]["hidden"])
+    mma_yardstick(torch, rows["bcpnn_update"]["hidden"])
     return rows
+
+
+def mma_yardstick(torch, row):
+    """The throughput of the update's 3xTF32 ``mma.sync`` pattern on
+    register operands (``csrc/yardstick.cu``: no memory traffic), with the
+    operands split in every step as the kernel splits them, and split
+    once; and how long Model 1's product (3 x 2·B·Ni·Nj FLOP) takes at the
+    first rate.  A yardstick only (``library_ms`` stays null)."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(sms * 512, device="cuda")
+    iters = 1000
+    flop = 2048.0 * 24 * 16 * iters * sms  # 24 mma a step, 16 warps an SM
+    for split, key in ((1, "mma_split_flop_s"), (0, "mma_fixed_flop_s")):
+        ms = device_ms(lambda split=split: _build.check_launch(
+            lib.bcpnn_mma_tf32_rate(out.data_ptr(), sms, iters, split,
+                                    _build.stream_ptr(out)),
+            "mma_tf32_rate"))
+        row[key] = flop / (ms * 1e-3)
+    row["mma_split_product_ms"] = \
+        3 * 2 * 128 * 1568 * 4096 / row["mma_split_flop_s"] * 1e3
+    print(f"[phase1] yardstick: mma.sync m16n8k8 TF32 in the update's "
+          f"3xTF32 pattern, 16 warps an SM: "
+          f"{row['mma_split_flop_s'] / 1e12:.1f} TFLOP/s with the operands "
+          f"split every step, "
+          f"{row['mma_fixed_flop_s'] / 1e12:.1f} split once; at the first "
+          f"rate Model 1's product takes "
+          f"{row['mma_split_product_ms'] * 1e3:.2f} us", flush=True)
+
+
+def copy_yardstick(torch, gen, row):
+    """A plain device copy of Model 1's (1568, 4096) fp32 trace: what the
+    card's memory delivers to a streaming kernel, beside the update's
+    bytes bound (which counts the data sheet's 3.35 TB/s).  A yardstick
+    only (``library_ms`` stays null)."""
+    src = torch.rand((1568, 4096), generator=gen, device="cuda")
+    dst = torch.empty_like(src)
+    ms = device_ms(lambda: dst.copy_(src))
+    moved = 2 * src.numel() * 4
+    row["copy_ms"] = ms
+    row["copy_bytes_s"] = moved / (ms * 1e-3)
+    print(f"[phase1] yardstick: a {moved / 1e6:.1f} MB device copy takes "
+          f"{ms * 1e3:.2f} us ({row['copy_bytes_s'] / 1e12:.3f} TB/s); at that "
+          f"rate the update's {3 * src.numel() * 4 / 1e6:.1f} MB of trace "
+          f"traffic take {1.5 * ms * 1e3:.2f} us", flush=True)
 
 
 def int_mm_yardstick(torch, gen, row):
@@ -997,10 +1089,11 @@ def phase6(torch, tr, fitted, xte, yte):
 
 # --------------------------------------------------------------- phase 4 --
 
-def phase4(torch, tr, tr_c, xte, yte):
+def phase4(torch, tr, tr_b, tr_c, xte, yte):
     """Time, then trace, 20 steps of each main-path step type on the
-    fitted dense Model-1 state, and of (c)'s unsupervised step and eval
-    batch on its fitted Model 1-struct state (results are dropped; only
+    fitted dense Model-1 state, of (b)'s unsupervised step (one
+    ``patchy_update`` launch each), and of (c)'s unsupervised step and
+    eval batch on their fitted Model 1-struct states (results are dropped; only
     the state's generator advances); then, for both states, the eval
     batch in int8 and bf16 (``infer``, which packs the state on every
     call) and the served batch (``infer_packed`` on a pack made once).
@@ -1012,6 +1105,7 @@ def phase4(torch, tr, tr_c, xte, yte):
                                           train_projection_step)
     dev = tr.device
     spec, state = tr.spec, tr.state
+    spec_b, state_b = tr_b.spec, tr_b.state
     spec_c, state_c = tr_c.spec, tr_c.state
     x = torch.from_numpy(xte[:128]).to(dev)
     y = torch.from_numpy(yte[:128]).to(dev)
@@ -1019,6 +1113,8 @@ def phase4(torch, tr, tr_c, xte, yte):
         "unsup_step": lambda: train_projection_step(state, spec, x, 0),
         "readout_step": lambda: supervised_readout_step(state, spec, x, y),
         "eval_batch": lambda: infer(state, spec, x),
+        "(b) unsup_step": lambda: train_projection_step(state_b, spec_b, x,
+                                                        0),
         "(c) unsup_step": lambda: train_projection_step(state_c, spec_c, x,
                                                         0),
         "(c) eval_batch": lambda: infer(state_c, spec_c, x),
@@ -1089,7 +1185,7 @@ def main() -> int:
     phase3(torch, tr, xte, yte)
     fitted, struct_launches = phase5(torch, xtr, ytr, xte, yte)
     serve_launches = phase6(torch, tr, fitted, xte, yte)
-    phase4(torch, tr, fitted["c"], xte, yte)
+    phase4(torch, tr, fitted["b"], fitted["c"], xte, yte)
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);

@@ -46,6 +46,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_quant_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _P),
+    "bcpnn_mma_tf32_rate": (_P, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,19 +5,31 @@
     w    = (log clip(pij', eps², 1) − log_pi − log_pj) · mask
 
 Replaces the Pallas TPU kernel ``repro/kernels/bcpnn_update.py::
-bcpnn_update_pallas``.  CUDA source: ``csrc/bcpnn.cu::bcpnn_update_kernel``:
-a grid of 64x64 (Ni, Nj) tiles, each looping over the batch through shared
-memory with its XᵀY tile in registers, then the EMA and log fold as the
-epilogue.  ``a`` stays on the device (a 0-d tensor, no host sync), and the
-(Hi, Hj) hypercolumn mask is indexed in the kernel instead of streaming an
-expanded (Ni, Nj) unit mask.  A zero-padded tail batch passes ``count``,
-its genuine row count as a 0-d device tensor, which the kernel divides by
-instead of B.  Outputs are fresh tensors: the old trace is left as it was.
+bcpnn_update_pallas``.  CUDA source: ``csrc/bcpnn.cu::trace_update_kernel``
+(dense layout; the patchy-held update is the same body): one pass over the
+(Ni, Nj) trace in 64 x 128 tiles, by persistent blocks of two teams of
+warps that take turns at the tensor cores.  Each tile's pij is requested
+by bulk async copies (TMA) while the team's previous tile is still in its
+epilogue; the XᵀY tile runs on the tensor cores in 3xTF32 (both operands
+split into TF32 hi and lo halves, three products summed in fp32: fp32
+accuracy, never a single TF32 pass) over batch slices staged with
+``cp.async``; then the EMA and the log fold, with pij' and w written as
+16-byte coalesced stores.  ``a`` stays on the device (a 0-d tensor, no
+host sync), and the (Hi, Hj) hypercolumn mask is indexed in the kernel
+instead of streaming an expanded (Ni, Nj) unit mask.  A zero-padded tail
+batch passes ``count``, its genuine row count as a 0-d device tensor,
+which the kernel divides by instead of B.  Outputs are fresh tensors: the
+old trace is left as it was.  ``ref.split_tf32_co`` models the product's
+arithmetic on the CPU.
 
-Bound: at Model 1's hidden projection (B=128, Ni=1568, Nj=4096) the 77 MB
-of traffic (read pij, write pij' and w) take ~23 us at 3.35 TB/s and the
-1.64 GFLOP of fp32 FMA ~24.5 us at 67 TFLOP/s: ~24.5 us, operations by a
-hair.
+Bound: bytes.  At Model 1's hidden projection (B=128, Ni=1568, Nj=4096)
+the 77 MB of traffic (read pij, write pij' and w) take ~23 us at 3.35
+TB/s, ~24 us with the inputs; the 3 x 1.64 GFLOP of the split product
+take ~10 us at the tensor cores' 495 TFLOP/s TF32 rate.  The body does not
+reach the bound: ``mma.sync`` with the operands split in every step runs
+at about a third of that rate (``chip_smoke.py``'s ``mma.sync``
+yardstick), so its product lasts about as long as the bytes, and the two
+overlap only in part.
 """
 from __future__ import annotations
 

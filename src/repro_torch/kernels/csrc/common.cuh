@@ -1,11 +1,14 @@
 // Helpers shared by the kernel sources in this directory (bcpnn.cu,
-// quant.cu): warp reductions, the weight layouts and the table lookup of
-// the patchy layouts.
+// quant.cu, yardstick.cu): warp reductions, the weight layouts and the
+// table lookup of the patchy layouts, the TF32 split and tensor-core
+// product of the resident-trace update.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
 
 namespace bcpnn {
 
@@ -47,6 +50,20 @@ __device__ __forceinline__ int unit_of(const int* __restrict__ table, int h, int
     const int q = k / Mi;
     return table[h * nact + q] * Mi + (k - q * Mi);
   }
+}
+
+// v = hi + lo, both TF32 (round to nearest, ties away, as cvt.rna).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// c += a b on the tensor cores: one m16n8k8 TF32 product, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // A weight or bias element as fp32: the forward reads fp32 or bf16 weights.

@@ -10,18 +10,24 @@ Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
     index table inside its tile loads, then the HC's softmax.  The JAX
     wrappers gather x into an (Hj, B, K) array first; here it never
     exists.
-  * ``patchy_update`` / ``compact_update`` -> ``csrc/bcpnn.cu::
-    bcpnn_update_kernel`` with the patchy or compact layout: (K, Mj)
-    tiles of each post-HC's gathered XᵀY, then the EMA and the log fold.
-    ``patchy_update`` returns fresh (Ni, Nj) arrays: the wrapper copies
-    the held pij and zeroes w (a copy and a memset, as the JAX scatter is
-    outside its kernel too), and the kernel writes the live entries.
-    ``compact_update`` reads and writes the resident (Hj, K, Mj) arrays.
+  * ``patchy_update`` -> ``csrc/bcpnn.cu::trace_update_kernel`` with the
+    patchy layout, the body of the dense update, in one launch writing
+    every (Ni, Nj) entry once.  Gathered tiles hold a post-HC's K live
+    rows (through its table row) and run the 3xTF32 product, the EMA and
+    the fold on them only; copy tiles cover the (Ni, Nj) grid and write
+    the silent entries back as read (pij held bit for bit, w 0), building
+    their live predicate from the table rows of the post-HCs they cover.
+    Fresh outputs, no copy or memset beforehand.
+  * ``compact_update`` -> ``csrc/bcpnn.cu::compact_update_kernel``: (K,
+    Mj) tiles of each post-HC's gathered XᵀY in fp32 FMA, then the EMA and
+    the log fold, over the resident (Hj, K, Mj) arrays.
 
 Bounds at Model 1-struct (B=128, Ni=1568, Hj=32, Mj=128, nact=128, K=256):
 the forward's 268 MFLOP take ~4.0 us at 67 TFLOP/s fp32 (its ~7.1 MB
 ~2.1 us); ``compact_update`` moves 15.5 MB, ~4.6 us; ``patchy_update``
-produces full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the dense update.
+reads pij and writes full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the
+dense update (its copy tiles also read the 16 % of live rows that the
+gathered tiles read: 4.1 MB more).
 
 ``alpha`` and ``count`` (the genuine rows of a zero-padded batch, which
 divide XᵀY in place of B) are 0-d device tensors: no host sync.  A CPU
@@ -116,10 +122,7 @@ def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
         require(t, what, want, dev)
     if count is not None:
         require(count, "count", (), dev)
-    if compact:
-        new_pij, w = torch.empty_like(pij), torch.empty_like(pij)
-    else:
-        new_pij, w = pij.clone(), torch.zeros_like(pij)
+    new_pij, w = torch.empty_like(pij), torch.empty_like(pij)
     rc = library().bcpnn_patchy_update(
         pij.data_ptr(), log_pi.data_ptr(), log_pj.data_ptr(), x.data_ptr(),
         y.data_ptr(), table.data_ptr(), a.data_ptr(),

@@ -62,6 +62,26 @@ def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
     return new_pij, w.reshape(ni, nj)
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
+    dropped bits to the magnitude and clear them.  Finite inputs only."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_co(x: torch.Tensor, y: torch.Tensor, n) -> torch.Tensor:
+    """XᵀY / n as the resident-trace update kernel forms it on the tensor
+    cores in 3xTF32: each operand split as v = hi + lo with hi =
+    tf32(v) and lo = tf32(v − hi), and hi·hi + hi·lo + lo·hi summed in
+    fp32 (lo·lo dropped).  Not on the main path: it documents and pins
+    the kernel's arithmetic (tests/test_torch_kernels.py)."""
+    x, y = x.to(torch.float32), y.to(torch.float32)
+    xh, yh = tf32_round(x), tf32_round(y)
+    xl, yl = tf32_round(x - xh), tf32_round(y - yh)
+    return (xl.T @ yh + xh.T @ yl + xh.T @ yh) / n
+
+
 # ------------------------------------------------- patchy / compact ----
 #
 # These follow the semantics of the JAX wrappers in

@@ -61,10 +61,13 @@ def test_bcpnn_fwd_kernel(gen, b, ni, hj, mj):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+# a = 1 is a fit's first step: pij' is XᵀY/n itself, undamped.
+@pytest.mark.parametrize("alpha", [0.02, 1.0])
 @pytest.mark.parametrize("b,hi,mi,hj,mj", [(1, 3, 2, 1, 2), (37, 500, 2, 3, 10),
                                            (128, 784, 2, 32, 128),
-                                           (17, 32, 128, 1, 10)])
-def test_bcpnn_update_kernel(gen, b, hi, mi, hj, mj):
+                                           (17, 32, 128, 1, 10),
+                                           (300, 40, 2, 2, 64)])
+def test_bcpnn_update_kernel(gen, b, hi, mi, hj, mj, alpha):
     ni, nj = hi * mi, hj * mj
     pij = _rand(gen, ni, nj) * 0.01 + 1e-5
     lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
@@ -72,7 +75,7 @@ def test_bcpnn_update_kernel(gen, b, hi, mi, hj, mj):
     x, y = _rand(gen, b, ni), _rand(gen, b, nj)
     mask = (_rand(gen, hi, hj) > 0.3).float()
     mask[:, 0] = 0.0
-    a = torch.tensor(0.02, device="cuda")
+    a = torch.tensor(alpha, device="cuda")
     gp, gw = ops.bcpnn_update(pij, lpi, lpj, x, y, mask, a)
     wp, ww = ref.ref_bcpnn_update(pij, lpi, lpj, x, y, mask, a)
     assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
@@ -147,6 +150,15 @@ def _patchy_operands(gen, b, hi, mi, hj, mj, nact):
     return ni, nj, table
 
 
+def _live_units(table, hi, mi, mj):
+    """(Ni, Hj*Mj) bool: the entries the (Hj, nact) table makes live."""
+    hc = torch.zeros((hi, table.shape[0]), dtype=torch.bool,
+                     device=table.device)
+    hc[table.long(), torch.arange(table.shape[0],
+                                  device=table.device)[:, None]] = True
+    return hc.repeat_interleave(mi, 0).repeat_interleave(mj, 1)
+
+
 def _close_update(got, want):
     (gp, gw), (wp, ww) = got, want
     assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
@@ -173,11 +185,15 @@ def test_patchy_and_compact_forward_kernels(gen, b, hi, mi, hj, mj, nact):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("alpha", [0.02, 1.0])
 @pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
 @pytest.mark.parametrize("n", [None, 5])
-def test_patchy_and_compact_update_kernels(gen, b, hi, mi, hj, mj, nact, n):
+def test_patchy_and_compact_update_kernels(gen, b, hi, mi, hj, mj, nact, n,
+                                           alpha):
     """Whole batches, and a zero-padded batch of ``n`` genuine rows divided
-    by its count.  Patchy: silent pij held, silent w 0, input untouched."""
+    by its count, at a small smoothing and at a fit's first step (a = 1).
+    Patchy: silent pij held bit for bit, silent w exactly 0, input
+    untouched."""
     ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
     lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
     lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
@@ -186,7 +202,7 @@ def test_patchy_and_compact_update_kernels(gen, b, hi, mi, hj, mj, nact, n):
     if n is not None:
         x[n:], y[n:] = 0.0, 0.0
         count = torch.tensor(float(n), device="cuda")
-    a = torch.tensor(0.02, device="cuda")
+    a = torch.tensor(alpha, device="cuda")
     pij = _rand(gen, ni, nj) * 0.01 + 1e-5
     before = pij.clone()
     got = ops.patchy_update(pij, lpi, lpj, x, y, table, a, mi, hj, mj,
@@ -195,6 +211,10 @@ def test_patchy_and_compact_update_kernels(gen, b, hi, mi, hj, mj, nact, n):
                                  count=count)
     _close_update(got, want)
     assert torch.equal(pij, before)
+    silent = ~_live_units(table, hi, mi, mj)
+    assert bool(silent.any())
+    assert torch.equal(got[0][silent], pij[silent])
+    assert bool((got[1][silent] == 0).all())
     pij_c = _rand(gen, hj, nact * mi, mj) * 0.01 + 1e-5
     got = ops.compact_update(pij_c, lpi, lpj, x, y, table, a, mi,
                              count=count)

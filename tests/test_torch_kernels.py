@@ -124,6 +124,37 @@ def test_bcpnn_update_count_on_zeroed_rows_matches_jax_on_genuine_rows(b, n):
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=W_TOL)
 
 
+def test_split_tf32_product_holds_the_update_tolerance_and_one_pass_does_not():
+    """The resident-trace update forms XᵀY on the tensor cores in 3xTF32.
+    At a Model-1 column slice (B=128, Ni=1568, 256 columns) and a = 1 (the
+    first step of every fit, where pij' is XᵀY/n itself), the CPU model
+    of that arithmetic holds the card check's pij tolerance (1e-9 +
+    1e-5·|ref|, chip_smoke.py phase 1) against an fp64 XᵀY; a single
+    TF32 pass breaks it, so the check can tell the two apart."""
+    from repro_torch.kernels.ref import split_tf32_co, tf32_round
+    rng = np.random.default_rng(14)
+    b, ni, nj = 128, 1568, 256
+    x = rng.random((b, ni), dtype=np.float32)
+    y = rng.random((b, nj), dtype=np.float32)
+    pij = (rng.random((ni, nj)) * 0.01 + 1e-5).astype(np.float32)
+    a = torch.tensor(1.0)
+    want = x.astype(np.float64).T @ y.astype(np.float64) / b
+
+    def within(co):
+        new = ((1.0 - a) * _t(pij) + a * co).double().numpy()
+        return bool(np.all(np.abs(new - want) <= 1e-9 + 1e-5 * np.abs(want)))
+
+    assert within(split_tf32_co(_t(x), _t(y), b))
+    assert not within(tf32_round(_t(x)).T @ tf32_round(_t(y)) / b)
+    # the split halves are TF32 numbers: 13 low mantissa bits clear
+    hi = tf32_round(_t(x))
+    lo = tf32_round(_t(x) - hi)
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    np.testing.assert_array_equal((hi + lo - _t(x)).abs().numpy() <=
+                                  np.abs(x) * 2.0 ** -21, True)
+
+
 def test_cpu_tensors_take_plain_versions_without_counting():
     """A CPU tensor runs the plain version; only a kernel launch counts."""
     before = tops.launch_counts()

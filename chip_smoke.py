@@ -17,9 +17,14 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      time, one PyTorch library call's time where one computes the same
      function, and the least time the card could take (``bound_ms``).
      The forward kernels also read bf16 weights (a bf16 serving pack);
-     the three int8 kernels run at Model 1's hidden shape, Model 1-struct's
-     and a ragged one, with ``torch._int_mm`` timed beside ``quant_fwd``
-     as a yardstick for the int8 product alone.
+     ``torch.addmm`` (fp32, TF32 off) is timed beside each ``bcpnn_fwd``
+     row as the library's time for the product alone, with the cluster
+     size the forward takes there; each forward row must also repeat bit
+     for bit over 10 launches, and one row holds it at Model 1's hidden
+     shape with fitted-range log-odds weights to fp64; the three int8
+     kernels run at Model 1's hidden shape, Model 1-struct's and a ragged
+     one, with ``torch._int_mm`` timed beside ``quant_fwd`` as a
+     yardstick for the int8 product alone.
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
      32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
      supervised pass over 16384 synthetic images, then ``evaluate`` on
@@ -137,8 +142,8 @@ def bound(nbytes: float, ops):
 
 def kernel_cases(torch, gen):
     """(kernel, shape label, kernel call, plain call, library call or None,
-    bytes, operations as ((count, peak rate), ...), compare) for every
-    checked shape."""
+    bytes, operations as ((count, peak rate), ...), compare, library call
+    of the product alone or None) for every checked shape."""
     from repro_torch.kernels import ops, ref
 
     dev = "cuda"
@@ -179,16 +184,31 @@ def kernel_cases(torch, gen):
     cases = []
 
     def add(name, label, kern, plain, lib, nbytes, n_ops, cmp,
-            peak=PEAK_FP32_FLOP_S):
-        """n_ops: a count at ``peak``, or ((count, peak rate), ...)."""
+            peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None):
+        """n_ops: a count at ``peak``, or ((count, peak rate), ...);
+        fwd_shape: the dense forward's (B, Ni, Hj, Mj, bf16)."""
         ops = n_ops if isinstance(n_ops, tuple) else ((n_ops, peak),)
-        cases.append((name, label, kern, plain, lib, nbytes, ops, cmp))
+        cases.append((name, label, kern, plain, lib, nbytes, ops, cmp,
+                      product, fwd_shape))
 
     def trace_ops(product, epilogue):
         """The resident-trace update's operations: its product in 3xTF32
         on the tensor cores (three TF32 products for each), its EMA and
         fold on the CUDA cores."""
         return ((3 * product, PEAK_TF32_FLOP_S), (epilogue, PEAK_FP32_FLOP_S))
+
+    def fwd_ops(product, epilogue, passes=3):
+        """The dense forward's operations: its product in 3xTF32 on the
+        tensor cores (two TF32 products for a bf16 weight, which is exact
+        in TF32), bias, gain and softmax on the CUDA cores."""
+        return ((passes * product, PEAK_TF32_FLOP_S),
+                (epilogue, PEAK_FP32_FLOP_S))
+
+    def addmm(bias, x, w):
+        """The library's fp32 product alone (TF32 off, as the port keeps
+        it): a yardstick beside the forward, not a call computing its
+        function."""
+        return lambda: torch.addmm(bias, x, w)
 
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
                            ("ragged", 37, 3, 10)):
@@ -211,7 +231,8 @@ def kernel_cases(torch, gen):
             lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
             ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
             None, 4 * (b * ni + ni * nj + nj + b * nj),
-            2 * b * ni * nj + 7 * b * nj, close_abs(1e-5))
+            fwd_ops(2 * b * ni * nj, 7 * b * nj), close_abs(1e-5),
+            product=addmm(bias, x, w), fwd_shape=(b, ni, hj, mj, False))
     # n: genuine rows of a zero-padded tail batch (None: all rows are).
     # a = 1 is the first step of every fit: there pij' is XᵀY/n itself, so
     # an error in the product is not damped by a small smoothing.
@@ -288,9 +309,9 @@ def kernel_cases(torch, gen):
         a = torch.tensor(2e-3, device=dev, dtype=f32)
         pij, pij_c = rand(ni, nj) * 0.01 + 1e-5, rand(hj, k, mj) * 0.01 + 1e-5
         product, epilogue = 2 * (n or b) * live, 10 * live
+        a1 = torch.tensor(1.0, device=dev, dtype=f32)
         # the first-step smoothing (a = 1) at Model 1-struct as well
-        alphas = (("", a), ("-a1", torch.tensor(1.0, device=dev, dtype=f32))
-                  ) if label == "struct" else (("", a),)
+        alphas = (("", a), ("-a1", a1)) if label == "struct" else (("", a),)
         for suffix, a_p in alphas:
             add(
                 "patchy_update", label + suffix,
@@ -305,16 +326,18 @@ def kernel_cases(torch, gen):
                 None, 4 * (3 * ni * nj + ni + nj) + small,
                 trace_ops(product, epilogue),
                 close_patchy_update(pij, live_units))
-        add(
-            "compact_update", label,
-            lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
-            a=a, mi=mi:
-            ops.compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
-            lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
-            a=a, mi=mi:
-            ref.ref_compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
-            None, 4 * (3 * live + ni + nj) + small, product + epilogue,
-            close_update)
+        for suffix, a_c in alphas:
+            add(
+                "compact_update", label + suffix,
+                lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+                a=a_c, mi=mi:
+                ops.compact_update(p, lpi, lpj, x, y, t, a, mi, count=c),
+                lambda p=pij_c, x=x, y=y, t=table, c=count, lpi=lpi, lpj=lpj,
+                a=a_c, mi=mi:
+                ref.ref_compact_update(p, lpi, lpj, x, y, t, a, mi,
+                                       count=c),
+                None, 4 * (3 * live + ni + nj) + small,
+                trace_ops(product, epilogue), close_update)
 
     # bf16 serving packs through the forward kernels: weights and bias
     # rounded to bf16 (2 bytes each), against the plain forward, which
@@ -330,7 +353,9 @@ def kernel_cases(torch, gen):
         lambda x=x, w=w, bias=bias, hj=hj, mj=mj:
         ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
         None, 4 * b * ni + 2 * (ni * nj + nj) + 4 * b * nj,
-        2 * b * ni * nj + 7 * b * nj, close_abs(1e-5))
+        fwd_ops(2 * b * ni * nj, 7 * b * nj, passes=2), close_abs(1e-5),
+        product=addmm(bias.float(), x, w.float()),
+        fwd_shape=(b, ni, hj, mj, True))
     hi, mi, nact = 784, 2, 128
     k, live = nact * mi, hj * nact * mi * mj
     table = build_table(topk_mask(rand(hi, hj), nact), nact)
@@ -396,6 +421,44 @@ def kernel_cases(torch, gen):
             add(name, label, kern, plain, None,
                 live + 4 * (b * ni + nj + hj + hj * nact + b * nj),
                 2 * b * live, close_abs(1e-6), peak=PEAK_INT8_OPS_S)
+
+    # Model 1's hidden layer with weights at the fitted range of log-odds
+    # (log clip(pij) - log pi - log pj from traces of binary-pixel inputs
+    # and sharp hidden rates; supports of 10 and more), where an error in
+    # the 3xTF32 split would show: held to the plain version and to an
+    # fp64 forward, 1e-5 each (the error printed is the larger).
+    n, b, hi, hj, mj, eps = 512, 128, 784, 32, 128, 1e-4
+
+    def encode(rows):
+        pix = (rand(rows, hi) < 0.3).double()
+        return torch.stack([pix, 1.0 - pix], -1).reshape(rows, 2 * hi)
+
+    xf = encode(n)
+    proj = torch.randn((2 * hi, hj * mj), generator=gen, device=dev,
+                       dtype=torch.float64)
+    yf = torch.softmax((xf @ proj * 0.05).view(n, hj, mj), -1).view(n, -1)
+    pi, pj, pij = xf.mean(0), yf.mean(0), xf.T @ yf / n
+    w = (torch.log(pij.clamp(eps * eps, 1.0))
+         - torch.log(pi.clamp(eps, 1.0))[:, None]
+         - torch.log(pj.clamp(eps, 1.0))[None, :]).float().contiguous()
+    bias = torch.log(pj.clamp(eps, 1.0)).float()
+    x = encode(b).float().contiguous()
+    s64 = x.double() @ w.double() + bias.double()
+    check(s64.abs().max().item() >= 10.0, "fitted log-odds: supports < 10")
+    want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
+
+    def close_plain_and_fp64(got, want):
+        err = max((got - want).abs().max().item(),
+                  (got.double() - want64).abs().max().item())
+        return err, err <= 1e-5
+
+    nj = hj * mj
+    add("bcpnn_fwd", "hidden-fitted",
+        lambda x=x, w=w, bias=bias: ops.bcpnn_fwd(x, w, bias, hj, mj),
+        lambda x=x, w=w, bias=bias: ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
+        None, 4 * (b * 2 * hi + 2 * hi * nj + nj + b * nj),
+        fwd_ops(2 * b * 2 * hi * nj, 7 * b * nj), close_plain_and_fp64,
+        product=addmm(bias, x, w), fwd_shape=(b, 2 * hi, hj, mj, False))
     return cases
 
 
@@ -417,17 +480,25 @@ SOURCES = {
 
 
 def phase1(torch):
+    from repro_torch.kernels.bcpnn_fwd import cluster_size
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
-    for name, label, kern, plain, lib, nbytes, ops, cmp in \
-            kernel_cases(torch, gen):
+    for name, label, kern, plain, lib, nbytes, ops, cmp, product, \
+            fwd_shape in kernel_cases(torch, gen):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
         err, ok = cmp(got, want)
         check(ok, f"{name}[{label}] disagrees with its plain version "
                   f"(max abs err {err:.3e})")
+        extra = ""
+        if name == "bcpnn_fwd":
+            # the cluster sums its partials in rank order: a repeat is the
+            # same bit for bit, and a race between the roles would show
+            check(all(torch.equal(kern(), got) for _ in range(10)),
+                  f"{name}[{label}] differs between identical launches")
+            extra = f"  cluster {cluster_size(*fwd_shape)}"
         ms = device_ms(kern)
         plain_ms = device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None
@@ -435,10 +506,15 @@ def phase1(torch):
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
+        if product is not None:
+            row["product_library_ms"] = device_ms(product)
+            extra += (f"  library, product only "
+                     f"{row['product_library_ms'] * 1e3:.2f} us")
         print(f"[phase1] {name}[{label}] ok: max_abs_err {err:.3e}  "
               f"kernel {ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  "
               f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
-              f"  bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+              f"  bound {bound_ms * 1e3:.2f} us ({bound_by}){extra}",
+              flush=True)
         rows.setdefault(name, {})[label] = row
     int_mm_yardstick(torch, gen, rows["quant_fwd"]["hidden"])
     copy_yardstick(torch, gen, rows["bcpnn_update"]["hidden"])

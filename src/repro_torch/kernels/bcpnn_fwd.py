@@ -3,19 +3,23 @@
 never written to device memory.
 
 Replaces the Pallas TPU kernel ``repro/kernels/bcpnn_fwd.py::
-bcpnn_fwd_pallas``.  CUDA source: ``csrc/bcpnn.cu::bcpnn_fwd_kernel``: one
-block per (32-row batch tile, post-HC), the contraction staged through
-shared memory in 32-deep slices with fp32 FMA accumulation in registers,
-and the HC softmax as the block's epilogue.
+bcpnn_fwd_pallas``.  CUDA source: ``csrc/bcpnn.cu::bcpnn_fwd_tc_kernel``:
+one thread-block cluster per (128-row batch tile, post-HC) splits the
+contraction between its blocks; in each, staging warps bring 16-deep
+slices of x and w in by TMA, split them once into TF32 hi and lo halves
+laid out as the tensor cores read them, and two warpgroups multiply them
+with ``wgmma`` in 3xTF32 (lo·hi + hi·lo + hi·hi in fp32; fp32 accuracy,
+no single TF32 pass; ``ref.split_tf32_mm`` models it).  The cluster sums
+its partial supports in distributed shared memory and the HC softmax is
+the epilogue.
 
-Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the product is
-1.64 GFLOP, ~24.5 us at the H100's 67 TFLOP/s fp32 rate; its 28.6 MB of
-traffic take ~8.5 us.  It stays in fp32 on the CUDA cores: TF32 tensor
-cores would break the 1e-5 rate parity.
+Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the 3 x 1.64
+GFLOP take ~10 us at the H100's 495 TFLOP/s TF32 rate; its 28.6 MB of
+traffic take ~8.5 us.
 
 A bf16 serving pack's weights and bias are read as bf16 and widened to
-fp32 in the tile load (the TPU kernel casts its operands the same way):
-half the weight bytes, the same fp32 arithmetic.
+fp32 (the TPU kernel casts its operands the same way): half the weight
+bytes, and a bf16 weight is exact in TF32, so two products suffice.
 """
 from __future__ import annotations
 
@@ -56,3 +60,15 @@ def bcpnn_fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check_launch(rc, "bcpnn_fwd")
     LAUNCHES += 1
     return out
+
+
+def cluster_size(b: int, ni: int, n_hc: int, n_mc: int,
+                 bf16: bool = False) -> int:
+    """The thread-block cluster size (blocks splitting the contraction)
+    that ``bcpnn_fwd_cuda`` launches for this shape on the current CUDA
+    device.  Launches nothing."""
+    ks = ctypes.c_int(0)
+    rc = library().bcpnn_fwd_cluster(b, ni, n_hc, n_mc, int(bf16),
+                                     ctypes.byref(ks))
+    check_launch(rc, "bcpnn_fwd_cluster")
+    return ks.value

@@ -19,7 +19,7 @@ host sync), and the (Hi, Hj) hypercolumn mask is indexed in the kernel
 instead of streaming an expanded (Ni, Nj) unit mask.  A zero-padded tail
 batch passes ``count``, its genuine row count as a 0-d device tensor,
 which the kernel divides by instead of B.  Outputs are fresh tensors: the
-old trace is left as it was.  ``ref.split_tf32_co`` models the product's
+old trace is left as it was.  ``ref.split_tf32_mm`` models the product's
 arithmetic on the CPU.
 
 Bound: bytes.  At Model 1's hidden projection (B=128, Ni=1568, Nj=4096)

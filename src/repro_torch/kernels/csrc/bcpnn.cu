@@ -1,38 +1,39 @@
 // Hand-written Hopper (sm_90a) kernels for the BCPNN main path.
 //
-// Four kernel bodies for seven of the Pallas TPU kernels:
+// Five kernel bodies for seven of the Pallas TPU kernels:
 //
 //   bcpnn_hc_softmax     <- repro/kernels/hc_softmax.py::hc_softmax_pallas
 //   bcpnn_fwd            <- repro/kernels/bcpnn_fwd.py::bcpnn_fwd_pallas
+//                           (bcpnn_fwd_tc_kernel)
 //   bcpnn_patchy_fwd     <- repro/kernels/patchy.py::patchy_forward and
-//                           ::compact_forward (the body of bcpnn_fwd)
+//                           ::compact_forward (bcpnn_fwd_kernel)
 //   bcpnn_update         <- repro/kernels/bcpnn_update.py::bcpnn_update_pallas
 //                           (trace_update_kernel, dense layout)
-//   bcpnn_patchy_update  <- repro/kernels/patchy.py::patchy_update
-//                           (trace_update_kernel, patchy layout) and
-//                           ::compact_update (compact_update_kernel)
+//   bcpnn_patchy_update  <- repro/kernels/patchy.py::patchy_update and
+//                           ::compact_update (trace_update_kernel, patchy
+//                           and compact layouts)
 //
-// The forward body is templated on the weight layout (Layout below):
-// dense (Ni, Nj); patchy, the same dense-resident arrays restricted per
-// post-HC to the K = nact*Mi live pre-units named by the (Hj, nact) index
-// table; compact, the resident (Hj, K, Mj) arrays.  The resident-trace
-// update takes the dense and patchy layouts, compact_update_kernel the
-// compact one.  The patchy layouts gather their live rows inside the tile
-// loads, so the (Hj, B, K) gathered activations of the TPU kernels never
-// exist.
+// Weight layouts (Layout below): dense (Ni, Nj); patchy, the same
+// dense-resident arrays restricted per post-HC to the K = nact*Mi live
+// pre-units named by the (Hj, nact) index table; compact, the resident
+// (Hj, K, Mj) arrays.  The dense forward has a body of its own; the
+// patchy and compact forwards share bcpnn_fwd_kernel; the resident-trace
+// update takes all three layouts.  The patchy layouts gather their live
+// rows inside the tile loads, so the (Hj, B, K) gathered activations of the
+// TPU kernels never exist.
 //
 // All arithmetic keeps fp32 accuracy and no fast-math intrinsics are used,
 // because trace increments are ~1e-5 and the log-weight fold must stay
-// within 1e-4 of the fp32 reference.  The forwards and the compact update
-// run IEEE fp32 on the CUDA cores.  The resident-trace update runs its
-// product on the tensor cores in 3xTF32 (each operand split into two TF32
-// halves, three products summed in fp32), which keeps fp32 accuracy; a
-// single TF32 pass (~1e-4 relative error) is never used.  Each kernel
-// computes its own offsets and masks ragged edges itself (no pad plan).
-// The forward body is also templated on its weight and bias element type:
-// fp32, or the bf16 of a serving pack, widened to fp32 in the tile load
-// (the TPU kernels cast their operands to f32 in-kernel the same way).
-// The int8 forwards of a serving pack are in quant.cu.
+// within 1e-4 of the fp32 reference.  The dense forward and the
+// resident-trace update run their products on the tensor cores in 3xTF32
+// (each operand split into two TF32 halves, three products summed in
+// fp32), which keeps fp32 accuracy; a single TF32 pass (~1e-4 relative
+// error) is never used.  The patchy and compact forwards run IEEE fp32 on
+// the CUDA cores.  Each kernel computes its own offsets and masks ragged
+// edges itself (no pad plan).  The forwards also take the bf16 weights and
+// bias of a serving pack, widened to fp32 on the way in (the TPU kernels
+// cast their operands to f32 in-kernel the same way).  The int8 forwards
+// of a serving pack are in quant.cu.
 //
 // C interface: every entry point takes raw device pointers, sizes and the
 // CUDA stream, launches on that stream without synchronising, allocates
@@ -42,7 +43,14 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 // and the objects linked with the same flags and -shared.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 #include "common.cuh"
@@ -109,33 +117,32 @@ hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
   for (int c = lane; c < m; c += kWarp) dst[c] = expf(src[c] * gain - mx) / sum;
 }
 
-// ------------------------------------------------------------- bcpnn_fwd --
+// ------------------------------------------------- patchy/compact forward --
 //
-// rates[b, h*Mj + n] = softmax_n(gain * (bias + x @ w)[b, h*Mj + n]).
+// rates[b, h*Mj + n] = softmax_n(gain * (bias + xg @ wg)[b, h*Mj + n]) over
+// each post-HC's K live pre-units, the patchy and compact layouts (the
+// dense one has its own body below, bcpnn_fwd_tc_kernel).
 //
 // Grid: one block per (batch tile of kFwdRows rows, post-HC), so the HC's
 // softmax is block-local and the support never leaves the SM.  The
-// contraction runs over K: all Ni pre-units when dense, the HC's K live
-// ones (gathered row by row from x and from w in the tile loads) when
-// patchy or compact.  The block
-// walks the HC's Mj columns in chunks of 16*CPT.  For each chunk its
-// kFwdGroups K-groups of 256 threads take every kFwdGroups-th kFwdK-deep
-// slice of Ni, each staging its slice through its own shared-memory tiles
-// (x transposed, w row-major) behind its own barrier and accumulating 2 rows x CPT columns per
-// thread with fp32 FMA in registers; the tiles are read as float2/float4
-// so one shared load feeds up to 8 FMAs.  Groups 1.. then park their
-// partial sums in their w tiles, group 0 adds them in group order and
-// writes (acc + bias) * gain into a (rows, Mj) shared buffer.  Once every
-// chunk is in, each warp normalises whole rows with shuffles (max, exp,
-// sum, divide) and writes them out coalesced.
+// contraction runs over the HC's K live pre-units, gathered row by row
+// from x and from w in the tile loads.  The block walks the HC's Mj
+// columns in chunks of 16*CPT.  For each chunk its kFwdGroups K-groups of
+// 256 threads take every kFwdGroups-th kFwdK-deep slice of K, each staging
+// its slice through its own shared-memory tiles (x transposed, w
+// row-major) behind its own barrier and accumulating 2 rows x CPT columns
+// per thread with fp32 FMA in registers; the tiles are read as
+// float2/float4 so one shared load feeds up to 8 FMAs.  Groups 1.. then
+// park their partial sums in their w tiles, group 0 adds them in group
+// order and writes (acc + bias) * gain into a (rows, Mj) shared buffer.
+// Once every chunk is in, each warp normalises whole rows with shuffles
+// (max, exp, sum, divide) and writes them out coalesced.
 //
-// Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the product is
-// 1.64 GFLOP, ~24.5 us at 67 TFLOP/s fp32; its 28.6 MB of traffic take
-// ~8.5 us.  Only 4 x 32 = 128 blocks exist at B=128, so the K-groups are
-// what puts 32 warps on each SM.  Still simple: no wgmma (that would be
-// TF32 or lower), no TMA, no pipelining across slices.  At Model 1-struct
-// (nact = 128, K = 256) the patchy product is 268 MFLOP, ~4.0 us; its
-// traffic is ~7.1 MB, ~2.1 us: operations again.
+// Bound: operations.  At Model 1-struct (nact = 128, K = 256) the product
+// is 268 MFLOP, ~4.0 us at 67 TFLOP/s fp32; its ~7.1 MB of traffic take
+// ~2.1 us.  Still simple: fp32 FMA, no tensor cores, no TMA, no pipelining
+// across slices (the dense forward's design is the model for its
+// redesign).
 
 constexpr int kFwdRows = 32;           // batch rows per block
 constexpr int kFwdK = 32;              // contraction slice per stage
@@ -172,6 +179,7 @@ bcpnn_fwd_kernel(const float* __restrict__ x, const T* __restrict__ w,
                  const T* __restrict__ bias, const int* __restrict__ table,
                  float* __restrict__ out, int B, int Ni, int K, int Nj, int Mj, int Mi,
                  int nact, float gain) {
+  static_assert(L != kDense, "the dense forward is bcpnn_fwd_tc_kernel");
   constexpr int V = CPT < 4 ? CPT : 4;  // width of one w read
   constexpr int TN = 16 * CPT;          // columns per chunk
   constexpr int STAGE = fwd_stage<CPT>();
@@ -307,14 +315,17 @@ cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, co
 //   pij'  = (1 - a) pij + a co
 //   w     = (log clip(pij', eps^2, 1) - log_pi[i] - log_pj[j]) * m[i, j]
 //
-// One body for the two layouts whose trace lives in the device's (Ni, Nj)
-// layout.  It replaces two TPU kernels:
+// One body for the three layouts of the resident trace.  It replaces three
+// TPU kernels:
 //   src/repro/kernels/bcpnn_update.py:63 bcpnn_update_pallas (dense: m is
 //     the (Hi, Hj) hypercolumn mask, indexed at HC level, mask[i/Mi, j/Mj]);
 //   src/repro/kernels/patchy.py:241 patchy_update (patchy-held: an element
 //     is live when its pre-HC i/Mi is in post-HC j/Mj's row of the (Hj,
 //     nact) table; a live element takes the EMA and the fold, a silent one
-//     keeps pij' = pij bit for bit and w = 0).
+//     keeps pij' = pij bit for bit and w = 0);
+//   src/repro/kernels/patchy.py:289 compact_update (compact: the resident
+//     (Hj, K, Mj) trace, every element live, m = 1, log_pi taken at each
+//     row's gathered unit).
 // ``a`` and ``count`` are 0-d device tensors (no host sync); outputs are
 // fresh arrays, every element written once, and the input trace is only
 // read.
@@ -325,10 +336,11 @@ cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, co
 // product is 1.64 GFLOP at B=128; in 3xTF32 three times that, ~10 us at
 // the tensor cores' 495 TFLOP/s, under the bytes.  This body does not
 // reach the bound: mma.sync with the operands split in every step runs
-// at about a third of that rate on the card (chip_smoke.py's mma.sync
+// at well under half that rate on the card (chip_smoke.py's mma.sync
 // yardstick, csrc/yardstick.cu), so its dense product at Model 1 lasts
-// about as long as the bytes, and the two overlap only in part.  What each
-// part of the design does about it:
+// about as long as the bytes, and the two overlap only in part.  The
+// compact layout at Model 1-struct (Hj = 32, K = 256, Mj = 128) moves
+// 15.5 MB, ~4.6 us.  What each part of the design does about it:
 //
 //  * Tiles of 64 rows x 128 columns (64 x 32 when Nj <= 64: the readout),
 //    and persistent blocks, one per SM, of two teams of 8 warps (each warp
@@ -345,10 +357,12 @@ cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, co
 //    not 16-byte aligned (ragged shapes) fall back to 4-byte cp.async.
 //  * The product runs on the tensor cores: mma.sync m16n8k8 TF32 with fp32
 //    accumulators, in 3xTF32.  Each operand is split in the fragment load
-//    with cvt.rna.tf32.f32 into hi and lo = tf32(v - hi), and the three
-//    products lo*hi, hi*lo, hi*hi are accumulated (lo*lo, ~2^-22 relative,
-//    is dropped); ref.split_tf32_co models it on the CPU.  No single TF32
-//    pass.  The contraction runs over the batch; x (B, Ni) and y (B, Nj)
+//    (split_tf32) into hi, rounded as cvt.rna.tf32.f32 rounds but with two
+//    integer operations (the cvt's lower rate bounded the split), and lo =
+//    v - hi, which the tensor cores read truncated to TF32 (a NaN v makes
+//    lo a NaN); the three products lo*hi, hi*lo, hi*hi are accumulated
+//    (lo*lo, ~2^-22 relative, is dropped); ref.split_tf32_mm models it on
+//    the CPU.  No single TF32 pass.  The contraction runs over the batch; x (B, Ni) and y (B, Nj)
 //    arrive batch-major, so A = x^T is read column-wise from the staged x
 //    slice.  Rows and columns of each warp's block are permuted inside the
 //    fragments so that each operand comes in 8- or 16-byte shared loads,
@@ -373,6 +387,18 @@ cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, co
 //    post-HC its columns cover, in shared memory from those post-HCs'
 //    table rows (no extra launch, no (Hi, Hj) array).  Copy tiles read the
 //    whole pij tile: the live rows, 16 % at Model 1-struct, are read twice.
+//  * Compact: gathered tiles only, each a post-HC's live rows addressed in
+//    the resident (Hj, K, Mj) arrays at ((h K + k) Mj + j), so a tile's rows
+//    are one contiguous run; no copy tiles, no mask.  Gathered x moves in
+//    8-byte pairs (a pre-HC's two units side by side) where Mi is even.
+//    The tile was picked by timing variants of this body on the H100 at
+//    Model 1-struct: 64 x 128 tiles, 128 of them, one per SM, with or
+//    without the turns, were the fastest; 32 x 128 tiles (two per SM, one
+//    a team), gathered x in 4-byte pieces, one team a block with 64-deep
+//    batch slices, and the batch split between a block's two teams were
+//    slower or no faster.  With one tile per SM every SM runs
+//    the same phase at once (the pij read, the product, the 8.4 MB of
+//    stores of the fold), so none hides another: ~3x the bytes bound.
 
 constexpr int kTrStages = 2;
 constexpr int kTrTeams = 2;          // ping-pong teams per block
@@ -381,8 +407,9 @@ constexpr int kTrThreads = kTrTeams * kTrTeamThreads;
 constexpr int kTrPad = 8;            // row stride = 8 (mod 32) words
 
 // Which operands may move in 16-byte pieces (length a multiple of 4
-// floats and a 16-byte aligned base).
-constexpr int kVecX = 1, kVecY = 2, kVecP = 4;
+// floats and a 16-byte aligned base); kVecX2: gathered x in 8-byte pairs
+// (a pre-HC's units 2m, 2m + 1 side by side: Mi and Ni even).
+constexpr int kVecX = 1, kVecY = 2, kVecP = 4, kVecX2 = 8;
 
 // What a tile computes.  kProduct: dense rows, the EMA and the masked
 // fold.  kGathered: the patchy layout's live rows of one post-HC (table
@@ -431,16 +458,21 @@ struct TraceTile {
 using WideTile = TraceTile<64, 128, 32, 4>;
 using NarrowTile = TraceTile<64, 32, 16, 2>;
 
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 // 16 or 4 bytes global -> shared, zero filled when !valid (src unread).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
@@ -492,12 +524,14 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // One team stages batch rows [b0, b0 + BK): the tile's x columns (the
-// units in rowu, contiguous unless gathered) and its y columns.
+// units in rowu, contiguous unless gathered, in pairs when x2) and its y
+// columns.
 template <class T>
 __device__ __forceinline__ void load_batch_slice(float* xs, float* ys, const float* __restrict__ x,
                                                  const float* __restrict__ y, const int* rowu,
                                                  int tt, int b0, int B, int rows, int cols,
-                                                 int Ni, int Nj, int j0, bool vx, bool vy) {
+                                                 int Ni, int Nj, int j0, bool vx, bool x2,
+                                                 bool vy) {
   constexpr int BM = T::kBM, BN = T::kBN, BK = T::kBK;
   if (vx) {  // contiguous rows rowu[0] .. rowu[0] + rows - 1
     const float* xb = x + rowu[0];
@@ -505,6 +539,12 @@ __device__ __forceinline__ void load_batch_slice(float* xs, float* ys, const flo
       const int bb = e / (BM / 4), u = (e % (BM / 4)) * 4;
       const bool v = b0 + bb < B && u < rows;
       cp_async16(xs + bb * T::kLdX + u, v ? xb + (size_t)(b0 + bb) * Ni + u : x, v);
+    }
+  } else if (x2) {  // rows 2m, 2m + 1 at units rowu[2m], rowu[2m] + 1
+    for (int e = tt; e < BK * BM / 2; e += kTrTeamThreads) {
+      const int bb = e / (BM / 2), u = (e % (BM / 2)) * 2;
+      const bool v = b0 + bb < B && u < rows;
+      cp_async8(xs + bb * T::kLdX + u, v ? x + (size_t)(b0 + bb) * Ni + rowu[u] : x, v);
     }
   } else {
     for (int e = tt; e < BK * BM; e += kTrTeamThreads) {
@@ -530,13 +570,14 @@ __device__ __forceinline__ void load_batch_slice(float* xs, float* ys, const flo
 
 // Tiles of a launch: dense, the (Ni, Nj) grid of product tiles; patchy,
 // Hj x ceil(K/BM) x ceil(Mj/BN) gathered tiles first, then the (Ni, Nj)
-// grid of copy tiles.
+// grid of copy tiles; compact, the gathered tiles alone.
 template <int L, class T>
 __host__ __device__ __forceinline__ int trace_tiles(int Ni, int Nj, int Mi, int Mj, int Hj,
                                                    int nact) {
   const int dense = ((Ni + T::kBM - 1) / T::kBM) * ((Nj + T::kBN - 1) / T::kBN);
+  const int gathered = Hj * ((nact * Mi + T::kBM - 1) / T::kBM) * ((Mj + T::kBN - 1) / T::kBN);
   if (L == kDense) return dense;
-  return Hj * ((nact * Mi + T::kBM - 1) / T::kBM) * ((Mj + T::kBN - 1) / T::kBN) + dense;
+  return L == kCompact ? gathered : gathered + dense;
 }
 
 // Persistent: block b's team tau takes tiles b + (2k + tau) * gridDim.x,
@@ -565,9 +606,9 @@ trace_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
   const int team_bar = 1 + team;  // this team's own barrier
   const int my_turn = 3 + team, their_turn = 4 - team;
 
-  const int K = nact * Mi;  // live rows of a post-HC (patchy)
+  const int K = nact * Mi;  // live rows of a post-HC (patchy, compact)
   const int gm = (K + BM - 1) / BM, gn = (Mj + BN - 1) / BN;
-  const int gathered = L == kPatchy ? Hj * gm * gn : 0;
+  const int gathered = L == kDense ? 0 : Hj * gm * gn;
   const int dense_n = (Nj + BN - 1) / BN;
   const int tiles = trace_tiles<L, T>(Ni, Nj, Mi, Mj, Hj, nact);
   const int G = gridDim.x;
@@ -627,6 +668,13 @@ trace_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
     return j.kind == kGathered ? unit_of<kPatchy>(table, j.h, min(j.r0 + r, K - 1), Mi, nact)
                                : min(j.r0 + r, Ni - 1);
   };
+  // Offset of tile row r's first column in pij, pij' and w: the (Ni, Nj)
+  // arrays at the row's unit, or the compact (Hj, K, Mj) ones at
+  // (h, r0 + r) (unit of the row: x's column and log_pi's index only).
+  auto row_at = [&](const Job& j, int r) -> size_t {
+    if (L == kCompact) return ((size_t)j.h * K + min(j.r0 + r, K - 1)) * Mj + (j.j0 - j.h * Mj);
+    return (size_t)unit_at(j, r) * Nj + j.j0;
+  };
   auto region = [&](int q) { return sm + (q & 1) * T::kRegion; };
   auto vecs = [&](int q) { return sm + 2 * T::kRegion + (q & 1) * T::kVec; };
 
@@ -653,15 +701,13 @@ trace_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
       uint64_t* bar = bars + (k & 1);
       if (tt == 0) mbar_expect(bar, (uint32_t)(j.rows * j.cols * 4));
       for (int r = tt; r < j.rows; r += kTrTeamThreads) {
-        bulk_copy(ps + r * T::kLdP, pij + (size_t)unit_at(j, r) * Nj + j.j0,
-                  (uint32_t)(j.cols * 4), bar);
+        bulk_copy(ps + r * T::kLdP, pij + row_at(j, r), (uint32_t)(j.cols * 4), bar);
       }
     } else {
       for (int e = tt; e < BM * BN; e += kTrTeamThreads) {
         const int r = e / BN, c = e % BN;
         const bool ok = r < j.rows && c < j.cols;
-        cp_async4(ps + r * T::kLdP + c, ok ? pij + (size_t)unit_at(j, r) * Nj + j.j0 + c : pij,
-                  ok);
+        cp_async4(ps + r * T::kLdP + c, ok ? pij + row_at(j, r) + c : pij, ok);
       }
     }
     cp_async_commit();
@@ -673,7 +719,7 @@ trace_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
     const int* rowu = reinterpret_cast<const int*>(vecs(k) + T::kRowU);
     load_batch_slice<T>(ring + T::kX + slot * BK * T::kLdX, ring + T::kY + slot * BK * T::kLdY, x,
                         y, rowu, tt, sl * BK, B, j.rows, j.cols, Ni, Nj, j.j0,
-                        (vec & kVecX) && j.kind != kGathered, vec & kVecY);
+                        (vec & kVecX) && j.kind != kGathered, vec & kVecX2, vec & kVecY);
     cp_async_commit();
   };
 
@@ -838,11 +884,15 @@ trace_update_kernel(const float* __restrict__ pij, const float* __restrict__ log
             keep[q] = keep[q] && !is_live(r, c + q);  // live: the gathered tiles'
             wv[q] = 0.f;
           } else {
-            const float lw = logf(fminf(fmaxf(pv[q], eps2), 1.f)) - (lpi_s[r] + lpj_s[c + q]);
+            // clip to [eps2, 1], a NaN kept (fmaxf would drop it), as the
+            // plain version's clamp keeps it
+            const float pc = pv[q] < eps2 ? eps2 : (pv[q] > 1.f ? 1.f : pv[q]);
+            const float lw = logf(pc) - (lpi_s[r] + lpj_s[c + q]);
             wv[q] = L == kDense ? lw * mask[(size_t)rowhc[r] * Hj + colhc[c + q]] : lw;
           }
         }
-        const size_t idx = (size_t)rowu[r] * Nj + j.j0 + c;
+        const size_t idx =
+            (L == kCompact ? row_at(j, r) : (size_t)rowu[r] * Nj + j.j0) + c;
         // 16-byte stores: every chunk is whole and, in a copy tile, all
         // live or all silent (Mj a multiple of 4 on this path)
         if (bulk) {
@@ -922,6 +972,7 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
   if (Ni % 4 == 0 && aligned16(x)) vec |= kVecX;
   if (cols4 && aligned16(y)) vec |= kVecY;
   if (cols4 && aligned16(pij) && aligned16(pij_out) && aligned16(w_out)) vec |= kVecP;
+  if (L == kCompact && Mi % 2 == 0 && Ni % 2 == 0 && ((uintptr_t)x & 7u) == 0) vec |= kVecX2;
   if (Nj <= 64) {
     return launch_trace<L, NarrowTile>(pij, log_pi, log_pj, x, y, mask, table, a, count, pij_out,
                                        w_out, B, Ni, Nj, Mi, Mj, Hj, nact, vec, eps2, st);
@@ -930,94 +981,640 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
                                    w_out, B, Ni, Nj, Mi, Mj, Hj, nact, vec, eps2, st);
 }
 
-// ------------------------------------------------------- compact_update --
+// ------------------------------------------------------ bcpnn_fwd (tc) --
 //
-//   the same EMA and fold over the resident (Hj, K, Mj) compact trace.
+// rates[b, h*Mj + n] = softmax_n(gain * (bias + x @ w)[b, h*Mj + n]), the
+// dense layout: x (B, Ni) fp32, w (Ni, Hj*Mj) fp32 or the bf16 of a
+// serving pack.  Replaces src/repro/kernels/bcpnn_fwd.py:56
+// bcpnn_fwd_pallas.
 //
-// Grid: (64-column, 64-row) tiles of each post-HC h's (K, Mj) block (the
-// grid's z axis is h).  The tile rows are the HC's K live pre-units,
-// gathered from x in the tile loads; every entry is live, so there is no
-// mask.  Each block loops over the batch in kUpdK-row slices staged
-// through shared memory and accumulates its x^T y tile in registers (4 x 4
-// per thread, fp32 FMA), then runs the EMA and log fold as the epilogue
-// and writes pij' and w once, reading and writing the resident arrays and
-// touching nothing else.  ``a`` and ``count`` are read from device memory.
+// Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the product is
+// 1.64 GFLOP; in 3xTF32 on the tensor cores three times that, ~10 us at
+// 495 TFLOP/s TF32 (two products for a bf16 weight, ~6.6 us); its 28.6 MB
+// of traffic take ~8.5 us.  What each part of the design does about it:
 //
-// Bound: bytes.  At Model 1-struct (K = 256) it moves 15.5 MB, ~4.6 us.
+//  * Grid: one cluster per (batch tile of 128 rows, post-HC), of KS blocks
+//    that split the contraction (K = Ni) between them in 16-deep slices,
+//    so each w element leaves L2 once per batch tile.  KS (1..8) is the
+//    one with the fewest waves per share of work, from the count of
+//    co-resident clusters (cudaOccupancyMaxActiveClusters): at Model 1
+//    fewer clusters of 4 fit the card at once than its 32 post-HCs need,
+//    so a smaller cluster that runs in one wave wins; the readout (one
+//    post-HC) takes 8.
+//    After its slices a block parks its partial support in shared
+//    memory; each rank then sums a KS-th of the tile's rows over the
+//    cluster's partials (distributed shared memory, in rank order), adds
+//    the bias, applies the gain and keeps the rows in a shared support
+//    buffer: the support never leaves the cluster.  Once every column
+//    chunk (BN = 128 columns, narrower tiles for Mj <= 64) is in, each
+//    warp normalises whole rows with shuffles and writes them out.
+//  * The product runs on the tensor cores in 3xTF32: wgmma m64nBNk8 with
+//    fp32 accumulators (lo*hi, hi*lo, hi*hi; lo*lo, ~2^-22 relative,
+//    dropped), both operands read by the tensor cores from shared memory,
+//    so no fragment passes through registers; ref.split_tf32_mm models it
+//    on the CPU.  No single TF32 pass.  A bf16 weight is exact in TF32
+//    (w_lo = 0): its tiles hold w once and take two products.  Two
+//    warpgroups of tensor-core warps each own 64 rows of the tile and keep
+//    one slice's products in flight while the next slice's barrier is
+//    passed.
+//  * Operands are split once, when a slice is staged, not in every
+//    fragment load: two warpgroups of staging warps split each raw slice
+//    (x: 128 x 16, w: 16 x BN) into hi and lo (split_tf32: hi rounded as
+//    cvt.rna rounds, with two integer operations), and write them as the
+//    K-major tiles wgmma reads (8 x 16-byte core matrices, no swizzle; w
+//    transposed on the way) into one of two split buffers.  The staging
+//    warps set the pace (the split is most of their work), hence two
+//    warpgroups of them: wgmma keeps no fragments in registers, so 128
+//    registers a thread suffice for 512 threads.
+//  * The raw slices arrive by TMA tensor copies (two a slice, issued by
+//    one staging thread, zero filled past the edges) into a ring of four
+//    stages, three slices in flight; where a row is not 16-byte aligned or
+//    sized (Ni or Nj not a multiple of 4, or 8 for bf16), by cp.async
+//    (16-byte pieces where the rows allow, 4-byte ones otherwise, plain
+//    loads for a bf16 weight with odd widths).  Named barriers pass the
+//    split buffers between the roles.
+//
+// Variants of this body timed on the H100 at Model 1's hidden layer were
+// slower: four staging warps in place of eight, cp.async in place of TMA
+// for 16-byte-aligned rows, and the split through cvt.rna.tf32.f32.
 
-constexpr int kUpdTile = 64;
-constexpr int kUpdK = 16;
-constexpr int kUpdThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kTcRows = 128;      // batch rows per block (BM)
+constexpr int kTcK = 16;          // contraction slice per stage
+constexpr int kTcRaw = 4;         // raw stages: three slices in flight
+constexpr int kTcMmaWarps = 8;    // two warpgroups of tensor-core warps (first)
+constexpr int kTcStageWarps = 8;  // two warpgroups of staging warps
+constexpr int kTcMma = kTcMmaWarps * kWarp;
+constexpr int kTcStage = kTcStageWarps * kWarp;
+constexpr int kTcThreads = kTcMma + kTcStage;
+constexpr int kTcMaxCluster = 8;
+constexpr int kMaxSmem = 227 * 1024;
+// Named barriers (0 is __syncthreads): a split buffer is full (1, 2) or
+// empty (3, 4); the staging warps' own (5).
+constexpr int kBarFull = 1, kBarEmpty = 3, kBarStage = 5;
+// How the raw slices move: TMA tensor copies, or cp.async in 16-byte or
+// 4-byte pieces, or plain loads (w only: a bf16 weight of odd width).
+enum StageCopy : int { kCopyTma = 0, kCopy16 = 1, kCopy4 = 2, kCopyElem = 3 };
 
-__global__ void __launch_bounds__(kUpdThreads)
-compact_update_kernel(const float* __restrict__ pij, const float* __restrict__ log_pi,
-                      const float* __restrict__ log_pj, const float* __restrict__ x,
-                      const float* __restrict__ y, const int* __restrict__ table,
-                      const float* __restrict__ a_ptr, const float* __restrict__ count_ptr,
-                      float* __restrict__ pij_out, float* __restrict__ w_out, int B, int Ni,
-                      int Nj, int K, int Mi, int Mj, int nact, float eps2) {
-  __shared__ float xs[kUpdK][kUpdTile];
-  __shared__ float ys[kUpdK][kUpdTile];
-  const int tid = threadIdx.x;
-  const int ti = tid / 16;
-  const int tj = tid % 16;
-  const int h = blockIdx.z;              // post-HC
-  const int i0 = blockIdx.y * kUpdTile;  // contraction rows [0, K)
-  const int j0 = blockIdx.x * kUpdTile;  // columns [0, Mj) of the HC
-  const int colbase = h * Mj;
+// One block's tile: 128 rows x BN columns; its shared-memory map in
+// 4-byte words.  Core matrix (wgmma, K-major, no swizzle): 8 rows x 4
+// tf32 words, 128 contiguous bytes; the two core matrices of a row group
+// along k8 are 128 bytes apart (leading byte offset), row groups 256.
+template <int BN, typename T>
+struct FwdTile {
+  using Elem = T;
+  static constexpr int kBN = BN;
+  static constexpr bool kSplitW = std::is_same<T, float>::value;  // bf16: w_lo = 0
+  static constexpr int kRawX = kTcRows * kTcK;                      // [128][16] fp32
+  static constexpr int kRawW = kTcK * BN * (int)sizeof(T) / 4;      // [16][BN] T
+  static constexpr int kRawStage = (kRawX + kRawW + 31) / 32 * 32;  // 128-byte aligned
+  static constexpr int kA8 = kTcRows * 8;  // one k8 step of x, hi or lo
+  static constexpr int kB8 = BN * 8;       // one k8 step of w, hi or lo
+  // split buffer: x hi, x lo, w hi(, w lo), each [K/8][rows / 8][2][8][4]
+  static constexpr int kSplit = (kTcK / 8) * (2 * kA8 + (kSplitW ? 2 : 1) * kB8);
+  static constexpr int kLdP = BN + 8;  // partial support rows: conflict-free float2 stores
+  static constexpr int kPipe = kTcRaw * kRawStage + 2 * kSplit;
+  static constexpr int kWords =
+      kPipe > kTcRows * kLdP ? kPipe : kTcRows * kLdP;  // then the support rows
+  static_assert(kRawStage % 32 == 0 && kSplit % 32 == 0, "128-byte aligned regions");
+};
 
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+// The wgmma shared-memory descriptor of a K-major tile without swizzle:
+// start address, leading byte offset 128 (k), stride byte offset 256 (rows).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
 
-  for (int b0 = 0; b0 < B; b0 += kUpdK) {
-#pragma unroll
-    for (int q = 0; q < kUpdK * kUpdTile / kUpdThreads; ++q) {
-      const int e = tid + q * kUpdThreads;
-      const int bb = e / kUpdTile, u = e % kUpdTile;
-      const int gb = b0 + bb;
-      xs[bb][u] = (gb < B && i0 + u < K)
-                      ? x[(size_t)gb * Ni + unit_of<kCompact>(table, h, i0 + u, Mi, nact)]
-                      : 0.f;
-      ys[bb][u] = (gb < B && j0 + u < Mj) ? y[(size_t)gb * Nj + colbase + j0 + u] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int bb = 0; bb < kUpdK; ++bb) {
-      float xv[4], yv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = xs[bb][ti * 4 + r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) yv[c] = ys[bb][tj + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[r], yv[c], acc[r][c]);
-    }
-    __syncthreads();
+// d (64 x N, this thread's N/2 fp32) += A (64 x 8) B (8 x N), both tf32 in
+// shared memory, issued by one warpgroup; scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
 
-  const float a = *a_ptr;
-  const float one_minus_a = 1.f - a;
-  const float count = count_ptr != nullptr ? *count_ptr : (float)B;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gk = i0 + ti * 4 + r;
-    if (gk >= K) continue;
-    const float lpi = log_pi[unit_of<kCompact>(table, h, gk, Mi, nact)];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One 2-D TMA tensor copy of the box at (c0 inner, c1 outer), completing on bar.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// fn(e) for e = st, st + kTcStage, ... below N: the staging warps' share
+// of N pieces, unrolled (compile-time trip count and divisors).
+template <int N, class Fn>
+__device__ __forceinline__ void staged_share(int st, Fn&& fn) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int jl = j0 + tj + 16 * c;
-      if (jl >= Mj) continue;
-      const size_t idx = ((size_t)h * K + gk) * Mj + jl;
-      const float co = acc[r][c] / count;
-      const float p = one_minus_a * pij[idx] + a * co;
-      pij_out[idx] = p;
-      w_out[idx] = logf(fminf(fmaxf(p, eps2), 1.f)) - (lpi + log_pj[colbase + jl]);
+  for (int i = 0; i < (N + kTcStage - 1) / kTcStage; ++i) {
+    const int e = st + i * kTcStage;
+    if (N % kTcStage == 0 || e < N) fn(e);
+  }
+}
+
+__device__ __forceinline__ void split4(const float* v, uint4& hi, uint4& lo) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_tf32(v[q], h[q], l[q]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// Shared words of the support rows a rank normalises.
+__host__ __device__ __forceinline__ int sup_words(int ks, int Mj) {
+  return (kTcRows + ks - 1) / ks * Mj;
+}
+
+// Word offset of (row r, k) of a K-major k8 tile.
+__device__ __forceinline__ int kmajor(int r, int k) {
+  return (r >> 3) * 64 + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
+}
+
+template <class F>
+__global__ void __launch_bounds__(kTcThreads, 1)
+bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw, const float* __restrict__ x,
+                    const typename F::Elem* __restrict__ w,
+                    const typename F::Elem* __restrict__ bias, float* __restrict__ out, int B,
+                    int Ni, int Nj, int Mj, int ks, int xcopy, int wcopy, float gain) {
+  using T = typename F::Elem;
+  constexpr int BM = kTcRows, BK = kTcK, BN = F::kBN, NA = BN / 2;
+  extern __shared__ __align__(1024) float fsm[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.z * Mj;  // first unit of this post-HC
+  // rows [r0, r0 + nrows) of the tile: the ones this rank sums and normalises
+  const int r0 = rank * BM / ks, nrows = (rank + 1) * BM / ks - r0;
+  float* part = fsm;             // [BM][kLdP] partial support (after the slices)
+  float* sup = fsm + F::kWords;  // [nrows][Mj] support rows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sup + ((sup_words(ks, Mj) + 1) & ~1));
+  auto raw = [&](int u) { return fsm + (u % kTcRaw) * F::kRawStage; };
+  auto split = [&](int b) { return fsm + kTcRaw * F::kRawStage + (b & 1) * F::kSplit; };
+  // this rank's slices of the contraction
+  const int total = (Ni + BK - 1) / BK;
+  const int s0 = rank * total / ks, slices = (rank + 1) * total / ks - s0;
+  const int kend = min(Ni, (s0 + slices) * BK);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const bool mma_warp = warp < kTcMmaWarps;
+  const bool tma = xcopy == kCopyTma;
+
+  if (threadIdx.x == kTcMma) {
+    for (int q = 0; q < kTcRaw; ++q) mbar_init(bars + q);
+    if (tma) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(&tmx) : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(&tmw) : "memory");
     }
   }
+  __syncthreads();
+
+  // TMA path: slice s of the chunk at c0 into raw stage (done + s) % kTcRaw,
+  // issued by the first staging thread
+  auto fetch = [&](int done, int c0, int s) {
+    const int u = done + s;
+    float* rx = raw(u);
+    uint64_t* bar = bars + u % kTcRaw;
+    const int k0 = (s0 + s) * BK;
+    mbar_expect(bar, (uint32_t)(4 * F::kRawX + sizeof(T) * BK * BN));
+    tma_2d(rx, &tmx, k0, row0, bar);
+    tma_2d(rx + F::kRawX, &tmw, col0 + c0, k0, bar);
+  };
+
+  int done = 0;  // slices staged before this column chunk (raw stages, mbarrier phases)
+  for (int c0 = 0; c0 < Mj; c0 += BN, done += slices) {
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+    if (mma_warp) {
+      // ---- tensor-core warpgroups: 3xTF32 wgmma on split buffer s % 2 ---
+      const int wg = warp / 4;  // rows 64 wg .. 64 wg + 63
+      for (int s = 0; s < slices; ++s) {
+        barrier_sync(kBarFull + (s & 1), kTcThreads);
+        const float* sx = split(s);
+        wgmma_fence();
+        fence_operands<NA>(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const float* xh = sx + kk * 2 * F::kA8 + wg * 64 * 8;
+          const float* wh = sx + (BK / 8) * 2 * F::kA8 + kk * (F::kSplitW ? 2 : 1) * F::kB8;
+          const uint64_t dxh = wgmma_desc(xh), dxl = wgmma_desc(xh + F::kA8);
+          const uint64_t dwh = wgmma_desc(wh);
+          wgmma_tf32<BN>(acc, dxl, dwh, 1);
+          if constexpr (F::kSplitW) wgmma_tf32<BN>(acc, dxh, wgmma_desc(wh + F::kB8), 1);
+          wgmma_tf32<BN>(acc, dxh, dwh, 1);
+        }
+        wgmma_commit();
+        fence_operands<NA>(acc);
+        // slice s - 1's products are done: its split buffer is free
+        wgmma_wait<1>();
+        if (s > 0) barrier_arrive(kBarEmpty + ((s - 1) & 1), kTcThreads);
+      }
+      wgmma_wait<0>();
+      fence_operands<NA>(acc);
+      if (slices > 0) barrier_arrive(kBarEmpty + ((slices - 1) & 1), kTcThreads);
+    } else {
+      // ---- staging warpgroups: copy, split, lay out K-major --------------
+      const int st = threadIdx.x - kTcMma;
+      // cp.async path: the staging warps copy slice s into raw stage
+      // (done + s) % kTcRaw themselves
+      auto stage = [&](int s) {
+        float* rx = raw(done + s);
+        T* rw = reinterpret_cast<T*>(rx + F::kRawX);
+        const int k0 = (s0 + s) * BK;
+        if (xcopy == kCopy16) {
+          staged_share<BM * BK / 4>(st, [&](int e) {
+            const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+            const bool v = row0 + r < B && k0 + c < kend;
+            cp_async16(rx + r * BK + c, v ? x + (size_t)(row0 + r) * Ni + k0 + c : x, v);
+          });
+        } else {
+          staged_share<BM * BK>(st, [&](int e) {
+            const int r = e / BK, c = e % BK;
+            const bool v = row0 + r < B && k0 + c < kend;
+            cp_async4(rx + r * BK + c, v ? x + (size_t)(row0 + r) * Ni + k0 + c : x, v);
+          });
+        }
+        const T* wc = w + col0 + c0;
+        // PER elements a piece: 16 or 4 bytes by cp.async, or one by a load
+        auto stage_w = [&](auto mode) {
+          constexpr int M = decltype(mode)::value;
+          constexpr int PER = M == kCopy16 ? 16 / (int)sizeof(T) : M == kCopy4 ? 4 / (int)sizeof(T) : 1;
+          staged_share<BK * BN / PER>(st, [&](int e) {
+            const int kk = e / (BN / PER), c = (e % (BN / PER)) * PER;
+            const bool v = k0 + kk < kend && c0 + c < Mj;
+            if constexpr (M == kCopyElem) {
+              rw[kk * BN + c] = v ? wc[(size_t)(k0 + kk) * Nj + c] : T(0.f);
+            } else if constexpr (M == kCopy16) {
+              cp_async16(rw + kk * BN + c, v ? wc + (size_t)(k0 + kk) * Nj + c : w, v);
+            } else {
+              cp_async4(rw + kk * BN + c, v ? wc + (size_t)(k0 + kk) * Nj + c : w, v);
+            }
+          });
+        };
+        if (wcopy == kCopy16) {
+          stage_w(std::integral_constant<int, kCopy16>{});
+        } else if (wcopy == kCopy4) {
+          stage_w(std::integral_constant<int, kCopy4>{});
+        } else {
+          stage_w(std::integral_constant<int, kCopyElem>{});
+        }
+        cp_async_commit();
+      };
+      for (int q = 0; q < kTcRaw - 1 && q < slices; ++q) {
+        if (!tma) {
+          stage(q);
+        } else if (st == 0) {
+          fetch(done, c0, q);
+        }
+      }
+      for (int s = 0; s < slices; ++s) {
+        if (tma) {
+          const int u = done + s;
+          mbar_wait(bars + u % kTcRaw, (u / kTcRaw) & 1);
+          // everyone done splitting s - 1: its stage takes slice s + kTcRaw - 1
+          barrier_sync(kBarStage, kTcStage);
+          if (st == 0 && s + kTcRaw - 1 < slices) fetch(done, c0, s + kTcRaw - 1);
+        } else {
+          const int ahead = min(kTcRaw - 2, slices - 1 - s);  // later slices in flight
+          if (ahead >= 2) {
+            cp_async_wait<2>();
+          } else if (ahead == 1) {
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          // everyone's copies of slice s, and everyone done splitting s - 1
+          barrier_sync(kBarStage, kTcStage);
+          if (s + kTcRaw - 1 < slices) stage(s + kTcRaw - 1);  // into s - 1's stage
+        }
+        if (s >= 2) barrier_sync(kBarEmpty + (s & 1), kTcThreads);
+        const float* rx = raw(done + s);
+        const T* rw = reinterpret_cast<const T*>(rx + F::kRawX);
+        float* sx = split(s);
+        float* sw = sx + (BK / 8) * 2 * F::kA8;
+        // x: four k values of a row a piece (one 16-byte read), eight rows
+        // of a core matrix on eight neighbouring lanes (one 128-byte store)
+        staged_share<BM * BK / 4>(st, [&](int e) {
+          const int r = (e >> 5) * 8 + (e & 7), c4 = (e >> 3) & 3;
+          const float4 v4 = *reinterpret_cast<const float4*>(rx + r * BK + c4 * 4);
+          const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+          uint4 hi, lo;
+          split4(v, hi, lo);
+          float* d = sx + (c4 >> 1) * 2 * F::kA8 + kmajor(r, (c4 & 1) * 4);
+          *reinterpret_cast<uint4*>(d) = hi;
+          *reinterpret_cast<uint4*>(d + F::kA8) = lo;
+        });
+        // w transposed: four k values of a column a piece, neighbouring
+        // lanes on neighbouring columns
+        staged_share<BK / 4 * BN>(st, [&](int e) {
+          const int n = e % BN, c4 = e / BN;
+          float v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] = to_f32(rw[(c4 * 4 + q) * BN + n]);
+          float* d = sw + (c4 >> 1) * (F::kSplitW ? 2 : 1) * F::kB8 + kmajor(n, (c4 & 1) * 4);
+          if constexpr (F::kSplitW) {
+            uint4 hi, lo;
+            split4(v, hi, lo);
+            *reinterpret_cast<uint4*>(d) = hi;
+            *reinterpret_cast<uint4*>(d + F::kB8) = lo;
+          } else {
+            *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+          }
+        });
+        // the split tiles are read by the tensor cores and the raw stage is
+        // refilled by TMA (both the async proxy)
+        fence_proxy_async();
+        barrier_arrive(kBarFull + (s & 1), kTcThreads);
+      }
+      // the tensor-core warps' last releases of the split buffers
+      for (int s = max(0, slices - 2); s < slices; ++s) {
+        barrier_sync(kBarEmpty + (s & 1), kTcThreads);
+      }
+    }
+    __syncthreads();  // every split buffer and raw stage is free
+    if (mma_warp) {
+      // the partial support: acc[4 n8 + 2h + e] is row 16 (warp % 4) + g + 8h,
+      // column 8 n8 + 2t + e of the warpgroup's 64 rows
+      const int rb = (warp / 4) * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+      for (int n8 = 0; n8 < BN / 8; ++n8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(part + (rb + 8 * h) * F::kLdP + n8 * 8 + 2 * t) =
+              make_float2(acc[4 * n8 + 2 * h], acc[4 * n8 + 2 * h + 1]);
+        }
+    }
+    // ---- the cluster's sum, bias and gain into this rank's support rows ---
+    cluster.sync();  // every rank's partials are in
+    const int cols = min(BN, Mj - c0);
+    for (int e = threadIdx.x; e < nrows * (BN / 4); e += kTcThreads) {
+      const int lr = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      if (row0 + r0 + lr >= B || c >= cols) continue;
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int q = 0; q < ks; ++q) {  // in rank order
+        const float4 p = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part + (r0 + lr) * F::kLdP + c, q));
+        sum[0] += p.x; sum[1] += p.y; sum[2] += p.z; sum[3] += p.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (c + i < cols) {
+          sup[lr * Mj + c0 + c + i] = (sum[i] + to_f32(bias[col0 + c0 + c + i])) * gain;
+        }
+      }
+    }
+    fence_proxy_async();  // the partials' region takes TMA copies again
+    cluster.sync();       // no rank overwrites or leaves its partials before this
+  }
+  softmax_rows_to(sup, nrows, Mj, out, row0 + r0, B, Nj, col0);
+}
+
+// The CUDA driver's tensor-map encoder, found through the runtime (the
+// library links only the runtime).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// A 2-D row-major tensor (rows x cols) copied in boxes of box_rows x
+// box_cols, zero filled outside.
+inline bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
+                       long long rows, long long cols, int box_rows, int box_cols) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estrides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Shared bytes of a block: the pipeline, its support rows, the mbarriers.
+template <class F>
+size_t fwd_smem(int ks, int Mj) {
+  return sizeof(float) * ((size_t)F::kWords + sup_words(ks, Mj) + 2) + sizeof(uint64_t) * kTcRaw;
+}
+
+// The cluster size with the least time: a block's share of the work is
+// 1/ks, and the clusters run in ceil(clusters / co-resident clusters)
+// waves.  The co-resident counts are kept per (device, cluster size,
+// shared bytes), under a lock.  Also sets the kernel's shared-memory limit.
+template <class F>
+cudaError_t fwd_cluster_size(int B, int Ni, int Hj, int Mj, cudaStream_t stream, int* ks_out) {
+  int ks_min = 1;
+  while (ks_min < kTcMaxCluster && fwd_smem<F>(ks_min, Mj) > (size_t)kMaxSmem) ++ks_min;
+  if (fwd_smem<F>(ks_min, Mj) > (size_t)kMaxSmem) return cudaErrorInvalidValue;  // Mj too wide
+  cudaError_t err = cudaFuncSetAttribute(bcpnn_fwd_tc_kernel<F>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)fwd_smem<F>(ks_min, Mj));
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + kTcRows - 1) / kTcRows;
+  const int total = (Ni + kTcK - 1) / kTcK;
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, size_t>, int> seen;  // -> co-resident clusters
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int ks = ks_min;
+  double best = 0.0;
+  for (int k = ks_min; k <= kTcMaxCluster && (k == ks_min || k <= total); ++k) {
+    const auto key = std::make_tuple(device, k, fwd_smem<F>(k, Mj));
+    int n = 0;
+    {
+      const std::lock_guard<std::mutex> hold(lock);
+      const auto it = seen.find(key);
+      if (it != seen.end()) {
+        n = it->second;
+      } else {
+        cfg.gridDim = dim3(k, tiles, Hj);
+        cfg.dynamicSmemBytes = std::get<2>(key);
+        attr[0].val.clusterDim.x = k;
+        err = cudaOccupancyMaxActiveClusters(&n, (void*)bcpnn_fwd_tc_kernel<F>, &cfg);
+        if (err != cudaSuccess) return err;
+        seen[key] = n;
+      }
+    }
+    if (n <= 0) continue;
+    const long long clusters = (long long)tiles * Hj;
+    const double cost = (double)((clusters + n - 1) / n) / k;
+    if (best == 0.0 || cost < best) {
+      best = cost;
+      ks = k;
+    }
+  }
+  if (best == 0.0) return cudaErrorInvalidConfiguration;
+  *ks_out = ks;
+  return cudaSuccess;
+}
+
+template <class F>
+cudaError_t launch_fwd_tc(const float* x, const typename F::Elem* w,
+                          const typename F::Elem* bias, float* out, int B, int Ni, int Hj,
+                          int Mj, int xcopy, int wcopy, float gain, cudaStream_t stream) {
+  using T = typename F::Elem;
+  CUtensorMap tmx = {}, tmw = {};
+  if (xcopy == kCopyTma) {
+    const bool ok =
+        tensor_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, Ni, kTcRows, kTcK) &&
+        tensor_map(&tmw, w,
+                   F::kSplitW ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   (int)sizeof(T), Ni, (long long)Hj * Mj, kTcK, F::kBN);
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  int ks = 0;
+  cudaError_t err = fwd_cluster_size<F>(B, Ni, Hj, Mj, stream, &ks);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ks, (B + kTcRows - 1) / kTcRows, Hj);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = fwd_smem<F>(ks, Mj);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bcpnn_fwd_tc_kernel<F>, tmx, tmw, x, w, bias, out, B, Ni,
+                           Hj * Mj, Mj, ks, xcopy, wcopy, gain);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// fn(tile) with the tile for the HC width: 16, 32, 64 or 128 columns.
+template <typename T, class Fn>
+cudaError_t with_fwd_tile(int Mj, Fn&& fn) {
+  if (Mj <= 16) return fn(FwdTile<16, T>{});
+  if (Mj <= 32) return fn(FwdTile<32, T>{});
+  if (Mj <= 64) return fn(FwdTile<64, T>{});
+  return fn(FwdTile<128, T>{});
+}
+
+// Picks the tile from the HC width and the copy paths from the operands:
+// TMA where both operands' rows are 16-byte aligned and sized.
+template <typename T>
+cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, float* out, int B,
+                              int Ni, int Hj, int Mj, float gain, cudaStream_t st) {
+  const long long Nj = (long long)Hj * Mj;
+  constexpr int kPer16 = 16 / (int)sizeof(T), kPer4 = 4 / (int)sizeof(T);
+  const bool x16 = Ni % 4 == 0 && aligned16(x);
+  int wcopy = kCopyElem;
+  if (Nj % kPer16 == 0 && Mj % kPer16 == 0 && aligned16(w)) {
+    wcopy = kCopy16;
+  } else if (Nj % kPer4 == 0 && Mj % kPer4 == 0 && ((uintptr_t)w & 3u) == 0) {
+    wcopy = kCopy4;
+  }
+  const int xcopy = x16 && Nj % kPer16 == 0 && aligned16(w) ? kCopyTma : x16 ? kCopy16 : kCopy4;
+  return with_fwd_tile<T>(Mj, [&](auto tile) {
+    return launch_fwd_tc<decltype(tile)>(x, w, bias, out, B, Ni, Hj, Mj, xcopy, wcopy, gain, st);
+  });
 }
 
 }  // namespace
@@ -1036,11 +1633,25 @@ int bcpnn_hc_softmax(const float* s, float* out, long long segments, int m, floa
 }
 
 // ``bf16``: w and bias are __nv_bfloat16 (a bf16 serving pack), else float.
+// The cluster size bcpnn_fwd takes for this shape on the current device,
+// into *ks (phase 1 of chip_smoke.py prints it).  Launches nothing.
+int bcpnn_fwd_cluster(int B, int Ni, int Hj, int Mj, int bf16, int* ks) {
+  auto pick = [&](auto tile) {
+    return fwd_cluster_size<decltype(tile)>(B, Ni, Hj, Mj, nullptr, ks);
+  };
+  return (int)(bf16 ? with_fwd_tile<__nv_bfloat16>(Mj, pick) : with_fwd_tile<float>(Mj, pick));
+}
+
 int bcpnn_fwd(const float* x, const void* w, const void* bias, float* out, int B, int Ni,
               int Hj, int Mj, int bf16, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
-  return (int)launch_fwd_typed<kDense>(x, w, bias, nullptr, out, B, Ni, Ni, Hj, Mj, 1, 0, bf16,
-                                       gain, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    return (int)launch_fwd_tc_any(x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias, out, B,
+                                  Ni, Hj, Mj, gain, st);
+  }
+  return (int)launch_fwd_tc_any(x, (const float*)w, (const float*)bias, out, B, Ni, Hj, Mj, gain,
+                                st);
 }
 
 // x (B, Ni); w (Ni, Hj*Mj) dense-resident, or (Hj, K, Mj) when ``compact``;
@@ -1076,16 +1687,12 @@ int bcpnn_patchy_update(const float* pij, const float* log_pi, const float* log_
   const int K = nact * Mi;
   if (K <= 0 || Hj <= 0 || Mj <= 0 || B <= 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!compact) {
-    return (int)launch_trace_any<kPatchy>(pij, log_pi, log_pj, x, y, nullptr, table, a, count,
-                                          pij_out, w_out, B, Ni, Hj * Mj, Mi, Mj, Hj, nact, eps2,
-                                          st);
-  }
-  const dim3 grid((Mj + kUpdTile - 1) / kUpdTile, (K + kUpdTile - 1) / kUpdTile, Hj);
-  compact_update_kernel<<<grid, kUpdThreads, 0, st>>>(pij, log_pi, log_pj, x, y, table, a,
-                                                      count, pij_out, w_out, B, Ni, Hj * Mj, K,
-                                                      Mi, Mj, nact, eps2);
-  return (int)cudaGetLastError();
+  return (int)(compact ? launch_trace_any<kCompact>(pij, log_pi, log_pj, x, y, nullptr, table, a,
+                                                    count, pij_out, w_out, B, Ni, Hj * Mj, Mi, Mj,
+                                                    Hj, nact, eps2, st)
+                       : launch_trace_any<kPatchy>(pij, log_pi, log_pj, x, y, nullptr, table, a,
+                                                   count, pij_out, w_out, B, Ni, Hj * Mj, Mi, Mj,
+                                                   Hj, nact, eps2, st));
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Helpers shared by the kernel sources in this directory (bcpnn.cu,
 // quant.cu, yardstick.cu): warp reductions, the weight layouts and the
-// table lookup of the patchy layouts, the TF32 split and tensor-core
-// product of the resident-trace update.
+// table lookup of the patchy layouts, the TF32 split (the dense forward
+// and the resident-trace update) and the mma.sync product of the
+// resident-trace update.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,10 +53,25 @@ __device__ __forceinline__ int unit_of(const int* __restrict__ table, int h, int
   }
 }
 
-// v = hi + lo, both TF32 (round to nearest, ties away, as cvt.rna).
+// fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite value: half of the 13 dropped
+// bits added to the magnitude, then cleared (ref.tf32_round).  Two
+// full-rate integer operations in place of the cvt, which runs at a
+// fraction of that rate (chip_smoke.py's mma.sync yardstick, operands
+// split every step).  A NaN's carry may run into the sign bit or leave an
+// infinity: split_tf32 carries the NaN in lo instead.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo, hi TF32 and lo = v - hi (exact in fp32).  lo goes to the
+// tensor cores whole: they read a TF32 operand's top 19 bits, so it
+// enters the product truncated to TF32 (ref.split_tf32_mm models both
+// halves), and a rounding is saved.  A NaN v makes lo a NaN whatever hi
+// came out as, so the NaN reaches the product.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+  hi = tf32_rna(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // c += a b on the tensor cores: one m16n8k8 TF32 product, fp32 accumulators.

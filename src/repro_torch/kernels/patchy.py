@@ -4,7 +4,8 @@ of structural plasticity, under the JAX package's names.
 Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
 
   * ``patchy_forward`` / ``compact_forward`` -> ``csrc/bcpnn.cu::
-    bcpnn_fwd_kernel`` with the patchy or compact layout: one block per
+    bcpnn_fwd_kernel`` with the patchy or compact layout (fp32 FMA on the
+    CUDA cores; the dense forward has a tensor-core body): one block per
     (32-row batch tile, post-HC) contracts over the HC's K = nact*Mi live
     pre-units, gathering the rows of x and of w named by the (Hj, nact)
     index table inside its tile loads, then the HC's softmax.  The JAX
@@ -18,13 +19,16 @@ Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
     the silent entries back as read (pij held bit for bit, w 0), building
     their live predicate from the table rows of the post-HCs they cover.
     Fresh outputs, no copy or memset beforehand.
-  * ``compact_update`` -> ``csrc/bcpnn.cu::compact_update_kernel``: (K,
-    Mj) tiles of each post-HC's gathered XᵀY in fp32 FMA, then the EMA and
-    the log fold, over the resident (Hj, K, Mj) arrays.
+  * ``compact_update`` -> ``csrc/bcpnn.cu::trace_update_kernel`` with the
+    compact layout, the same body: gathered tiles of a post-HC's K live
+    rows (x gathered through its table row), the 3xTF32 product, the EMA
+    and the fold, over the resident (Hj, K, Mj) arrays (a tile's rows are
+    one contiguous run).
 
 Bounds at Model 1-struct (B=128, Ni=1568, Hj=32, Mj=128, nact=128, K=256):
 the forward's 268 MFLOP take ~4.0 us at 67 TFLOP/s fp32 (its ~7.1 MB
-~2.1 us); ``compact_update`` moves 15.5 MB, ~4.6 us; ``patchy_update``
+~2.1 us); ``compact_update`` moves 15.5 MB, ~4.6 us (its 3 x 268 MFLOP
+~1.6 us at the TF32 rate); ``patchy_update``
 reads pij and writes full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the
 dense update (its copy tiles also read the 16 % of live rows that the
 gathered tiles read: 4.1 MB more).

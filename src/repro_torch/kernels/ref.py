@@ -65,21 +65,35 @@ def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
     """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
     zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
-    dropped bits to the magnitude and clear them.  Finite inputs only."""
-    bits = v.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    dropped bits to the magnitude and clear them.  Infinities come out
+    unchanged and a NaN stays a NaN (its carry would reach the sign bit)."""
+    v = v.to(torch.float32).contiguous()
+    rounded = ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(v), v, rounded)
 
 
-def split_tf32_co(x: torch.Tensor, y: torch.Tensor, n) -> torch.Tensor:
-    """XᵀY / n as the resident-trace update kernel forms it on the tensor
-    cores in 3xTF32: each operand split as v = hi + lo with hi =
-    tf32(v) and lo = tf32(v − hi), and hi·hi + hi·lo + lo·hi summed in
-    fp32 (lo·lo dropped).  Not on the main path: it documents and pins
-    the kernel's arithmetic (tests/test_torch_kernels.py)."""
-    x, y = x.to(torch.float32), y.to(torch.float32)
-    xh, yh = tf32_round(x), tf32_round(y)
-    xl, yl = tf32_round(x - xh), tf32_round(y - yh)
-    return (xl.T @ yh + xh.T @ yl + xh.T @ yh) / n
+def tf32_truncate(v: torch.Tensor) -> torch.Tensor:
+    """fp32 truncated to TF32 (the 13 low mantissa bits cleared), as the
+    tensor cores read an fp32 word handed to them as a TF32 operand."""
+    v = v.to(torch.float32).contiguous()
+    return (v.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the tensor-core kernels form it in 3xTF32: each operand
+    split as v = hi + lo with hi = tf32(v) (``csrc/common.cuh::
+    split_tf32``) and lo = v − hi, which the tensor cores read truncated
+    to TF32, and lo·hi + hi·lo + hi·hi summed in fp32 (lo·lo dropped).
+    The resident-trace update's co is ``split_tf32_mm(x.T, y) / n``; the
+    dense forward's support is ``split_tf32_mm(x, w) + bias``, where a
+    bf16 weight has lo = 0 (it is exact in TF32) and the kernel skips
+    that product.  A NaN in a or b makes its lo a NaN, so it reaches the
+    product.  Not on the main path: it documents and pins the kernels'
+    arithmetic (tests/test_torch_kernels.py)."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 # ------------------------------------------------- patchy / compact ----

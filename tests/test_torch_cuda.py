@@ -61,6 +61,108 @@ def test_bcpnn_fwd_kernel(gen, b, ni, hj, mj):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def test_bcpnn_fwd_kernel_at_fitted_log_odds(gen):
+    """Model 1's hidden shape with weights at the fitted range of log-odds
+    (log clip(pij) − log pi − log pj from traces of binary-pixel inputs and
+    sharp hidden rates; supports reach 10 and more), where an error in the
+    kernel's 3xTF32 split would show: rates within 1e-5 of the plain
+    version and of an fp64 forward."""
+    n, b, hi, hj, mj, eps = 512, 128, 784, 32, 128, 1e-4
+
+    def encode(rows):
+        pix = (torch.rand((rows, hi), generator=gen, device="cuda") < 0.3)
+        pix = pix.double()
+        return torch.stack([pix, 1.0 - pix], -1).reshape(rows, 2 * hi)
+
+    xf = encode(n)
+    proj = torch.randn((2 * hi, hj * mj), generator=gen, device="cuda",
+                       dtype=torch.float64)
+    yf = torch.softmax((xf @ proj * 0.05).view(n, hj, mj), -1).view(n, -1)
+    pi, pj, pij = xf.mean(0), yf.mean(0), xf.T @ yf / n
+    w = (torch.log(pij.clamp(eps * eps, 1.0)) - torch.log(pi.clamp(eps, 1.0))[:, None]
+         - torch.log(pj.clamp(eps, 1.0))[None, :]).float().contiguous()
+    bias = torch.log(pj.clamp(eps, 1.0)).float()
+    x = encode(b).float().contiguous()
+    s64 = x.double() @ w.double() + bias.double()
+    assert s64.abs().max().item() >= 10.0
+    want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj)
+    assert (got - ref.ref_bcpnn_fwd(x, w, bias, hj, mj)).abs().max().item() <= 1e-5
+    assert (got.double() - want64).abs().max().item() <= 1e-5
+
+
+# B = 37, Ni = 1000 on each way the slices reach shared memory: TMA tensor
+# copies (Nj = 128), 4-byte cp.async of w (Nj = 30), and 4-byte x with
+# plain bf16 loads (Ni = 1001, Mj = 7).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ni,hj,mj", [(1000, 2, 64), (1000, 3, 10),
+                                      (1001, 3, 7)])
+def test_bcpnn_fwd_kernel_copy_paths(gen, dtype, ni, hj, mj):
+    b = 37
+    x = _rand(gen, b, ni)
+    w = (_randn(gen, ni, hj * mj) * 0.1).to(dtype)
+    bias = _randn(gen, hj * mj).to(dtype)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj, 1.25)
+    want = ref.ref_bcpnn_fwd(x, w.float(), bias.float(), hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def _canonical_nan():
+    """The NaN the card's arithmetic produces (0x7FFFFFFF), as a 0-d tensor."""
+    return torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+
+
+def _same_non_finite(got, want):
+    """Non-finite exactly where the plain version is, and somewhere."""
+    bad = ~torch.isfinite(want)
+    return bool(bad.any()) and torch.equal(~torch.isfinite(got), bad)
+
+
+# A NaN in x reaches the rates, through the 3xTF32 split of the TMA and
+# cp.async paths and of a bf16 weight, as it reaches the plain version's.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,ni,hj,mj", [(128, 1568, 32, 128),
+                                        (37, 1000, 3, 10)])
+def test_bcpnn_fwd_kernel_keeps_nan(gen, dtype, b, ni, hj, mj):
+    x = _rand(gen, b, ni)
+    x[3, 5] = _canonical_nan()
+    w = (_randn(gen, ni, hj * mj) * 0.1).to(dtype)
+    bias = _randn(gen, hj * mj).to(dtype)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj)
+    want = ref.ref_bcpnn_fwd(x, w.float(), bias.float(), hj, mj)
+    assert _same_non_finite(got, want)
+    ok = torch.isfinite(want)
+    assert (got[ok] - want[ok]).abs().max().item() <= 1e-5
+
+
+def test_trace_updates_keep_nan(gen):
+    """A NaN in x reaches pij' and w of its pre-unit's rows in the three
+    layouts, as it reaches the plain versions' (the fold's clip keeps it)."""
+    b, hi, mi, hj, mj, nact = 128, 784, 2, 32, 128, 128
+    ni, nj = hi * mi, hj * mj
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, b, ni), _rand(gen, b, nj)
+    a = torch.tensor(0.02, device="cuda")
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    mask = (_rand(gen, hi, hj) > 0.3).float()
+    table = build_table(topk_mask(_rand(gen, hi, hj), nact), nact)
+    x[3, int(table[0, 0]) * mi] = _canonical_nan()  # a live unit of HC 0
+    got = ops.bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    want = ref.ref_bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    for g, w_ in zip(got, want):
+        assert _same_non_finite(g, w_)
+    got = ops.patchy_update(pij, lpi, lpj, x, y, table, a, mi, hj, mj)
+    want = ref.ref_patchy_update(pij, lpi, lpj, x, y, table, a, mi, hj, mj)
+    for g, w_ in zip(got, want):
+        assert _same_non_finite(g, w_)
+    pij_c = _rand(gen, hj, nact * mi, mj) * 0.01 + 1e-5
+    got = ops.compact_update(pij_c, lpi, lpj, x, y, table, a, mi)
+    want = ref.ref_compact_update(pij_c, lpi, lpj, x, y, table, a, mi)
+    for g, w_ in zip(got, want):
+        assert _same_non_finite(g, w_)
+
+
 # a = 1 is a fit's first step: pij' is XᵀY/n itself, undamped.
 @pytest.mark.parametrize("alpha", [0.02, 1.0])
 @pytest.mark.parametrize("b,hi,mi,hj,mj", [(1, 3, 2, 1, 2), (37, 500, 2, 3, 10),

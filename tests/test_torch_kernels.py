@@ -131,7 +131,7 @@ def test_split_tf32_product_holds_the_update_tolerance_and_one_pass_does_not():
     of that arithmetic holds the card check's pij tolerance (1e-9 +
     1e-5·|ref|, chip_smoke.py phase 1) against an fp64 XᵀY; a single
     TF32 pass breaks it, so the check can tell the two apart."""
-    from repro_torch.kernels.ref import split_tf32_co, tf32_round
+    from repro_torch.kernels.ref import split_tf32_mm, tf32_round
     rng = np.random.default_rng(14)
     b, ni, nj = 128, 1568, 256
     x = rng.random((b, ni), dtype=np.float32)
@@ -144,7 +144,7 @@ def test_split_tf32_product_holds_the_update_tolerance_and_one_pass_does_not():
         new = ((1.0 - a) * _t(pij) + a * co).double().numpy()
         return bool(np.all(np.abs(new - want) <= 1e-9 + 1e-5 * np.abs(want)))
 
-    assert within(split_tf32_co(_t(x), _t(y), b))
+    assert within(split_tf32_mm(_t(x).T, _t(y)) / b)
     assert not within(tf32_round(_t(x)).T @ tf32_round(_t(y)) / b)
     # the split halves are TF32 numbers: 13 low mantissa bits clear
     hi = tf32_round(_t(x))
@@ -153,6 +153,143 @@ def test_split_tf32_product_holds_the_update_tolerance_and_one_pass_does_not():
         assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
     np.testing.assert_array_equal((hi + lo - _t(x)).abs().numpy() <=
                                   np.abs(x) * 2.0 ** -21, True)
+
+
+def _fitted_hidden_operands(rng, b, hi, mi, hj, mj, eps=1e-4):
+    """x and a Model-1-like fitted (w, bias) at the learned log-odds range:
+    w = log clip(pij, eps², 1) − log pi − log pj and bias = log pj, from
+    traces of 512 binary-pixel inputs (two minicolumns a pixel) and sharp
+    hidden rates.  Their supports reach ~10–20, where an error in the
+    split would show in the rates."""
+    ni, nj, n = hi * mi, hj * mj, 512
+
+    def encode(rows):
+        pix = (rng.random((rows, hi)) < 0.3).astype(np.float64)
+        return np.stack([pix, 1.0 - pix], -1).reshape(rows, ni)
+
+    xf = encode(n)
+    s = (xf @ rng.standard_normal((ni, nj)) * 0.05).reshape(n, hj, mj)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    yf = (e / e.sum(-1, keepdims=True)).reshape(n, nj)
+    pi, pj, pij = xf.mean(0), yf.mean(0), xf.T @ yf / n
+    w = (np.log(np.clip(pij, eps * eps, 1.0))
+         - np.log(np.clip(pi, eps, 1.0))[:, None]
+         - np.log(np.clip(pj, eps, 1.0))[None, :]).astype(np.float32)
+    bias = np.log(np.clip(pj, eps, 1.0)).astype(np.float32)
+    return encode(b).astype(np.float32), w, bias
+
+
+def test_split_tf32_support_holds_the_forward_tolerance_and_one_pass_does_not():
+    """The dense forward forms its support on the tensor cores in 3xTF32.
+    At Model 1's hidden shape (B=128, Ni=1568, 32×128) with fitted-range
+    weights, the CPU model of that arithmetic gives rates within the
+    forward tolerance (1e-5 abs) of the JAX forward and of an fp64 one; a
+    single TF32 pass breaks it."""
+    from repro_torch.kernels.ref import (ref_hc_softmax, split_tf32_mm,
+                                         tf32_round)
+    rng = np.random.default_rng(15)
+    b, hi, mi, hj, mj = 128, 784, 2, 32, 128
+    x, w, bias = _fitted_hidden_operands(rng, b, hi, mi, hj, mj)
+    s64 = x.astype(np.float64) @ w.astype(np.float64) + bias
+    assert 10.0 <= np.abs(s64).max() <= 40.0
+    want64 = ref_hc_softmax(torch.from_numpy(s64), hj, mj).numpy()
+    want = np.asarray(jops.bcpnn_fwd(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(bias), hj, mj))
+
+    def rates(support):
+        return ref_hc_softmax(support + _t(bias), hj, mj).numpy()
+
+    split = rates(split_tf32_mm(_t(x), _t(w)))
+    one_pass = rates(tf32_round(_t(x)) @ tf32_round(_t(w)))
+    for ref_rates in (want, want64):
+        assert np.abs(split - ref_rates).max() <= FWD_TOL
+        assert np.abs(one_pass - ref_rates).max() > FWD_TOL
+
+
+def test_bf16_weight_is_its_own_tf32_rounding():
+    """A bf16 weight widened to fp32 has 8 mantissa bits, inside TF32's
+    10: its TF32 split is (w, 0), so the bf16 forward needs only the two
+    products with x's halves, and they are the whole 3xTF32 support."""
+    from repro_torch.kernels.ref import (split_tf32_mm, tf32_round,
+                                         tf32_truncate)
+    rng = np.random.default_rng(16)
+    w = torch.from_numpy(rng.standard_normal((300, 40)).astype(np.float32)
+                         * 5).to(torch.bfloat16).float()
+    hi = tf32_round(w)
+    assert torch.equal(hi, w)
+    assert bool((w - hi == 0).all())
+    x = _t(rng.random((17, 300), dtype=np.float32))
+    xh = tf32_round(x)
+    two = tf32_truncate(x - xh) @ w + xh @ w
+    np.testing.assert_array_equal(two.numpy(), split_tf32_mm(x, w).numpy())
+
+
+def test_tf32_rounding_keeps_non_finite_values():
+    """The integer rounding must not carry a NaN into the sign bit: every
+    NaN (the card's canonical 0x7FFFFFFF, negative ones, one whose payload
+    sits in the dropped bits) stays a NaN, infinities stay as they are,
+    and a NaN in x reaches its whole row of the 3xTF32 product."""
+    from repro_torch.kernels.ref import split_tf32_mm, tf32_round
+    bits = torch.tensor([0x7FFFFFFF, -1, 0x7F800001, -0x400000, 0x7FC00000],
+                        dtype=torch.int32)  # -1: 0xFFFFFFFF; 0xFFC00000
+    nan = bits.view(torch.float32)
+    assert bool(torch.isnan(tf32_round(nan)).all())
+    # +inf, -inf (0xFF800000), the largest finite and its negative
+    big = torch.tensor([0x7F800000, -0x800000, 0x7F7FFFFF, -0x800001],
+                       dtype=torch.int32).view(torch.float32)
+    got = tf32_round(big)
+    assert torch.equal(got[:2], big[:2]) and not bool(torch.isnan(got).any())
+    rng = np.random.default_rng(17)
+    x = _t(rng.random((5, 64), dtype=np.float32))
+    x[2, 7] = nan[0]
+    w = _t(rng.standard_normal((64, 12)).astype(np.float32))
+    finite = torch.isfinite(split_tf32_mm(x, w))
+    assert torch.equal(finite, torch.isfinite(x @ w))
+    assert not bool(finite[2].any()) and bool(finite[[0, 1, 3, 4]].all())
+
+
+def test_split_tf32_compact_co_at_a1_holds_the_compact_update_tolerance():
+    """The compact layout of the resident-trace update forms each
+    post-HC's gathered xgᵀyg in 3xTF32.  At a = 1 (a fit's first step,
+    where pij' is the product itself) and Model 1-struct's widths (B=128,
+    784×2 inputs, nact 128 so K = 256, Mj = 128; four post-HCs), the CPU
+    model of that arithmetic holds the card check's compact_update
+    tolerance (pij' 1e-9 + 1e-5·|ref|, w 1e-4) against the JAX
+    compact_update; a single TF32 pass breaks the pij' one."""
+    from repro.kernels import patchy as jpatchy
+    from repro_torch.core.compact import (fold_weights_compact, gather_pre,
+                                          unit_indices)
+    from repro_torch.kernels.ref import split_tf32_mm, tf32_round
+    rng = np.random.default_rng(17)
+    b, hi, mi, hj, mj, nact = 128, 784, 2, 4, 128, 128
+    ni, nj, k = hi * mi, hj * mj, nact * mi
+    table = np.sort(np.stack([rng.choice(hi, nact, replace=False)
+                              for _ in range(hj)]), axis=1).astype(np.int32)
+    pij_c = (rng.random((hj, k, mj)) * 0.01 + 1e-5).astype(np.float32)
+    lpi = np.log(rng.random(ni) * 0.5 + 1e-4).astype(np.float32)
+    lpj = np.log(rng.random(nj) * 0.5 + 1e-4).astype(np.float32)
+    x = rng.random((b, ni), dtype=np.float32)
+    y = rng.random((b, nj), dtype=np.float32)
+    jp, jw = jpatchy.compact_update(
+        jnp.asarray(pij_c), jnp.asarray(lpi), jnp.asarray(lpj),
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(table),
+        jnp.asarray(np.float32(1.0)), mi, interpret=jops._interpret())
+    jp, jw = np.asarray(jp), np.asarray(jw)
+    tt = torch.from_numpy(table)
+    xg = gather_pre(_t(x), unit_indices(tt, mi, sentinel=ni))  # (Hj, B, K)
+    yg = _t(y).reshape(b, hj, mj).transpose(0, 1)               # (Hj, B, Mj)
+
+    def close(co):
+        w = fold_weights_compact(co, _t(lpi), _t(lpj), tt, mi, 1e-4)
+        ok_p = np.all(np.abs(co.numpy() - jp) <= 1e-9 + 1e-5 * np.abs(jp))
+        return bool(ok_p), float(np.abs(w.numpy() - jw).max())
+
+    split = torch.stack([split_tf32_mm(xg[h].T, yg[h]) for h in range(hj)])
+    ok_p, err_w = close(split / b)
+    assert ok_p and err_w <= W_TOL
+    one = torch.stack([tf32_round(xg[h]).T @ tf32_round(yg[h])
+                       for h in range(hj)])
+    assert not close(one / b)[0]
 
 
 def test_cpu_tensors_take_plain_versions_without_counting():

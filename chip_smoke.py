@@ -18,10 +18,13 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      function, and the least time the card could take (``bound_ms``).
      The forward kernels also read bf16 weights (a bf16 serving pack);
      ``torch.addmm`` (fp32, TF32 off) is timed beside each ``bcpnn_fwd``
-     row as the library's time for the product alone, with the cluster
-     size the forward takes there; each forward row must also repeat bit
-     for bit over 10 launches, and one row holds it at Model 1's hidden
-     shape with fitted-range log-odds weights to fp64; the three int8
+     row, and ``torch.bmm`` on pre-gathered (Hj, B, K) and (Hj, K, Mj)
+     operands beside each ``patchy_forward``/``compact_forward`` row, as
+     the library's time for the product alone, with the cluster size the
+     forward takes there; each forward row must also repeat bit for bit
+     over 10 launches, and rows at Model 1's hidden shape and behind a
+     Model 1-struct table hold the forwards with fitted-range log-odds
+     weights to fp64; the three int8
      kernels run at Model 1's hidden shape, Model 1-struct's and a ragged
      one, with ``torch._int_mm`` timed beside ``quant_fwd`` as a
      yardstick for the int8 product alone.
@@ -59,7 +62,8 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      serving with the card forbidden to synchronise.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
-     and (c), of (b)'s unsupervised step, and of the int8 and bf16
+     and (c), of (b)'s unsupervised step and evaluation batch, and of the
+     int8 and bf16
      evaluation and served batches:
      wall time per step untraced, then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
@@ -144,6 +148,9 @@ def kernel_cases(torch, gen):
     """(kernel, shape label, kernel call, plain call, library call or None,
     bytes, operations as ((count, peak rate), ...), compare, library call
     of the product alone or None) for every checked shape."""
+    from repro_torch.core.bcpnn_layer import topk_mask
+    from repro_torch.core.compact import (build_table, gather_dense,
+                                          gather_pre, unit_indices)
     from repro_torch.kernels import ops, ref
 
     dev = "cuda"
@@ -186,7 +193,8 @@ def kernel_cases(torch, gen):
     def add(name, label, kern, plain, lib, nbytes, n_ops, cmp,
             peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None):
         """n_ops: a count at ``peak``, or ((count, peak rate), ...);
-        fwd_shape: the dense forward's (B, Ni, Hj, Mj, bf16)."""
+        fwd_shape: a forward's (B, contraction depth, Hj, Mj, bf16,
+        layout)."""
         ops = n_ops if isinstance(n_ops, tuple) else ((n_ops, peak),)
         cases.append((name, label, kern, plain, lib, nbytes, ops, cmp,
                       product, fwd_shape))
@@ -198,9 +206,9 @@ def kernel_cases(torch, gen):
         return ((3 * product, PEAK_TF32_FLOP_S), (epilogue, PEAK_FP32_FLOP_S))
 
     def fwd_ops(product, epilogue, passes=3):
-        """The dense forward's operations: its product in 3xTF32 on the
-        tensor cores (two TF32 products for a bf16 weight, which is exact
-        in TF32), bias, gain and softmax on the CUDA cores."""
+        """A forward's operations (every layout): its product in 3xTF32 on
+        the tensor cores (two TF32 products for a bf16 weight, which is
+        exact in TF32), bias, gain and softmax on the CUDA cores."""
         return ((passes * product, PEAK_TF32_FLOP_S),
                 (epilogue, PEAK_FP32_FLOP_S))
 
@@ -209,6 +217,17 @@ def kernel_cases(torch, gen):
         it): a yardstick beside the forward, not a call computing its
         function."""
         return lambda: torch.addmm(bias, x, w)
+
+    def bmm(x, w_c, table, mi):
+        """The library's fp32 product alone for a gathered forward: one
+        batched product of x's live columns, gathered beforehand as an
+        (Hj, B, K) array (the TPU kernels' layout), and the (Hj, K, Mj)
+        live weights.  A yardstick like ``addmm``; the gathers are not
+        timed."""
+        ui = unit_indices(table, mi, sentinel=x.shape[1])
+        xg = gather_pre(x, ui).contiguous()
+        wg = w_c.float().contiguous()
+        return lambda: torch.bmm(xg, wg)
 
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
                            ("ragged", 37, 3, 10)):
@@ -232,7 +251,8 @@ def kernel_cases(torch, gen):
             ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
             None, 4 * (b * ni + ni * nj + nj + b * nj),
             fwd_ops(2 * b * ni * nj, 7 * b * nj), close_abs(1e-5),
-            product=addmm(bias, x, w), fwd_shape=(b, ni, hj, mj, False))
+            product=addmm(bias, x, w),
+            fwd_shape=(b, ni, hj, mj, False, "dense"))
     # n: genuine rows of a zero-padded tail batch (None: all rows are).
     # a = 1 is the first step of every fit: there pij' is XᵀY/n itself, so
     # an error in the product is not damped by a small smoothing.
@@ -268,9 +288,28 @@ def kernel_cases(torch, gen):
     # Patchy kernels: Model 1-struct (nact 128 of 784 input HCs, K = 256),
     # its padded tail for the updates, and a ragged shape.  Bytes count the
     # live (Hj, K, Mj) weights once; patchy_update produces full (Ni, Nj)
-    # outputs, so it also reads and writes all of pij and w.
-    from repro_torch.core.bcpnn_layer import topk_mask
-    from repro_torch.core.compact import build_table
+    # outputs, so it also reads and writes all of pij and w.  The forwards
+    # price their product at the TF32 rate (3 products, 2 for bf16), with
+    # torch.bmm on pre-gathered operands as the product-only yardstick.
+    def struct_forwards(label, x, w, w_c, bias, table, mi, hj, mj, nbytes,
+                        n_ops, cmp=close_abs(1e-5)):
+        """The patchy and compact forward rows of one shape: w is the
+        dense-resident (Ni, Hj*Mj) weight, w_c the compact (Hj, K, Mj)
+        one; bf16 if they are."""
+        b, k = x.shape[0], table.shape[1] * mi
+        bf = w.dtype == torch.bfloat16
+        for name, layout, kern, plain in (
+                ("patchy_forward", "patchy",
+                 lambda: ops.patchy_forward(x, w, bias, table, mi, hj, mj),
+                 lambda: ref.ref_patchy_forward(x, w, bias, table, mi, hj,
+                                                mj)),
+                ("compact_forward", "compact",
+                 lambda: ops.compact_forward(x, w_c, bias, table, mi),
+                 lambda: ref.ref_compact_forward(x, w_c, bias, table, mi))):
+            add(name, label, kern, plain, None, nbytes, n_ops, cmp,
+                product=bmm(x, w_c, table, mi),
+                fwd_shape=(b, k, hj, mj, bf, layout))
+
     for label, b, n, hi, mi, hj, mj, nact in (
             ("struct", 128, None, 784, 2, 32, 128, 128),
             ("tail", 128, 104, 784, 2, 32, 128, 128),
@@ -290,20 +329,9 @@ def kernel_cases(torch, gen):
         if n is None:
             w, w_c, bias = randn(ni, nj) * 0.1, randn(hj, k, mj) * 0.1, \
                 randn(nj)
-            for name, kern, plain in (
-                    ("patchy_forward",
-                     lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
-                     ops.patchy_forward(x, w, bias, t, mi, hj, mj),
-                     lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
-                     ref.ref_patchy_forward(x, w, bias, t, mi, hj, mj)),
-                    ("compact_forward",
-                     lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
-                     ops.compact_forward(x, w, bias, t, mi),
-                     lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
-                     ref.ref_compact_forward(x, w, bias, t, mi))):
-                add(name, label, kern, plain, None,
-                    4 * (live + nj) + small,
-                    2 * b * live + 7 * b * nj, close_abs(1e-5))
+            struct_forwards(label, x, w, w_c, bias, table, mi, hj, mj,
+                            4 * (live + nj) + small,
+                            fwd_ops(2 * b * live, 7 * b * nj))
         lpi = torch.log(rand(ni) * 0.5 + 1e-4)
         lpj = torch.log(rand(nj) * 0.5 + 1e-4)
         a = torch.tensor(2e-3, device=dev, dtype=f32)
@@ -355,25 +383,15 @@ def kernel_cases(torch, gen):
         None, 4 * b * ni + 2 * (ni * nj + nj) + 4 * b * nj,
         fwd_ops(2 * b * ni * nj, 7 * b * nj, passes=2), close_abs(1e-5),
         product=addmm(bias.float(), x, w.float()),
-        fwd_shape=(b, ni, hj, mj, True))
+        fwd_shape=(b, ni, hj, mj, True, "dense"))
     hi, mi, nact = 784, 2, 128
     k, live = nact * mi, hj * nact * mi * mj
     table = build_table(topk_mask(rand(hi, hj), nact), nact)
     w_c = (randn(hj, k, mj) * 0.1).to(bf16)
     small = 4 * (b * ni + b * nj + hj * nact)
-    for name, kern, plain in (
-            ("patchy_forward",
-             lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
-             ops.patchy_forward(x, w, bias, t, mi, hj, mj),
-             lambda x=x, w=w, bias=bias, t=table, mi=mi, hj=hj, mj=mj:
-             ref.ref_patchy_forward(x, w, bias, t, mi, hj, mj)),
-            ("compact_forward",
-             lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
-             ops.compact_forward(x, w, bias, t, mi),
-             lambda x=x, w=w_c, bias=bias, t=table, mi=mi:
-             ref.ref_compact_forward(x, w, bias, t, mi))):
-        add(name, "struct-bf16", kern, plain, None, 2 * (live + nj) + small,
-            2 * b * live + 7 * b * nj, close_abs(1e-5))
+    struct_forwards("struct-bf16", x, w, w_c, bias, table, mi, hj, mj,
+                    2 * (live + nj) + small,
+                    fwd_ops(2 * b * live, 7 * b * nj, passes=2))
 
     # The int8 kernels: Model 1's hidden layer (dense codes), Model
     # 1-struct (patchy and compact codes) and a ragged shape whose rates
@@ -445,20 +463,44 @@ def kernel_cases(torch, gen):
     x = encode(b).float().contiguous()
     s64 = x.double() @ w.double() + bias.double()
     check(s64.abs().max().item() >= 10.0, "fitted log-odds: supports < 10")
-    want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
 
-    def close_plain_and_fp64(got, want):
-        err = max((got - want).abs().max().item(),
-                  (got.double() - want64).abs().max().item())
-        return err, err <= 1e-5
+    def close_plain_and_fp64(s64, hj, mj):
+        """Within 1e-5 of the plain version and of the fp64 rates of the
+        fp64 supports ``s64`` (the error printed is the larger)."""
+        want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
+
+        def cmp(got, want):
+            err = max((got - want).abs().max().item(),
+                      (got.double() - want64).abs().max().item())
+            return err, err <= 1e-5
+        return cmp
 
     nj = hj * mj
     add("bcpnn_fwd", "hidden-fitted",
         lambda x=x, w=w, bias=bias: ops.bcpnn_fwd(x, w, bias, hj, mj),
         lambda x=x, w=w, bias=bias: ref.ref_bcpnn_fwd(x, w, bias, hj, mj),
         None, 4 * (b * 2 * hi + 2 * hi * nj + nj + b * nj),
-        fwd_ops(2 * b * 2 * hi * nj, 7 * b * nj), close_plain_and_fp64,
-        product=addmm(bias, x, w), fwd_shape=(b, 2 * hi, hj, mj, False))
+        fwd_ops(2 * b * 2 * hi * nj, 7 * b * nj),
+        close_plain_and_fp64(s64, hj, mj),
+        product=addmm(bias, x, w),
+        fwd_shape=(b, 2 * hi, hj, mj, False, "dense"))
+
+    # The same fitted weights behind a Model 1-struct table (nact 128 of
+    # the 784 input HCs): the gathered forwards held to plain and to the
+    # fp64 forward over each post-HC's live rows, 1e-5 each.
+    mi, nact = 2, 128
+    k, live = nact * mi, hj * nact * mi * mj
+    table = build_table(topk_mask(rand(hi, hj), nact), nact)
+    ui = unit_indices(table, mi, sentinel=2 * hi)
+    w_c = gather_dense(w, ui, hj, mj).contiguous()
+    s64 = (torch.einsum("jbk,jkm->bjm", gather_pre(x.double(), ui),
+                        w_c.double()).reshape(b, nj) + bias.double())
+    check(s64.abs().max().item() >= 10.0,
+          "fitted log-odds behind the struct table: supports < 10")
+    struct_forwards("struct-fitted", x, w, w_c, bias, table, mi, hj, mj,
+                    4 * (live + nj + b * 2 * hi + b * nj + hj * nact),
+                    fwd_ops(2 * b * live, 7 * b * nj),
+                    close_plain_and_fp64(s64, hj, mj))
     return cases
 
 
@@ -493,7 +535,7 @@ def phase1(torch):
         check(ok, f"{name}[{label}] disagrees with its plain version "
                   f"(max abs err {err:.3e})")
         extra = ""
-        if name == "bcpnn_fwd":
+        if fwd_shape is not None:
             # the cluster sums its partials in rank order: a repeat is the
             # same bit for bit, and a race between the roles would show
             check(all(torch.equal(kern(), got) for _ in range(10)),
@@ -1168,8 +1210,9 @@ def phase6(torch, tr, fitted, xte, yte):
 def phase4(torch, tr, tr_b, tr_c, xte, yte):
     """Time, then trace, 20 steps of each main-path step type on the
     fitted dense Model-1 state, of (b)'s unsupervised step (one
-    ``patchy_update`` launch each), and of (c)'s unsupervised step and
-    eval batch on their fitted Model 1-struct states (results are dropped; only
+    ``patchy_update`` launch each) and eval batch (one ``patchy_forward``),
+    and of (c)'s unsupervised step and eval batch on their fitted Model
+    1-struct states (results are dropped; only
     the state's generator advances); then, for both states, the eval
     batch in int8 and bf16 (``infer``, which packs the state on every
     call) and the served batch (``infer_packed`` on a pack made once).
@@ -1191,6 +1234,7 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
         "eval_batch": lambda: infer(state, spec, x),
         "(b) unsup_step": lambda: train_projection_step(state_b, spec_b, x,
                                                         0),
+        "(b) eval_batch": lambda: infer(state_b, spec_b, x),
         "(c) unsup_step": lambda: train_projection_step(state_c, spec_c, x,
                                                         0),
         "(c) eval_batch": lambda: infer(state_c, spec_c, x),

@@ -7,14 +7,17 @@ while a layer trains), then ONE supervised pass on the readout, then
 inference.  Epochs are Python loops over batches that stay on the device;
 nothing here reads a value back to the host inside a loop.
 
-Not ported yet: the data-parallel fit (``mesh=``), mid-fit checkpoints and
-resume (``ckpt_dir=``, ``resume=``); they raise ``NotImplementedError``
-(ROADMAP.md queue A items 3 and 7).
+The constructor and ``fit`` take the JAX trainer's arguments in its order;
+``device`` is a keyword of the port's own.  Not ported yet: the
+data-parallel fit (``mesh=``, ``data_axis=``) and mid-fit checkpoints,
+resume and the per-chunk callback (``ckpt_dir=``, ``ckpt_every_batches=``,
+``resume=``, ``on_chunk=``); any value other than the default raises
+``NotImplementedError`` (ROADMAP.md queue A items 7 and 3).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -76,17 +79,17 @@ class Trainer:
 
     Accepts a ``BCPNNConfig`` (the paper's depth-1 network) or a
     ``NetworkSpec`` of any depth; ``epochs`` in ``fit`` applies per stack
-    projection.  The state lives on ``device``: the card unless the caller
-    passes ``device="cpu"``; with no card visible and no explicit CPU it
-    raises.
+    projection.  The state lives on ``device`` (keyword only): the card
+    unless the caller passes ``device="cpu"``; with no card visible and no
+    explicit CPU it raises.
     """
 
-    def __init__(self, cfg, seed: int = 0, device: DeviceLike = None,
-                 mesh=None):
-        if mesh is not None:
+    def __init__(self, cfg, seed: int = 0, mesh=None,
+                 data_axis: str = "data", *, device: DeviceLike = None):
+        if mesh is not None or data_axis != "data":
             raise NotImplementedError(
-                "Trainer(mesh=...): the data-parallel fit is not ported yet "
-                "(ROADMAP.md queue A item 7)")
+                "Trainer(mesh=..., data_axis=...): the data-parallel fit is "
+                "not ported yet (ROADMAP.md queue A item 7)")
         self.cfg = cfg
         self.spec = as_spec(cfg)
         self.device = resolve_device(device)
@@ -100,7 +103,9 @@ class Trainer:
         batch: int = 128,
         log: bool = False,
         ckpt_dir: Optional[str] = None,
+        ckpt_every_batches: int = 0,
         resume: bool = False,
+        on_chunk: Optional[Callable] = None,
     ) -> Dict[str, float]:
         """Layerwise unsupervised epochs + one supervised pass.
 
@@ -112,10 +117,12 @@ class Trainer:
         trainer's timing keys; ``straggler_events`` is always 0 (the
         per-chunk step timer belongs to the unported checkpointed fit).
         """
-        if ckpt_dir is not None or resume:
+        if ckpt_dir is not None or ckpt_every_batches or resume \
+                or on_chunk is not None:
             raise NotImplementedError(
-                "Trainer.fit: mid-fit checkpoints and resume are not ported "
-                "yet (ROADMAP.md queue A item 3)")
+                "Trainer.fit(ckpt_dir=, ckpt_every_batches=, resume=, "
+                "on_chunk=): mid-fit checkpoints, resume and the per-chunk "
+                "callback are not ported yet (ROADMAP.md queue A item 3)")
         dev = self.device
         xs_np, valid_np = _batchify_padded(np.asarray(x_train, np.float32),
                                            batch)

@@ -62,13 +62,19 @@ def bcpnn_fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def cluster_size(b: int, ni: int, n_hc: int, n_mc: int,
-                 bf16: bool = False) -> int:
+# Weight layouts of the forward body (csrc/common.cuh, Layout).
+LAYOUTS = {"dense": 0, "patchy": 1, "compact": 2}
+
+
+def cluster_size(b: int, k: int, n_hc: int, n_mc: int, bf16: bool = False,
+                 layout: str = "dense") -> int:
     """The thread-block cluster size (blocks splitting the contraction)
-    that ``bcpnn_fwd_cuda`` launches for this shape on the current CUDA
-    device.  Launches nothing."""
+    that the forward of ``layout`` (``bcpnn_fwd_cuda``, or
+    ``patchy.patchy_forward``/``compact_forward``) launches for this shape
+    on the current CUDA device; ``k`` is the contraction's depth (Ni dense,
+    nact*Mi patchy and compact).  Launches nothing."""
     ks = ctypes.c_int(0)
-    rc = library().bcpnn_fwd_cluster(b, ni, n_hc, n_mc, int(bf16),
-                                     ctypes.byref(ks))
+    rc = library().bcpnn_fwd_cluster(b, k, n_hc, n_mc, LAYOUTS[layout],
+                                     int(bf16), ctypes.byref(ks))
     check_launch(rc, "bcpnn_fwd_cluster")
     return ks.value

@@ -1,12 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for the BCPNN main path.
 //
-// Five kernel bodies for seven of the Pallas TPU kernels:
+// Three kernel bodies for seven of the Pallas TPU kernels:
 //
 //   bcpnn_hc_softmax     <- repro/kernels/hc_softmax.py::hc_softmax_pallas
 //   bcpnn_fwd            <- repro/kernels/bcpnn_fwd.py::bcpnn_fwd_pallas
-//                           (bcpnn_fwd_tc_kernel)
+//                           (bcpnn_fwd_tc_kernel, dense layout)
 //   bcpnn_patchy_fwd     <- repro/kernels/patchy.py::patchy_forward and
-//                           ::compact_forward (bcpnn_fwd_kernel)
+//                           ::compact_forward (bcpnn_fwd_tc_kernel, patchy
+//                           and compact layouts)
 //   bcpnn_update         <- repro/kernels/bcpnn_update.py::bcpnn_update_pallas
 //                           (trace_update_kernel, dense layout)
 //   bcpnn_patchy_update  <- repro/kernels/patchy.py::patchy_update and
@@ -16,24 +17,22 @@
 // Weight layouts (Layout below): dense (Ni, Nj); patchy, the same
 // dense-resident arrays restricted per post-HC to the K = nact*Mi live
 // pre-units named by the (Hj, nact) index table; compact, the resident
-// (Hj, K, Mj) arrays.  The dense forward has a body of its own; the
-// patchy and compact forwards share bcpnn_fwd_kernel; the resident-trace
-// update takes all three layouts.  The patchy layouts gather their live
-// rows inside the tile loads, so the (Hj, B, K) gathered activations of the
-// TPU kernels never exist.
+// (Hj, K, Mj) arrays.  The forward body and the resident-trace update body
+// each take all three layouts.  The patchy layouts gather their live rows
+// inside the tile loads, so the (Hj, B, K) gathered activations of the TPU
+// kernels never exist.
 //
 // All arithmetic keeps fp32 accuracy and no fast-math intrinsics are used,
 // because trace increments are ~1e-5 and the log-weight fold must stay
-// within 1e-4 of the fp32 reference.  The dense forward and the
-// resident-trace update run their products on the tensor cores in 3xTF32
-// (each operand split into two TF32 halves, three products summed in
-// fp32), which keeps fp32 accuracy; a single TF32 pass (~1e-4 relative
-// error) is never used.  The patchy and compact forwards run IEEE fp32 on
-// the CUDA cores.  Each kernel computes its own offsets and masks ragged
-// edges itself (no pad plan).  The forwards also take the bf16 weights and
-// bias of a serving pack, widened to fp32 on the way in (the TPU kernels
-// cast their operands to f32 in-kernel the same way).  The int8 forwards
-// of a serving pack are in quant.cu.
+// within 1e-4 of the fp32 reference.  The forwards and the resident-trace
+// update run their products on the tensor cores in 3xTF32 (each operand
+// split into two TF32 halves, three products summed in fp32), which keeps
+// fp32 accuracy; a single TF32 pass (~1e-4 relative error) is never used.
+// Each kernel computes its own offsets and masks ragged edges itself (no
+// pad plan).  The forwards also take the bf16 weights and bias of a
+// serving pack, widened to fp32 on the way in (the TPU kernels cast their
+// operands to f32 in-kernel the same way).  The int8 forwards of a serving
+// pack are in quant.cu.
 //
 // C interface: every entry point takes raw device pointers, sizes and the
 // CUDA stream, launches on that stream without synchronising, allocates
@@ -117,45 +116,8 @@ hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
   for (int c = lane; c < m; c += kWarp) dst[c] = expf(src[c] * gain - mx) / sum;
 }
 
-// ------------------------------------------------- patchy/compact forward --
-//
-// rates[b, h*Mj + n] = softmax_n(gain * (bias + xg @ wg)[b, h*Mj + n]) over
-// each post-HC's K live pre-units, the patchy and compact layouts (the
-// dense one has its own body below, bcpnn_fwd_tc_kernel).
-//
-// Grid: one block per (batch tile of kFwdRows rows, post-HC), so the HC's
-// softmax is block-local and the support never leaves the SM.  The
-// contraction runs over the HC's K live pre-units, gathered row by row
-// from x and from w in the tile loads.  The block walks the HC's Mj
-// columns in chunks of 16*CPT.  For each chunk its kFwdGroups K-groups of
-// 256 threads take every kFwdGroups-th kFwdK-deep slice of K, each staging
-// its slice through its own shared-memory tiles (x transposed, w
-// row-major) behind its own barrier and accumulating 2 rows x CPT columns
-// per thread with fp32 FMA in registers; the tiles are read as
-// float2/float4 so one shared load feeds up to 8 FMAs.  Groups 1.. then
-// park their partial sums in their w tiles, group 0 adds them in group
-// order and writes (acc + bias) * gain into a (rows, Mj) shared buffer.
-// Once every chunk is in, each warp normalises whole rows with shuffles
-// (max, exp, sum, divide) and writes them out coalesced.
-//
-// Bound: operations.  At Model 1-struct (nact = 128, K = 256) the product
-// is 268 MFLOP, ~4.0 us at 67 TFLOP/s fp32; its ~7.1 MB of traffic take
-// ~2.1 us.  Still simple: fp32 FMA, no tensor cores, no TMA, no pipelining
-// across slices (the dense forward's design is the model for its
-// redesign).
-
-constexpr int kFwdRows = 32;           // batch rows per block
-constexpr int kFwdK = 32;              // contraction slice per stage
-constexpr int kFwdGroups = 4;          // K-groups per block
-constexpr int kFwdGroupThreads = 256;  // 16 row pairs x 16 column groups
-constexpr int kFwdThreads = kFwdGroups * kFwdGroupThreads;
-constexpr int kFwdXS = kFwdRows + 2;   // x tile leading dim (even: float2 reads)
-
-// Shared floats of one K-group's stage: the x tile, then the w tile.
-template <int CPT>
-__host__ __device__ constexpr int fwd_stage() { return kFwdK * kFwdXS + kFwdK * 16 * CPT; }
-
-// V consecutive floats from 8- or 16-byte-aligned shared memory.
+// V consecutive floats from 8- or 16-byte-aligned shared memory (the
+// resident-trace update's fragment and EMA loads).
 template <int V>
 __device__ __forceinline__ void lds(const float* p, float* d) {
   if constexpr (V == 4) {
@@ -167,146 +129,6 @@ __device__ __forceinline__ void lds(const float* p, float* d) {
   } else {
     d[0] = p[0];
   }
-}
-
-// Barrier of one K-group only (ids 1.. ; 0 is __syncthreads), so the
-// groups drift apart and one group's loads overlap another's FMAs.
-__device__ __forceinline__ void group_sync(int g) { group_barrier(g, kFwdGroupThreads); }
-
-template <int CPT, int L, typename T>
-__global__ void __launch_bounds__(kFwdThreads)
-bcpnn_fwd_kernel(const float* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ bias, const int* __restrict__ table,
-                 float* __restrict__ out, int B, int Ni, int K, int Nj, int Mj, int Mi,
-                 int nact, float gain) {
-  static_assert(L != kDense, "the dense forward is bcpnn_fwd_tc_kernel");
-  constexpr int V = CPT < 4 ? CPT : 4;  // width of one w read
-  constexpr int TN = 16 * CPT;          // columns per chunk
-  constexpr int STAGE = fwd_stage<CPT>();
-  extern __shared__ __align__(16) float smem[];
-  const int g = threadIdx.x / kFwdGroupThreads;
-  const int gt = threadIdx.x % kFwdGroupThreads;
-  const int tr = gt / 16;
-  const int tc = gt % 16;
-  float* xs = smem + g * STAGE;                 // [kFwdK][kFwdXS]
-  float* ws = xs + kFwdK * kFwdXS;              // [kFwdK][TN]
-  float* sup = smem + kFwdGroups * STAGE;       // [kFwdRows][Mj]
-  const int row0 = blockIdx.x * kFwdRows;
-  const int h = blockIdx.y;
-  const int col0 = h * Mj;  // first unit of this post-HC
-  const int slices = (K + kFwdK - 1) / kFwdK;
-
-  for (int c0 = 0; c0 < Mj; c0 += TN) {
-    float acc[2][CPT];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-
-    for (int s0 = 0; s0 < slices; s0 += kFwdGroups) {
-      const int k0 = (s0 + g) * kFwdK;  // past K: the group loads zeros
-#pragma unroll
-      for (int q = 0; q < kFwdRows * kFwdK / kFwdGroupThreads; ++q) {
-        const int e = gt + q * kFwdGroupThreads;
-        const int r = e / kFwdK, kk = e % kFwdK;
-        const int gr = row0 + r, gk = k0 + kk;
-        xs[kk * kFwdXS + r] =
-            (gr < B && gk < K) ? x[(size_t)gr * Ni + unit_of<L>(table, h, gk, Mi, nact)] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kFwdK * TN / kFwdGroupThreads; ++q) {
-        const int e = gt + q * kFwdGroupThreads;
-        const int kk = e / TN, c = e % TN;
-        const int gk = k0 + kk, gc = c0 + c;
-        float v = 0.f;
-        if (gk < K && gc < Mj) {
-          v = to_f32(L == kCompact
-                         ? w[((size_t)h * K + gk) * Mj + gc]
-                         : w[(size_t)unit_of<L>(table, h, gk, Mi, nact) * Nj + col0 + gc]);
-        }
-        ws[kk * TN + c] = v;
-      }
-      group_sync(g);
-#pragma unroll 8
-      for (int kk = 0; kk < kFwdK; ++kk) {
-        float a[2];
-        float b[CPT];
-        lds<2>(xs + kk * kFwdXS + tr * 2, a);
-#pragma unroll
-        for (int v = 0; v < CPT / V; ++v) lds<V>(ws + kk * TN + v * 16 * V + tc * V, b + v * V);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-      group_sync(g);
-    }
-    // Groups 1.. park their partial sums in their own w tiles (2*CPT*256
-    // floats, exactly a tile); group 0 adds them in group order.
-    if (g > 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) ws[(r * CPT + c) * kFwdGroupThreads + gt] = acc[r][c];
-    }
-    __syncthreads();
-    if (g == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          float s = acc[r][c];
-          for (int o = 1; o < kFwdGroups; ++o)
-            s += smem[o * STAGE + kFwdK * kFwdXS + (r * CPT + c) * kFwdGroupThreads + gt];
-          const int lc = c0 + (c / V) * 16 * V + tc * V + (c % V);
-          if (lc < Mj) sup[(tr * 2 + r) * Mj + lc] = (s + to_f32(bias[col0 + lc])) * gain;
-        }
-    }
-    __syncthreads();
-  }
-
-  softmax_rows_to(sup, kFwdRows, Mj, out, row0, B, Nj, col0);
-}
-
-template <int CPT, int L, typename T>
-cudaError_t launch_fwd(const float* x, const T* w, const T* bias, const int* table,
-                       float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
-                       float gain, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kFwdGroups * fwd_stage<CPT>() + (size_t)kFwdRows * Mj);
-  if (smem > (size_t)kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bcpnn_fwd_kernel<CPT, L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((B + kFwdRows - 1) / kFwdRows, Hj);
-  bcpnn_fwd_kernel<CPT, L, T><<<grid, kFwdThreads, smem, stream>>>(
-      x, w, bias, table, out, B, Ni, K, Hj * Mj, Mj, Mi, nact, gain);
-  return cudaGetLastError();
-}
-
-// Picks the column chunk (16*CPT lanes) from the HC width.
-template <int L, typename T>
-cudaError_t launch_fwd_any(const float* x, const T* w, const T* bias, const int* table,
-                           float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
-                           float gain, cudaStream_t st) {
-  if (Mj <= 16) return launch_fwd<1, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
-  if (Mj <= 32) return launch_fwd<2, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
-  if (Mj <= 64) return launch_fwd<4, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
-  return launch_fwd<8, L>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi, nact, gain, st);
-}
-
-// The weight element type: fp32, or the bf16 of a serving pack.
-template <int L>
-cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, const int* table,
-                             float* out, int B, int Ni, int K, int Hj, int Mj, int Mi, int nact,
-                             int bf16, float gain, cudaStream_t st) {
-  if (bf16) {
-    return launch_fwd_any<L>(x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias, table, out,
-                             B, Ni, K, Hj, Mj, Mi, nact, gain, st);
-  }
-  return launch_fwd_any<L>(x, (const float*)w, (const float*)bias, table, out, B, Ni, K, Hj, Mj,
-                           Mi, nact, gain, st);
 }
 
 // ------------------------------------------- resident-trace update (tc) --
@@ -981,33 +803,58 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
                                    w_out, B, Ni, Nj, Mi, Mj, Hj, nact, vec, eps2, st);
 }
 
-// ------------------------------------------------------ bcpnn_fwd (tc) --
+// ------------------------------------------------------ the forwards --
 //
-// rates[b, h*Mj + n] = softmax_n(gain * (bias + x @ w)[b, h*Mj + n]), the
-// dense layout: x (B, Ni) fp32, w (Ni, Hj*Mj) fp32 or the bf16 of a
-// serving pack.  Replaces src/repro/kernels/bcpnn_fwd.py:56
-// bcpnn_fwd_pallas.
+// rates[b, h*Mj + n] = softmax_n(gain * (bias + xg @ wg)[b, h*Mj + n]), one
+// body (bcpnn_fwd_tc_kernel<F>) for the three weight layouts:
+//   dense    xg = x (B, Ni), wg = w (Ni, Hj*Mj).  Replaces
+//            src/repro/kernels/bcpnn_fwd.py:56 bcpnn_fwd_pallas.
+//   patchy   post-HC h contracts over its K = nact*Mi live pre-units, named
+//            by row h of the (Hj, nact) index table: xg gathers those
+//            columns of x, wg those rows of the dense-resident masked w
+//            (Ni, Hj*Mj).  Replaces src/repro/kernels/patchy.py:121
+//            patchy_forward.
+//   compact  the same xg against the resident w_c (Hj, K, Mj).  Replaces
+//            src/repro/kernels/patchy.py:154 compact_forward.
+// x is fp32; w and bias fp32 or the bf16 of a serving pack.  The TPU
+// kernels gather x into an (Hj, B, K) array first; here the gather happens
+// in the tile loads, so that array never exists.
 //
-// Bound: operations.  At Model 1 (B=128, Ni=1568, Nj=4096) the product is
-// 1.64 GFLOP; in 3xTF32 on the tensor cores three times that, ~10 us at
-// 495 TFLOP/s TF32 (two products for a bf16 weight, ~6.6 us); its 28.6 MB
-// of traffic take ~8.5 us.  What each part of the design does about it:
+// Bound.  Dense, at Model 1 (B=128, Ni=1568, Nj=4096): operations, the
+// 1.64 GFLOP product in 3xTF32 on the tensor cores three times over, ~10
+// us at 495 TFLOP/s TF32 (two products for a bf16 weight, ~6.6 us); its
+// 28.6 MB of traffic take ~8.5 us.  Gathered, at Model 1-struct (nact =
+// 128, K = 256): bytes, ~7.1 MB (x, the live weights once, bias, rates),
+// ~2.1 us at 3.35 TB/s, against ~1.6 us for the 3 x 268 MFLOP.  Its short
+// contraction (16 slices) leaves each block five or six, so fixed costs
+// weigh there: the first slice's gather, the slowest rank's extra slice,
+// the exchange of partial supports.  The gathered slices themselves are
+// held back by the load/store unit, which both the scattered x pieces
+// (8 bytes each at Model 1-struct, 1024 a slice) and the split pass
+// through.  What each part of the design does about it:
 //
 //  * Grid: one cluster per (batch tile of 128 rows, post-HC), of KS blocks
-//    that split the contraction (K = Ni) between them in 16-deep slices,
-//    so each w element leaves L2 once per batch tile.  KS (1..8) is the
+//    that split the contraction (Ni deep, or K gathered) between them in
+//    16-deep slices, so each w element leaves L2 once per batch tile.
+//    KS (1..8) is the
 //    one with the fewest waves per share of work, from the count of
 //    co-resident clusters (cudaOccupancyMaxActiveClusters): at Model 1
 //    fewer clusters of 4 fit the card at once than its 32 post-HCs need,
-//    so a smaller cluster that runs in one wave wins; the readout (one
-//    post-HC) takes 8.
+//    so a smaller cluster that runs in one wave wins (3 at Model 1 and
+//    Model 1-struct); the readout (one post-HC) takes 8.  A cluster of one
+//    block is launched without the cluster attribute.
 //    After its slices a block parks its partial support in shared
 //    memory; each rank then sums a KS-th of the tile's rows over the
-//    cluster's partials (distributed shared memory, in rank order), adds
-//    the bias, applies the gain and keeps the rows in a shared support
-//    buffer: the support never leaves the cluster.  Once every column
-//    chunk (BN = 128 columns, narrower tiles for Mj <= 64) is in, each
-//    warp normalises whole rows with shuffles and writes them out.
+//    cluster's partials (distributed shared memory, in rank order): the
+//    support never leaves the cluster.  An HC of one column chunk (Mj <=
+//    128, every model here) keeps its rows in registers: G threads a row
+//    read the partials in whole runs, add the bias (staged in shared
+//    memory by the tensor-core warps while the first slice arrives),
+//    apply the gain, take the softmax with shuffles and store; each thread
+//    arrives at the cluster barrier as soon as its remote reads are done
+//    and waits on it only before it exits.  Wider HCs keep the rows of
+//    each column chunk in a shared support buffer and normalise them once
+//    every chunk is in.
 //  * The product runs on the tensor cores in 3xTF32: wgmma m64nBNk8 with
 //    fp32 accumulators (lo*hi, hi*lo, hi*hi; lo*lo, ~2^-22 relative,
 //    dropped), both operands read by the tensor cores from shared memory,
@@ -1033,6 +880,21 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
 //    (16-byte pieces where the rows allow, 4-byte ones otherwise, plain
 //    loads for a bf16 weight with odd widths).  Named barriers pass the
 //    split buffers between the roles.
+//  * Gathered layouts: a block reads its table row once, at the start,
+//    into a shared vector holding the unit of each of its contraction
+//    indices; the slice count comes from K, not Ni.  TMA cannot gather
+//    columns, so x's gathered columns (runs of Mi contiguous floats, one a
+//    live pre-HC) come by cp.async in pieces of 16, 8 or 4 bytes (Mi a
+//    multiple of 4, of 2 as at Model 1-struct, or odd).  Compact w comes
+//    by TMA, one 3-D box (BN x 16 x 1) of the (Hj, K, Mj) array a slice,
+//    zero filled past K.  Patchy w comes by cp.async, each gathered row
+//    of the dense-resident array in 16-byte pieces, a row a warp
+//    instruction: TMA boxes are issued one at a time, and 16 a slice (one
+//    a gathered row) keep the issuing thread longer than those pieces
+//    keep the staging warps.  Rows that are not 16-byte sized or aligned
+//    take 4-byte pieces or plain loads, as in the dense layout.
+//    Contraction indices past K are zeros in both operands (DESIGN.md
+//    §7): x is zero filled, w masked when it is split.
 //
 // Variants of this body timed on the H100 at Model 1's hidden layer were
 // slower: four staging warps in place of eight, cp.async in place of TMA
@@ -1051,18 +913,21 @@ constexpr int kMaxSmem = 227 * 1024;
 // Named barriers (0 is __syncthreads): a split buffer is full (1, 2) or
 // empty (3, 4); the staging warps' own (5).
 constexpr int kBarFull = 1, kBarEmpty = 3, kBarStage = 5;
-// How the raw slices move: TMA tensor copies, or cp.async in 16-byte or
-// 4-byte pieces, or plain loads (w only: a bf16 weight of odd width).
-enum StageCopy : int { kCopyTma = 0, kCopy16 = 1, kCopy4 = 2, kCopyElem = 3 };
+// How the raw slices move: TMA tensor copies, or cp.async in 16-, 8- (x
+// only, gathered) or 4-byte pieces, or plain loads (w only: a bf16 weight
+// of odd width).
+enum StageCopy : int { kCopyTma = 0, kCopy16 = 1, kCopy4 = 2, kCopyElem = 3, kCopy8 = 4 };
 
-// One block's tile: 128 rows x BN columns; its shared-memory map in
-// 4-byte words.  Core matrix (wgmma, K-major, no swizzle): 8 rows x 4
-// tf32 words, 128 contiguous bytes; the two core matrices of a row group
-// along k8 are 128 bytes apart (leading byte offset), row groups 256.
-template <int BN, typename T>
+// One block's tile: 128 rows x BN columns, weight layout L; its
+// shared-memory map in 4-byte words.  Core matrix (wgmma, K-major, no
+// swizzle): 8 rows x 4 tf32 words, 128 contiguous bytes; the two core
+// matrices of a row group along k8 are 128 bytes apart (leading byte
+// offset), row groups 256.
+template <int BN, typename T, int L>
 struct FwdTile {
   using Elem = T;
   static constexpr int kBN = BN;
+  static constexpr int kLayout = L;
   static constexpr bool kSplitW = std::is_same<T, float>::value;  // bf16: w_lo = 0
   static constexpr int kRawX = kTcRows * kTcK;                      // [128][16] fp32
   static constexpr int kRawW = kTcK * BN * (int)sizeof(T) / 4;      // [16][BN] T
@@ -1074,8 +939,27 @@ struct FwdTile {
   static constexpr int kLdP = BN + 8;  // partial support rows: conflict-free float2 stores
   static constexpr int kPipe = kTcRaw * kRawStage + 2 * kSplit;
   static constexpr int kWords =
-      kPipe > kTcRows * kLdP ? kPipe : kTcRows * kLdP;  // then the support rows
+      kPipe > kTcRows * kLdP ? kPipe : kTcRows * kLdP;  // then FwdSmem's regions
   static_assert(kRawStage % 32 == 0 && kSplit % 32 == 0, "128-byte aligned regions");
+};
+
+// Word offsets of the regions past the pipeline: the support rows a rank
+// normalises (only when the HC takes more than one column chunk), the
+// mbarriers, the units of the rank's contraction indices (gathered) and
+// the HC's bias in fp32 (one column chunk).
+struct FwdSmem {
+  int sup, bars, ku, bias, words;
+  template <class F>
+  __host__ __device__ static FwdSmem of(int ks, int Mj, int total) {
+    FwdSmem m;
+    m.sup = F::kWords;
+    const int sup_words = Mj > F::kBN ? (kTcRows + ks - 1) / ks * Mj : 0;
+    m.bars = m.sup + ((sup_words + 1) & ~1);
+    m.ku = m.bars + 2 * kTcRaw;
+    m.bias = m.ku + (F::kLayout == kDense ? 0 : (total + ks - 1) / ks * kTcK);
+    m.words = m.bias + F::kBN;
+    return m;
+  }
 };
 
 // The wgmma shared-memory descriptor of a K-major tile without swizzle:
@@ -1184,6 +1068,16 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       : "memory");
 }
 
+// One 3-D TMA tensor copy of the box at (c0 inner, c1, c2 outer), completing on bar.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // fn(e) for e = st, st + kTcStage, ... below N: the staging warps' share
 // of N pieces, unrolled (compile-time trip count and divisors).
 template <int N, class Fn>
@@ -1203,11 +1097,6 @@ __device__ __forceinline__ void split4(const float* v, uint4& hi, uint4& lo) {
   lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-// Shared words of the support rows a rank normalises.
-__host__ __device__ __forceinline__ int sup_words(int ks, int Mj) {
-  return (kTcRows + ks - 1) / ks * Mj;
-}
-
 // Word offset of (row r, k) of a K-major k8 tile.
 __device__ __forceinline__ int kmajor(int r, int k) {
   return (r >> 3) * 64 + (k >> 2) * 32 + (r & 7) * 4 + (k & 3);
@@ -1218,54 +1107,81 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmw, const float* __restrict__ x,
                     const typename F::Elem* __restrict__ w,
-                    const typename F::Elem* __restrict__ bias, float* __restrict__ out, int B,
-                    int Ni, int Nj, int Mj, int ks, int xcopy, int wcopy, float gain) {
+                    const typename F::Elem* __restrict__ bias, const int* __restrict__ table,
+                    float* __restrict__ out, int B, int Ni, int Kc, int Nj, int Mj, int Mi,
+                    int nact, int ks, int xcopy, int wcopy, float gain) {
   using T = typename F::Elem;
+  constexpr int L = F::kLayout;
   constexpr int BM = kTcRows, BK = kTcK, BN = F::kBN, NA = BN / 2;
+  constexpr bool kGather = L != kDense;
   extern __shared__ __align__(1024) float fsm[];
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.z * Mj;  // first unit of this post-HC
+  const int hc = blockIdx.z;  // the post-HC
+  const int col0 = hc * Mj;   // its first unit
   // rows [r0, r0 + nrows) of the tile: the ones this rank sums and normalises
   const int r0 = rank * BM / ks, nrows = (rank + 1) * BM / ks - r0;
-  float* part = fsm;             // [BM][kLdP] partial support (after the slices)
-  float* sup = fsm + F::kWords;  // [nrows][Mj] support rows
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sup + ((sup_words(ks, Mj) + 1) & ~1));
+  // this rank's slices of the Kc-deep contraction (Ni dense, K gathered)
+  const int total = (Kc + BK - 1) / BK;
+  const int s0 = rank * total / ks, slices = (rank + 1) * total / ks - s0;
+  const int kbeg = s0 * BK, kend = min(Kc, (s0 + slices) * BK);
+  const FwdSmem lay = FwdSmem::of<F>(ks, Mj, total);
+  float* part = fsm;           // [BM][kLdP] partial support (after the slices)
+  float* sup = fsm + lay.sup;  // [nrows][Mj] support rows (several column chunks)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fsm + lay.bars);
+  int* ku = reinterpret_cast<int*>(fsm + lay.ku);  // gathered: unit of index kbeg + i
+  float* sbias = fsm + lay.bias;                   // one column chunk: the bias in fp32
   auto raw = [&](int u) { return fsm + (u % kTcRaw) * F::kRawStage; };
   auto split = [&](int b) { return fsm + kTcRaw * F::kRawStage + (b & 1) * F::kSplit; };
-  // this rank's slices of the contraction
-  const int total = (Ni + BK - 1) / BK;
-  const int s0 = rank * total / ks, slices = (rank + 1) * total / ks - s0;
-  const int kend = min(Ni, (s0 + slices) * BK);
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int g = lane / 4, t = lane % 4;
   const bool mma_warp = warp < kTcMmaWarps;
-  const bool tma = xcopy == kCopyTma;
+  const bool xtma = xcopy == kCopyTma, wtma = wcopy == kCopyTma;
+  const bool copies = !(xtma && wtma);  // some operand goes by cp.async
+  const bool one_chunk = Mj <= BN;
+  // a cluster of one block needs only the block's own barrier
+  auto cluster_sync = [&] {
+    if (ks > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+  };
 
   if (threadIdx.x == kTcMma) {
     for (int q = 0; q < kTcRaw; ++q) mbar_init(bars + q);
-    if (tma) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(&tmx) : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(&tmw) : "memory");
+    if (xtma) asm volatile("prefetch.tensormap [%0];" ::"l"(&tmx) : "memory");
+    if (wtma) asm volatile("prefetch.tensormap [%0];" ::"l"(&tmw) : "memory");
+  }
+  if constexpr (kGather) {  // the table row, read once
+    for (int i = threadIdx.x; i < kend - kbeg; i += kTcThreads) {
+      ku[i] = unit_of<L>(table, hc, kbeg + i, Mi, nact);
     }
   }
   __syncthreads();
 
-  // TMA path: slice s of the chunk at c0 into raw stage (done + s) % kTcRaw,
-  // issued by the first staging thread
-  auto fetch = [&](int done, int c0, int s) {
+  int done = 0;  // slices staged before this column chunk (raw stages, mbarrier phases)
+  // The TMA copies of slice s of the chunk at c0 into raw stage (done + s) %
+  // kTcRaw, issued by the first staging thread: dense, x's (16 x 128) and
+  // w's (BN x 16) boxes; compact, w's (BN x 16 x 1) box.
+  auto fetch = [&](int c0, int s) {
     const int u = done + s;
     float* rx = raw(u);
+    T* rw = reinterpret_cast<T*>(rx + F::kRawX);
     uint64_t* bar = bars + u % kTcRaw;
     const int k0 = (s0 + s) * BK;
-    mbar_expect(bar, (uint32_t)(4 * F::kRawX + sizeof(T) * BK * BN));
-    tma_2d(rx, &tmx, k0, row0, bar);
-    tma_2d(rx + F::kRawX, &tmw, col0 + c0, k0, bar);
+    if constexpr (L == kDense) {
+      mbar_expect(bar, (uint32_t)(4 * BM * BK + sizeof(T) * BK * BN));
+      tma_2d(rx, &tmx, k0, row0, bar);
+      tma_2d(rw, &tmw, col0 + c0, k0, bar);
+    } else if constexpr (L == kCompact) {
+      mbar_expect(bar, (uint32_t)(sizeof(T) * BK * BN));
+      tma_3d(rw, &tmw, c0, k0, hc, bar);
+    }
   };
 
-  int done = 0;  // slices staged before this column chunk (raw stages, mbarrier phases)
   for (int c0 = 0; c0 < Mj; c0 += BN, done += slices) {
     float acc[NA];
 #pragma unroll
@@ -1273,6 +1189,9 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     if (mma_warp) {
       // ---- tensor-core warpgroups: 3xTF32 wgmma on split buffer s % 2 ---
       const int wg = warp / 4;  // rows 64 wg .. 64 wg + 63
+      if (c0 == 0 && one_chunk) {  // the bias, while the first slice arrives
+        for (int c = threadIdx.x; c < Mj; c += kTcMma) sbias[c] = to_f32(bias[col0 + c]);
+      }
       for (int s = 0; s < slices; ++s) {
         barrier_sync(kBarFull + (s & 1), kTcThreads);
         const float* sx = split(s);
@@ -1300,26 +1219,44 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     } else {
       // ---- staging warpgroups: copy, split, lay out K-major --------------
       const int st = threadIdx.x - kTcMma;
-      // cp.async path: the staging warps copy slice s into raw stage
-      // (done + s) % kTcRaw themselves
+      // the staging warps' cp.async copies of slice s into raw stage
+      // (done + s) % kTcRaw (the operands that do not come by TMA)
       auto stage = [&](int s) {
         float* rx = raw(done + s);
         T* rw = reinterpret_cast<T*>(rx + F::kRawX);
         const int k0 = (s0 + s) * BK;
+        // x in pieces of P floats into [128][16]; gathered, a piece lies in
+        // one pre-HC's run of Mi units (P divides Mi), read at the unit of
+        // its first k
+        auto stage_x = [&](auto per) {
+          constexpr int P = decltype(per)::value;
+          staged_share<BM * BK / P>(st, [&](int e) {
+            const int r = e / (BK / P), c = (e % (BK / P)) * P;
+            const bool v = row0 + r < B && k0 + c < kend;
+            const float* src = x;
+            if (v) src = x + (size_t)(row0 + r) * Ni + (kGather ? ku[s * BK + c] : k0 + c);
+            if constexpr (P == 4) {
+              cp_async16(rx + r * BK + c, src, v);
+            } else if constexpr (P == 2) {
+              cp_async8(rx + r * BK + c, src, v);
+            } else {
+              cp_async4(rx + r * BK + c, src, v);
+            }
+          });
+        };
         if (xcopy == kCopy16) {
-          staged_share<BM * BK / 4>(st, [&](int e) {
-            const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
-            const bool v = row0 + r < B && k0 + c < kend;
-            cp_async16(rx + r * BK + c, v ? x + (size_t)(row0 + r) * Ni + k0 + c : x, v);
-          });
-        } else {
-          staged_share<BM * BK>(st, [&](int e) {
-            const int r = e / BK, c = e % BK;
-            const bool v = row0 + r < B && k0 + c < kend;
-            cp_async4(rx + r * BK + c, v ? x + (size_t)(row0 + r) * Ni + k0 + c : x, v);
-          });
+          stage_x(std::integral_constant<int, 4>{});
+        } else if (kGather && xcopy == kCopy8) {
+          stage_x(std::integral_constant<int, 2>{});
+        } else if (xcopy == kCopy4) {
+          stage_x(std::integral_constant<int, 1>{});
         }
-        const T* wc = w + col0 + c0;
+        // row k of the slice's w, at column c0 of the post-HC
+        auto wrow = [&](int k) -> const T* {
+          if constexpr (L == kDense) return w + (size_t)k * Nj + col0 + c0;
+          if constexpr (L == kPatchy) return w + (size_t)ku[k - kbeg] * Nj + col0 + c0;
+          return w + ((size_t)hc * Kc + k) * Mj + c0;
+        };
         // PER elements a piece: 16 or 4 bytes by cp.async, or one by a load
         auto stage_w = [&](auto mode) {
           constexpr int M = decltype(mode)::value;
@@ -1328,11 +1265,11 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
             const int kk = e / (BN / PER), c = (e % (BN / PER)) * PER;
             const bool v = k0 + kk < kend && c0 + c < Mj;
             if constexpr (M == kCopyElem) {
-              rw[kk * BN + c] = v ? wc[(size_t)(k0 + kk) * Nj + c] : T(0.f);
+              rw[kk * BN + c] = v ? wrow(k0 + kk)[c] : T(0.f);
             } else if constexpr (M == kCopy16) {
-              cp_async16(rw + kk * BN + c, v ? wc + (size_t)(k0 + kk) * Nj + c : w, v);
+              cp_async16(rw + kk * BN + c, v ? wrow(k0 + kk) + c : w, v);
             } else {
-              cp_async4(rw + kk * BN + c, v ? wc + (size_t)(k0 + kk) * Nj + c : w, v);
+              cp_async4(rw + kk * BN + c, v ? wrow(k0 + kk) + c : w, v);
             }
           });
         };
@@ -1340,26 +1277,18 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
           stage_w(std::integral_constant<int, kCopy16>{});
         } else if (wcopy == kCopy4) {
           stage_w(std::integral_constant<int, kCopy4>{});
-        } else {
+        } else if (wcopy == kCopyElem) {
           stage_w(std::integral_constant<int, kCopyElem>{});
         }
         cp_async_commit();
       };
+      const bool producer = st == 0 && (xtma || wtma);
       for (int q = 0; q < kTcRaw - 1 && q < slices; ++q) {
-        if (!tma) {
-          stage(q);
-        } else if (st == 0) {
-          fetch(done, c0, q);
-        }
+        if (producer) fetch(c0, q);
+        if (copies) stage(q);
       }
       for (int s = 0; s < slices; ++s) {
-        if (tma) {
-          const int u = done + s;
-          mbar_wait(bars + u % kTcRaw, (u / kTcRaw) & 1);
-          // everyone done splitting s - 1: its stage takes slice s + kTcRaw - 1
-          barrier_sync(kBarStage, kTcStage);
-          if (st == 0 && s + kTcRaw - 1 < slices) fetch(done, c0, s + kTcRaw - 1);
-        } else {
+        if (copies) {
           const int ahead = min(kTcRaw - 2, slices - 1 - s);  // later slices in flight
           if (ahead >= 2) {
             cp_async_wait<2>();
@@ -1368,13 +1297,22 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
           } else {
             cp_async_wait<0>();
           }
-          // everyone's copies of slice s, and everyone done splitting s - 1
-          barrier_sync(kBarStage, kTcStage);
-          if (s + kTcRaw - 1 < slices) stage(s + kTcRaw - 1);  // into s - 1's stage
+        }
+        if (xtma || wtma) {
+          const int u = done + s;
+          mbar_wait(bars + u % kTcRaw, (u / kTcRaw) & 1);
+        }
+        // everyone's copies of slice s are in, and everyone is done
+        // splitting s - 1: its stage takes slice s + kTcRaw - 1
+        barrier_sync(kBarStage, kTcStage);
+        if (s + kTcRaw - 1 < slices) {
+          if (copies) stage(s + kTcRaw - 1);
+          if (producer) fetch(c0, s + kTcRaw - 1);
         }
         if (s >= 2) barrier_sync(kBarEmpty + (s & 1), kTcThreads);
         const float* rx = raw(done + s);
         const T* rw = reinterpret_cast<const T*>(rx + F::kRawX);
+        const int k0 = (s0 + s) * BK;
         float* sx = split(s);
         float* sw = sx + (BK / 8) * 2 * F::kA8;
         // x: four k values of a row a piece (one 16-byte read), eight rows
@@ -1390,12 +1328,18 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
           *reinterpret_cast<uint4*>(d + F::kA8) = lo;
         });
         // w transposed: four k values of a column a piece, neighbouring
-        // lanes on neighbouring columns
+        // lanes on neighbouring columns (gathered: zeros past kend, whatever
+        // the raw stage holds there)
         staged_share<BK / 4 * BN>(st, [&](int e) {
           const int n = e % BN, c4 = e / BN;
           float v[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) v[q] = to_f32(rw[(c4 * 4 + q) * BN + n]);
+          for (int q = 0; q < 4; ++q) {
+            v[q] = to_f32(rw[(c4 * 4 + q) * BN + n]);
+            if constexpr (kGather) {
+              if (k0 + c4 * 4 + q >= kend) v[q] = 0.f;
+            }
+          }
           float* d = sw + (c4 >> 1) * (F::kSplitW ? 2 : 1) * F::kB8 + kmajor(n, (c4 & 1) * 4);
           if constexpr (F::kSplitW) {
             uint4 hi, lo;
@@ -1429,8 +1373,10 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
               make_float2(acc[4 * n8 + 2 * h], acc[4 * n8 + 2 * h + 1]);
         }
     }
-    // ---- the cluster's sum, bias and gain into this rank's support rows ---
-    cluster.sync();  // every rank's partials are in
+    cluster_sync();  // every rank's partials are in
+    if (one_chunk) break;  // the fused epilogue below
+    // ---- several column chunks: the cluster's sum, bias and gain into this
+    // rank's support rows, normalised once every chunk is in ---------------
     const int cols = min(BN, Mj - c0);
     for (int e = threadIdx.x; e < nrows * (BN / 4); e += kTcThreads) {
       const int lr = e / (BN / 4), c = (e % (BN / 4)) * 4;
@@ -1449,9 +1395,88 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
       }
     }
     fence_proxy_async();  // the partials' region takes TMA copies again
-    cluster.sync();       // no rank overwrites or leaves its partials before this
+    cluster_sync();       // no rank overwrites or leaves its partials before this
   }
-  softmax_rows_to(sup, nrows, Mj, out, row0 + r0, B, Nj, col0);
+  if (!one_chunk) {
+    softmax_rows_to(sup, nrows, Mj, out, row0 + r0, B, Nj, col0);
+    return;
+  }
+  // ---- one column chunk: the cluster's sum, bias, gain and the softmax in
+  // registers.  G threads a row, CPT columns each, interleaved (column
+  // 4 (gi + G f) + e), so that the row's threads read and write whole runs
+  // of 4G floats.  Every thread reads its partials from the ranks in
+  // rank order, then arrives at the cluster barrier (its reads of the other
+  // ranks are done) and waits on it only before it exits, so the softmax
+  // and the stores run under the barrier.
+  constexpr int G = BN / 4 < 8 ? BN / 4 : 8, CPT = BN / G, kRowsPer = kTcThreads / G;
+  const int gi = threadIdx.x % G;
+  const bool vec = Mj % 4 == 0;
+  const int rounds = (nrows + kRowsPer - 1) / kRowsPer;
+  for (int round = 0; round < rounds; ++round) {
+    const int lr = round * kRowsPer + threadIdx.x / G;
+    const bool live = lr < nrows && row0 + r0 + lr < B;
+    float v[CPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) v[i] = 0.f;
+    if (live) {
+      for (int q = 0; q < ks; ++q) {  // in rank order
+        const float* p = cluster.map_shared_rank(part + (r0 + lr) * F::kLdP + 4 * gi, q);
+#pragma unroll
+        for (int f = 0; f < CPT / 4; ++f) {
+          const float4 p4 = *reinterpret_cast<const float4*>(p + 4 * G * f);
+          v[4 * f] += p4.x; v[4 * f + 1] += p4.y; v[4 * f + 2] += p4.z; v[4 * f + 3] += p4.w;
+        }
+      }
+    }
+    if (ks > 1 && round + 1 == rounds) {
+      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    }
+    // softmax over the row's Mj columns, across the G threads of the row
+    // (fmaxf passes over a NaN; exp of it then makes the row NaN, as in the
+    // plain version)
+    float mx = -INFINITY;
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const int cc = 4 * (gi + G * (i / 4)) + i % 4;
+        v[i] = (v[i] + sbias[cc < Mj ? cc : 0]) * gain;
+        if (cc < Mj) mx = fmaxf(mx, v[i]);
+      }
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+    float sum = 0.f;
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        v[i] = 4 * (gi + G * (i / 4)) + i % 4 < Mj ? expf(v[i] - mx) : 0.f;
+        sum += v[i];
+      }
+    }
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    if (live) {
+      const float inv = 1.f / sum;
+      float* orow = out + (size_t)(row0 + r0 + lr) * Nj + col0;
+#pragma unroll
+      for (int f = 0; f < CPT / 4; ++f) {
+        const int cf = 4 * (gi + G * f);
+        if (vec && cf + 3 < Mj) {
+          *reinterpret_cast<float4*>(orow + cf) = make_float4(
+              v[4 * f] * inv, v[4 * f + 1] * inv, v[4 * f + 2] * inv, v[4 * f + 3] * inv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (cf + e < Mj) orow[cf + e] = v[4 * f + e] * inv;
+          }
+        }
+      }
+    }
+  }
+  if (ks > 1) {
+    if (rounds == 0) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
 }
 
 // The CUDA driver's tensor-map encoder, found through the runtime (the
@@ -1470,46 +1495,51 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A 2-D row-major tensor (rows x cols) copied in boxes of box_rows x
-// box_cols, zero filled outside.
+// A row-major tensor of 2 or 3 dimensions (dims and box innermost first)
+// copied in boxes, zero filled outside.
 inline bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
-                       long long rows, long long cols, int box_rows, int box_cols) {
+                       int rank, const long long* dims, const int* box) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t estrides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estrides,
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3];
+  const cuuint32_t estrides[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    if (i > 0) strides[i - 1] = (i == 1 ? (cuuint64_t)esize : strides[i - 2]) * d[i - 1];
+  }
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, strides, b, estrides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Shared bytes of a block: the pipeline, its support rows, the mbarriers.
+// Shared bytes of a block (FwdSmem).
 template <class F>
-size_t fwd_smem(int ks, int Mj) {
-  return sizeof(float) * ((size_t)F::kWords + sup_words(ks, Mj) + 2) + sizeof(uint64_t) * kTcRaw;
+size_t fwd_smem(int ks, int Mj, int total) {
+  return sizeof(float) * (size_t)FwdSmem::of<F>(ks, Mj, total).words;
 }
 
 // The cluster size with the least time: a block's share of the work is
 // 1/ks, and the clusters run in ceil(clusters / co-resident clusters)
 // waves.  The co-resident counts are kept per (device, cluster size,
 // shared bytes), under a lock.  Also sets the kernel's shared-memory limit.
+// Kc: the contraction's depth (Ni dense, K = nact*Mi gathered).
 template <class F>
-cudaError_t fwd_cluster_size(int B, int Ni, int Hj, int Mj, cudaStream_t stream, int* ks_out) {
+cudaError_t fwd_cluster_size(int B, int Kc, int Hj, int Mj, cudaStream_t stream, int* ks_out) {
+  const int total = (Kc + kTcK - 1) / kTcK;
   int ks_min = 1;
-  while (ks_min < kTcMaxCluster && fwd_smem<F>(ks_min, Mj) > (size_t)kMaxSmem) ++ks_min;
-  if (fwd_smem<F>(ks_min, Mj) > (size_t)kMaxSmem) return cudaErrorInvalidValue;  // Mj too wide
+  while (ks_min < kTcMaxCluster && fwd_smem<F>(ks_min, Mj, total) > (size_t)kMaxSmem) ++ks_min;
+  if (fwd_smem<F>(ks_min, Mj, total) > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(bcpnn_fwd_tc_kernel<F>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)fwd_smem<F>(ks_min, Mj));
+                                         (int)fwd_smem<F>(ks_min, Mj, total));
   if (err != cudaSuccess) return err;
   int device = 0;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const int tiles = (B + kTcRows - 1) / kTcRows;
-  const int total = (Ni + kTcK - 1) / kTcK;
   static std::mutex lock;
   static std::map<std::tuple<int, int, size_t>, int> seen;  // -> co-resident clusters
   cudaLaunchConfig_t cfg = {};
@@ -1524,7 +1554,7 @@ cudaError_t fwd_cluster_size(int B, int Ni, int Hj, int Mj, cudaStream_t stream,
   int ks = ks_min;
   double best = 0.0;
   for (int k = ks_min; k <= kTcMaxCluster && (k == ks_min || k <= total); ++k) {
-    const auto key = std::make_tuple(device, k, fwd_smem<F>(k, Mj));
+    const auto key = std::make_tuple(device, k, fwd_smem<F>(k, Mj, total));
     int n = 0;
     {
       const std::lock_guard<std::mutex> hold(lock);
@@ -1553,27 +1583,49 @@ cudaError_t fwd_cluster_size(int B, int Ni, int Hj, int Mj, cudaStream_t stream,
   return cudaSuccess;
 }
 
+// The operands' geometry: x (B, Ni); w (Ni, Hj*Mj), or compact (Hj, K, Mj);
+// table (Hj, nact) of the gathered layouts; Kc = Ni dense, K = nact*Mi
+// gathered.
+struct FwdShape {
+  int B, Ni, Kc, Hj, Mj, Mi, nact;
+};
+
 template <class F>
 cudaError_t launch_fwd_tc(const float* x, const typename F::Elem* w,
-                          const typename F::Elem* bias, float* out, int B, int Ni, int Hj,
-                          int Mj, int xcopy, int wcopy, float gain, cudaStream_t stream) {
+                          const typename F::Elem* bias, const int* table, float* out,
+                          const FwdShape& sh, int xcopy, int wcopy, float gain,
+                          cudaStream_t stream) {
   using T = typename F::Elem;
+  constexpr int L = F::kLayout;
+  const CUtensorMapDataType wtype =
+      F::kSplitW ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long Nj = (long long)sh.Hj * sh.Mj;
   CUtensorMap tmx = {}, tmw = {};
-  if (xcopy == kCopyTma) {
-    const bool ok =
-        tensor_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, Ni, kTcRows, kTcK) &&
-        tensor_map(&tmw, w,
-                   F::kSplitW ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   (int)sizeof(T), Ni, (long long)Hj * Mj, kTcK, F::kBN);
-    if (!ok) return cudaErrorInvalidValue;
+  bool ok = true;
+  if (xcopy == kCopyTma) {  // dense only
+    const long long dims[2] = {sh.Ni, sh.B};
+    const int box[2] = {kTcK, kTcRows};
+    ok = tensor_map(&tmx, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2, dims, box);
   }
+  if (ok && wcopy == kCopyTma) {
+    if constexpr (L == kCompact) {
+      const long long dims[3] = {sh.Mj, sh.Kc, sh.Hj};
+      const int box[3] = {F::kBN, kTcK, 1};
+      ok = tensor_map(&tmw, w, wtype, (int)sizeof(T), 3, dims, box);
+    } else {
+      const long long dims[2] = {Nj, sh.Ni};
+      const int box[2] = {F::kBN, kTcK};
+      ok = tensor_map(&tmw, w, wtype, (int)sizeof(T), 2, dims, box);
+    }
+  }
+  if (!ok) return cudaErrorInvalidValue;
   int ks = 0;
-  cudaError_t err = fwd_cluster_size<F>(B, Ni, Hj, Mj, stream, &ks);
+  cudaError_t err = fwd_cluster_size<F>(sh.B, sh.Kc, sh.Hj, sh.Mj, stream, &ks);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ks, (B + kTcRows - 1) / kTcRows, Hj);
+  cfg.gridDim = dim3(ks, (sh.B + kTcRows - 1) / kTcRows, sh.Hj);
   cfg.blockDim = dim3(kTcThreads);
-  cfg.dynamicSmemBytes = fwd_smem<F>(ks, Mj);
+  cfg.dynamicSmemBytes = fwd_smem<F>(ks, sh.Mj, (sh.Kc + kTcK - 1) / kTcK);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1581,40 +1633,74 @@ cudaError_t launch_fwd_tc(const float* x, const typename F::Elem* w,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bcpnn_fwd_tc_kernel<F>, tmx, tmw, x, w, bias, out, B, Ni,
-                           Hj * Mj, Mj, ks, xcopy, wcopy, gain);
+  cfg.numAttrs = ks > 1 ? 1 : 0;  // a grid without clusters has clusters of one block
+  err = cudaLaunchKernelEx(&cfg, bcpnn_fwd_tc_kernel<F>, tmx, tmw, x, w, bias, table, out,
+                           sh.B, sh.Ni, sh.Kc, (int)Nj, sh.Mj, sh.Mi, sh.nact, ks, xcopy, wcopy,
+                           gain);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // fn(tile) with the tile for the HC width: 16, 32, 64 or 128 columns.
-template <typename T, class Fn>
+template <typename T, int L, class Fn>
 cudaError_t with_fwd_tile(int Mj, Fn&& fn) {
-  if (Mj <= 16) return fn(FwdTile<16, T>{});
-  if (Mj <= 32) return fn(FwdTile<32, T>{});
-  if (Mj <= 64) return fn(FwdTile<64, T>{});
-  return fn(FwdTile<128, T>{});
+  if (Mj <= 16) return fn(FwdTile<16, T, L>{});
+  if (Mj <= 32) return fn(FwdTile<32, T, L>{});
+  if (Mj <= 64) return fn(FwdTile<64, T, L>{});
+  return fn(FwdTile<128, T, L>{});
 }
 
-// Picks the tile from the HC width and the copy paths from the operands:
-// TMA where both operands' rows are 16-byte aligned and sized.
-template <typename T>
-cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, float* out, int B,
-                              int Ni, int Hj, int Mj, float gain, cudaStream_t st) {
-  const long long Nj = (long long)Hj * Mj;
+// Picks the tile from the HC width and the copy paths from the operands.
+// Dense: TMA for both where both operands' rows are 16-byte aligned and
+// sized.  Gathered: x by cp.async in the widest piece that divides Mi and
+// the alignment allows; compact w by TMA where its rows are 16-byte aligned
+// and sized.  Elsewhere w by cp.async in 16- or 4-byte pieces, or plain
+// loads (a bf16 weight of odd width).
+template <typename T, int L>
+cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, const int* table,
+                              float* out, const FwdShape& sh, float gain, cudaStream_t st) {
+  const long long Nj = (long long)sh.Hj * sh.Mj;
   constexpr int kPer16 = 16 / (int)sizeof(T), kPer4 = 4 / (int)sizeof(T);
-  const bool x16 = Ni % 4 == 0 && aligned16(x);
-  int wcopy = kCopyElem;
-  if (Nj % kPer16 == 0 && Mj % kPer16 == 0 && aligned16(w)) {
-    wcopy = kCopy16;
-  } else if (Nj % kPer4 == 0 && Mj % kPer4 == 0 && ((uintptr_t)w & 3u) == 0) {
-    wcopy = kCopy4;
-  }
-  const int xcopy = x16 && Nj % kPer16 == 0 && aligned16(w) ? kCopyTma : x16 ? kCopy16 : kCopy4;
-  return with_fwd_tile<T>(Mj, [&](auto tile) {
-    return launch_fwd_tc<decltype(tile)>(x, w, bias, out, B, Ni, Hj, Mj, xcopy, wcopy, gain, st);
+  const bool w16 = Nj % kPer16 == 0 && sh.Mj % kPer16 == 0 && aligned16(w);
+  return with_fwd_tile<T, L>(sh.Mj, [&](auto tile) {
+    using F = decltype(tile);
+    int wcopy = kCopyElem, xcopy;
+    if (w16) {
+      wcopy = kCopy16;
+    } else if (Nj % kPer4 == 0 && sh.Mj % kPer4 == 0 && ((uintptr_t)w & 3u) == 0) {
+      wcopy = kCopy4;
+    }
+    if constexpr (L == kDense) {
+      const bool x16 = sh.Ni % 4 == 0 && aligned16(x);
+      if (x16 && Nj % kPer16 == 0 && aligned16(w)) {
+        xcopy = wcopy = kCopyTma;
+      } else {
+        xcopy = x16 ? kCopy16 : kCopy4;
+      }
+    } else {
+      if (sh.Mi % 4 == 0 && aligned16(x)) {
+        xcopy = kCopy16;
+      } else {
+        xcopy = sh.Mi % 2 == 0 && ((uintptr_t)x & 7u) == 0 ? kCopy8 : kCopy4;
+      }
+      if (L == kCompact && w16) wcopy = kCopyTma;
+    }
+    return launch_fwd_tc<F>(x, w, bias, table, out, sh, xcopy, wcopy, gain, st);
   });
+}
+
+// The weight element type: fp32, or the bf16 of a serving pack.
+template <int L>
+cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, const int* table,
+                             float* out, const FwdShape& sh, int bf16, float gain,
+                             cudaStream_t st) {
+  if (bf16) {
+    return launch_fwd_tc_any<__nv_bfloat16, L>(x, (const __nv_bfloat16*)w,
+                                               (const __nv_bfloat16*)bias, table, out, sh, gain,
+                                               st);
+  }
+  return launch_fwd_tc_any<float, L>(x, (const float*)w, (const float*)bias, table, out, sh,
+                                     gain, st);
 }
 
 }  // namespace
@@ -1633,25 +1719,29 @@ int bcpnn_hc_softmax(const float* s, float* out, long long segments, int m, floa
 }
 
 // ``bf16``: w and bias are __nv_bfloat16 (a bf16 serving pack), else float.
-// The cluster size bcpnn_fwd takes for this shape on the current device,
-// into *ks (phase 1 of chip_smoke.py prints it).  Launches nothing.
-int bcpnn_fwd_cluster(int B, int Ni, int Hj, int Mj, int bf16, int* ks) {
+// The cluster size the forward of ``layout`` (Layout: 0 dense, 1 patchy, 2
+// compact) takes for this shape on the current device, into *ks (phase 1
+// of chip_smoke.py prints it); Kc is the contraction's depth (Ni dense, K
+// = nact*Mi gathered).  Launches nothing.
+int bcpnn_fwd_cluster(int B, int Kc, int Hj, int Mj, int layout, int bf16, int* ks) {
   auto pick = [&](auto tile) {
-    return fwd_cluster_size<decltype(tile)>(B, Ni, Hj, Mj, nullptr, ks);
+    return fwd_cluster_size<decltype(tile)>(B, Kc, Hj, Mj, nullptr, ks);
   };
-  return (int)(bf16 ? with_fwd_tile<__nv_bfloat16>(Mj, pick) : with_fwd_tile<float>(Mj, pick));
+  auto typed = [&](auto layout_c) {
+    constexpr int L = decltype(layout_c)::value;
+    return bf16 ? with_fwd_tile<__nv_bfloat16, L>(Mj, pick) : with_fwd_tile<float, L>(Mj, pick);
+  };
+  if (layout == kPatchy) return (int)typed(std::integral_constant<int, kPatchy>{});
+  if (layout == kCompact) return (int)typed(std::integral_constant<int, kCompact>{});
+  return (int)typed(std::integral_constant<int, kDense>{});
 }
 
 int bcpnn_fwd(const float* x, const void* w, const void* bias, float* out, int B, int Ni,
               int Hj, int Mj, int bf16, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    return (int)launch_fwd_tc_any(x, (const __nv_bfloat16*)w, (const __nv_bfloat16*)bias, out, B,
-                                  Ni, Hj, Mj, gain, st);
-  }
-  return (int)launch_fwd_tc_any(x, (const float*)w, (const float*)bias, out, B, Ni, Hj, Mj, gain,
-                                st);
+  const FwdShape sh = {B, Ni, Ni, Hj, Mj, 1, 0};
+  return (int)launch_fwd_typed<kDense>(x, w, bias, nullptr, out, sh, bf16, gain,
+                                       (cudaStream_t)stream);
 }
 
 // x (B, Ni); w (Ni, Hj*Mj) dense-resident, or (Hj, K, Mj) when ``compact``;
@@ -1660,12 +1750,10 @@ int bcpnn_patchy_fwd(const float* x, const void* w, const void* bias, const int*
                      float* out, int B, int Ni, int Hj, int Mj, int Mi, int nact, int compact,
                      int bf16, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
-  const int K = nact * Mi;
+  const FwdShape sh = {B, Ni, nact * Mi, Hj, Mj, Mi, nact};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(compact ? launch_fwd_typed<kCompact>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
-                                                    nact, bf16, gain, st)
-                       : launch_fwd_typed<kPatchy>(x, w, bias, table, out, B, Ni, K, Hj, Mj, Mi,
-                                                   nact, bf16, gain, st));
+  return (int)(compact ? launch_fwd_typed<kCompact>(x, w, bias, table, out, sh, bf16, gain, st)
+                       : launch_fwd_typed<kPatchy>(x, w, bias, table, out, sh, bf16, gain, st));
 }
 
 int bcpnn_update(const float* pij, const float* log_pi, const float* log_pj, const float* x,

@@ -1,8 +1,8 @@
 // Helpers shared by the kernel sources in this directory (bcpnn.cu,
 // quant.cu, yardstick.cu): warp reductions, the weight layouts and the
-// table lookup of the patchy layouts, the TF32 split (the dense forward
-// and the resident-trace update) and the mma.sync product of the
-// resident-trace update.
+// table lookup of the patchy layouts, the TF32 split (the forwards and the
+// resident-trace update) and the mma.sync product of the resident-trace
+// update.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,13 +4,20 @@ of structural plasticity, under the JAX package's names.
 Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
 
   * ``patchy_forward`` / ``compact_forward`` -> ``csrc/bcpnn.cu::
-    bcpnn_fwd_kernel`` with the patchy or compact layout (fp32 FMA on the
-    CUDA cores; the dense forward has a tensor-core body): one block per
-    (32-row batch tile, post-HC) contracts over the HC's K = nact*Mi live
-    pre-units, gathering the rows of x and of w named by the (Hj, nact)
-    index table inside its tile loads, then the HC's softmax.  The JAX
-    wrappers gather x into an (Hj, B, K) array first; here it never
-    exists.
+    bcpnn_fwd_tc_kernel`` with the patchy or compact layout, the dense
+    forward's body: one thread-block cluster per (128-row batch tile,
+    post-HC) splits the HC's K = nact*Mi live pre-units between its
+    blocks in 16-deep slices.  Each block reads its row of the (Hj, nact)
+    index table once; its staging warps gather x's live columns by
+    cp.async (runs of Mi units, 8-byte pieces at Mi = 2) and the patchy
+    layout's live rows of the dense-resident (Ni, Hj*Mj) w in 16-byte
+    pieces, while the compact layout's (Hj, K, Mj) w comes by TMA, one box
+    a slice.  They split each slice once into TF32 hi and lo halves, and
+    two warpgroups multiply them with ``wgmma`` in 3xTF32 (fp32 accuracy;
+    ``ref.split_tf32_mm`` models it).  The cluster sums its partial
+    supports in distributed shared memory, in rank order, and the HC
+    softmax is the epilogue, in registers.  The JAX wrappers gather x into
+    an (Hj, B, K) array first; here it never exists.
   * ``patchy_update`` -> ``csrc/bcpnn.cu::trace_update_kernel`` with the
     patchy layout, the body of the dense update, in one launch writing
     every (Ni, Nj) entry once.  Gathered tiles hold a post-HC's K live
@@ -26,18 +33,19 @@ Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
     one contiguous run).
 
 Bounds at Model 1-struct (B=128, Ni=1568, Hj=32, Mj=128, nact=128, K=256):
-the forward's 268 MFLOP take ~4.0 us at 67 TFLOP/s fp32 (its ~7.1 MB
-~2.1 us); ``compact_update`` moves 15.5 MB, ~4.6 us (its 3 x 268 MFLOP
-~1.6 us at the TF32 rate); ``patchy_update``
-reads pij and writes full (Ni, Nj) pij' and w, 77 MB, ~23 us, as the
-dense update (its copy tiles also read the 16 % of live rows that the
-gathered tiles read: 4.1 MB more).
+the forwards move ~7.1 MB (x, the live weights once, bias, rates), ~2.1
+us at 3.35 TB/s, above their 3 x 268 MFLOP at the TF32 rate (~1.6 us);
+``compact_update`` moves 15.5 MB, ~4.6 us (its 3 x 268 MFLOP ~1.6 us);
+``patchy_update`` reads pij and writes full (Ni, Nj) pij' and w, 77 MB,
+~23 us, as the dense update (its copy tiles also read the 16 % of live
+rows that the gathered tiles read: 4.1 MB more).
 
 ``alpha`` and ``count`` (the genuine rows of a zero-padded batch, which
 divide XᵀY in place of B) are 0-d device tensors: no host sync.  A CPU
 tensor takes the plain version in ``ref.py``; a CUDA tensor launches the
 kernel or raises.  The forwards also read the bf16 weights and bias of a
-bf16 serving pack, widened to fp32 in the tile load.  The table must hold
+bf16 serving pack, widened to fp32 when a slice is split (exact in TF32,
+so two products).  The table must hold
 pre-HC indices in [0, Ni/Mi): it is
 built by ``core.compact.build_table`` and checked at the deployment
 boundary (``validate_patchy_state``), not per launch.

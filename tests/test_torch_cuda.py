@@ -61,14 +61,10 @@ def test_bcpnn_fwd_kernel(gen, b, ni, hj, mj):
     assert (got - want).abs().max().item() <= 1e-5
 
 
-def test_bcpnn_fwd_kernel_at_fitted_log_odds(gen):
-    """Model 1's hidden shape with weights at the fitted range of log-odds
-    (log clip(pij) − log pi − log pj from traces of binary-pixel inputs and
-    sharp hidden rates; supports reach 10 and more), where an error in the
-    kernel's 3xTF32 split would show: rates within 1e-5 of the plain
-    version and of an fp64 forward."""
-    n, b, hi, hj, mj, eps = 512, 128, 784, 32, 128, 1e-4
-
+def _fitted_log_odds(gen, hi, hj, mj, b=128, n=512, eps=1e-4):
+    """x (b, 2*hi) and fitted-range log-odds (w, bias): w = log clip(pij)
+    − log pi − log pj from traces of n binary-pixel inputs (two
+    minicolumns a pixel) and sharp hidden rates, bias = log pj."""
     def encode(rows):
         pix = (torch.rand((rows, hi), generator=gen, device="cuda") < 0.3)
         pix = pix.double()
@@ -82,13 +78,37 @@ def test_bcpnn_fwd_kernel_at_fitted_log_odds(gen):
     w = (torch.log(pij.clamp(eps * eps, 1.0)) - torch.log(pi.clamp(eps, 1.0))[:, None]
          - torch.log(pj.clamp(eps, 1.0))[None, :]).float().contiguous()
     bias = torch.log(pj.clamp(eps, 1.0)).float()
-    x = encode(b).float().contiguous()
+    return encode(b).float().contiguous(), w, bias
+
+
+def _assert_rates_close(got, plain, want64, tol=1e-5):
+    """Rates within ``tol`` of the plain version and of the fp64 ones; a
+    failure names the worst element of each comparison: (row, column,
+    kernel, plain, fp64)."""
+    for what, ref_rates in (("plain", plain.double()), ("fp64", want64)):
+        diff = (got.double() - ref_rates).abs()
+        worst = int(diff.argmax())
+        r, c = divmod(worst, got.shape[1])
+        assert diff.max().item() <= tol, (
+            f"{diff.max().item():.3e} from {what} at row {r}, column {c}: "
+            f"kernel {got[r, c].item()!r}, plain {plain[r, c].item()!r}, "
+            f"fp64 {want64[r, c].item()!r}")
+
+
+def test_bcpnn_fwd_kernel_at_fitted_log_odds(gen):
+    """Model 1's hidden shape with weights at the fitted range of log-odds
+    (log clip(pij) − log pi − log pj from traces of binary-pixel inputs and
+    sharp hidden rates; supports reach 10 and more), where an error in the
+    kernel's 3xTF32 split would show: rates within 1e-5 of the plain
+    version and of an fp64 forward."""
+    hi, hj, mj = 784, 32, 128
+    x, w, bias = _fitted_log_odds(gen, hi, hj, mj)
+    b = x.shape[0]
     s64 = x.double() @ w.double() + bias.double()
     assert s64.abs().max().item() >= 10.0
     want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
     got = ops.bcpnn_fwd(x, w, bias, hj, mj)
-    assert (got - ref.ref_bcpnn_fwd(x, w, bias, hj, mj)).abs().max().item() <= 1e-5
-    assert (got.double() - want64).abs().max().item() <= 1e-5
+    _assert_rates_close(got, ref.ref_bcpnn_fwd(x, w, bias, hj, mj), want64)
 
 
 # B = 37, Ni = 1000 on each way the slices reach shared memory: TMA tensor
@@ -471,6 +491,137 @@ def test_patchy_and_compact_forward_kernels_read_bf16(gen, b, hi, mi, hj, mj,
     want = ref.ref_compact_forward(x, w_c.float(), bias.float(), table, mi,
                                    1.25)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+def _unaligned(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` elements
+    into its storage (so not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# Each way the gathered forwards' slices reach shared memory (x by
+# cp.async in 16-, 8- or 4-byte pieces; w by TMA, one 3-D box or one row
+# box a gathered row, or by cp.async in 16- or 4-byte pieces, or plain bf16
+# loads), with K not a multiple of 16 and split between the ranks of a
+# cluster, K < 16, odd Mi, Mj = 10, two column chunks and unaligned bases.
+# (B, Hi, Mi, Hj, Mj, nact, x offset, w offset)
+GATHER_PATHS = [(37, 50, 4, 3, 64, 9, 0, 0),     # x 16 B; w TMA, K = 36
+                (37, 30, 3, 2, 128, 13, 0, 0),   # x 4 B; w TMA, 7-row slice
+                (20, 40, 2, 3, 20, 11, 0, 0),    # x 8 B; bf16 w 4 B
+                (9, 7, 2, 2, 7, 3, 0, 0),        # w 4 B; bf16 w elementwise
+                (37, 13, 3, 3, 10, 4, 0, 0),     # K = 12 < 16, Mj = 10
+                (16, 90, 2, 2, 256, 40, 1, 1),   # unaligned x, w; Mj = 256
+                (128, 784, 2, 32, 128, 128, 0, 1)]  # Model 1-struct, w 4 B
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact,xo,wo", GATHER_PATHS)
+def test_gathered_forward_kernel_copy_paths(gen, dtype, b, hi, mi, hj, mj,
+                                            nact, xo, wo):
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _unaligned(_rand(gen, b, ni), xo)
+    w = _unaligned((_randn(gen, ni, nj) * 0.1).to(dtype), wo)
+    w_c = _unaligned((_randn(gen, hj, nact * mi, mj) * 0.1).to(dtype), wo)
+    bias = _randn(gen, nj).to(dtype)
+    got = ops.patchy_forward(x, w, bias, table, mi, hj, mj, 1.25)
+    want = ref.ref_patchy_forward(x, w.float(), bias.float(), table, mi, hj,
+                                  mj, 1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+    got = ops.compact_forward(x, w_c, bias, table, mi, 1.25)
+    want = ref.ref_compact_forward(x, w_c.float(), bias.float(), table, mi,
+                                   1.25)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", [(128, 784, 2, 32, 128, 128),
+                                                (37, 13, 3, 3, 10, 4)])
+def test_gathered_forward_kernels_keep_nan(gen, dtype, b, hi, mi, hj, mj,
+                                           nact):
+    """A NaN in x at a live unit, or in a live weight, reaches the rates
+    where the plain version's; one in a silent row of the dense-resident w
+    (never read) or at a silent unit of x changes nothing."""
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    live = int(table[0, 0]) * mi
+    silent_hcs = sorted(set(range(hi)) - set(table.flatten().tolist()))
+    x = _rand(gen, b, ni)
+    w = (_randn(gen, ni, nj) * 0.1).to(dtype)
+    w_c = (_randn(gen, hj, nact * mi, mj) * 0.1).to(dtype)
+    bias = _randn(gen, nj).to(dtype)
+    nan = _canonical_nan()
+
+    def both(x, w, w_c):
+        for kern, plain in (
+                (lambda: ops.patchy_forward(x, w, bias, table, mi, hj, mj),
+                 lambda: ref.ref_patchy_forward(x, w.float(), bias.float(),
+                                                table, mi, hj, mj)),
+                (lambda: ops.compact_forward(x, w_c, bias, table, mi),
+                 lambda: ref.ref_compact_forward(x, w_c.float(),
+                                                 bias.float(), table, mi))):
+            yield kern(), plain()
+
+    xn = x.clone()
+    xn[3, live] = nan
+    wn, wcn = w.clone(), w_c.clone()
+    wn[live, 2] = nan.to(dtype)
+    wcn[0, 0, 2] = nan.to(dtype)
+    for xs, ws, wcs in ((xn, w, w_c), (x, wn, wcn)):
+        for got, want in both(xs, ws, wcs):
+            assert _same_non_finite(got, want)
+            ok = torch.isfinite(want)
+            assert (got[ok] - want[ok]).abs().max().item() <= 1e-5
+    if silent_hcs:
+        xs, ws = x.clone(), w.clone()
+        xs[:, silent_hcs[0] * mi] = nan
+        ws[silent_hcs[0] * mi, :] = nan.to(dtype)
+        for got, want in both(xs, ws, w_c):
+            assert bool(torch.isfinite(got).all())
+            assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", [(128, 784, 2, 32, 128, 128),
+                                                (37, 13, 3, 3, 10, 4)])
+def test_gathered_forward_kernels_repeat_bit_for_bit(gen, dtype, b, hi, mi,
+                                                     hj, mj, nact):
+    """The cluster adds its partial supports in rank order: ten launches on
+    the same operands give the same rates bit for bit."""
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni)
+    w = (_randn(gen, ni, nj) * 0.1).to(dtype)
+    w_c = (_randn(gen, hj, nact * mi, mj) * 0.1).to(dtype)
+    bias = _randn(gen, nj).to(dtype)
+    for call in (lambda: ops.patchy_forward(x, w, bias, table, mi, hj, mj),
+                 lambda: ops.compact_forward(x, w_c, bias, table, mi)):
+        first = call()
+        assert all(torch.equal(call(), first) for _ in range(10))
+
+
+def test_gathered_forward_kernels_at_fitted_log_odds(gen):
+    """Model 1-struct (nact 128 of 784 input HCs, K = 256) with weights at
+    the fitted range of log-odds: both gathered forwards within 1e-5 of
+    the plain version and of an fp64 forward over the live rows."""
+    from repro_torch.core.compact import (gather_dense, gather_pre,
+                                          unit_indices)
+    hi, mi, hj, mj, nact = 784, 2, 32, 128, 128
+    x, w, bias = _fitted_log_odds(gen, hi, hj, mj)
+    b, nj = x.shape[0], hj * mj
+    table = build_table(topk_mask(_rand(gen, hi, hj), nact), nact)
+    ui = unit_indices(table, mi, sentinel=hi * mi)
+    w_c = gather_dense(w, ui, hj, mj).contiguous()
+    s64 = torch.einsum("jbk,jkm->bjm", gather_pre(x.double(), ui),
+                       w_c.double()).reshape(b, nj) + bias.double()
+    assert s64.abs().max().item() >= 10.0
+    want64 = torch.softmax(s64.view(b, hj, mj), -1).view(b, -1)
+    _assert_rates_close(ops.patchy_forward(x, w, bias, table, mi, hj, mj),
+                        ref.ref_patchy_forward(x, w, bias, table, mi, hj, mj),
+                        want64)
+    _assert_rates_close(ops.compact_forward(x, w_c, bias, table, mi),
+                        ref.ref_compact_forward(x, w_c, bias, table, mi),
+                        want64)
 
 
 def test_quant_launches_counted_and_bad_operands_refused(gen):

@@ -206,6 +206,44 @@ def test_split_tf32_support_holds_the_forward_tolerance_and_one_pass_does_not():
         assert np.abs(one_pass - ref_rates).max() > FWD_TOL
 
 
+def test_split_tf32_gathered_support_holds_the_forward_tolerance_and_one_pass_does_not():
+    """The patchy and compact forwards form each post-HC's support over
+    its K = nact*Mi gathered rows on the tensor cores in 3xTF32.  At Model
+    1-struct (B=128, 784×2 → 32×128, nact 128, K=256) with fitted-range
+    weights, the CPU model of that arithmetic on the gathered operands
+    gives rates within the forward tolerance (1e-5 abs) of the JAX compact
+    forward and of an fp64 one; a single TF32 pass breaks it."""
+    from repro.kernels import patchy as jpatchy
+    from repro_torch.core.compact import (build_table, gather_dense,
+                                          gather_pre, unit_indices)
+    from repro_torch.kernels.ref import (ref_hc_softmax, split_tf32_mm,
+                                         tf32_round)
+    rng = np.random.default_rng(18)
+    b, hi, mi, hj, mj, nact = 128, 784, 2, 32, 128, 128
+    x, w, bias = _fitted_hidden_operands(rng, b, hi, mi, hj, mj)
+    table = build_table(topk_mask(torch.from_numpy(rng.random((hi, hj))),
+                                  nact), nact)
+    ui = unit_indices(table, mi, sentinel=hi * mi)
+    xg, wg = gather_pre(_t(x), ui), gather_dense(_t(w), ui, hj, mj)
+    s64 = torch.einsum("jbk,jkm->bjm", xg.double(), wg.double())
+    s64 = s64.reshape(b, hj * mj) + _t(bias).double()
+    assert 10.0 <= s64.abs().max().item() <= 60.0
+    want64 = ref_hc_softmax(s64, hj, mj).numpy()
+    want = np.asarray(jpatchy.compact_forward(
+        jnp.asarray(x), jnp.asarray(wg.numpy()), jnp.asarray(bias),
+        jnp.asarray(table.numpy()), mi, interpret=jops._interpret()))
+
+    def rates(support):  # (Hj, B, Mj) -> (B, Hj*Mj)
+        s = support.transpose(0, 1).reshape(b, hj * mj) + _t(bias)
+        return ref_hc_softmax(s, hj, mj).numpy()
+
+    split = rates(split_tf32_mm(xg, wg))
+    one_pass = rates(tf32_round(xg) @ tf32_round(wg))
+    for ref_rates in (want, want64):
+        assert np.abs(split - ref_rates).max() <= FWD_TOL
+        assert np.abs(one_pass - ref_rates).max() > FWD_TOL
+
+
 def test_bf16_weight_is_its_own_tf32_rounding():
     """A bf16 weight widened to fp32 has 8 mantissa bits, inside TF32's
     10: its TF32 split is (w, 0), so the bf16 forward needs only the two

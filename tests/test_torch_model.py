@@ -378,6 +378,41 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     Trainer(spec, device="cpu")  # the explicit CPU is fine
 
 
+def test_trainer_takes_the_jax_argument_order():
+    """``Trainer(cfg, seed, mesh, data_axis)`` as in the JAX package, with
+    ``device`` a keyword only; ``fit``'s keywords in the JAX order."""
+    import inspect
+    spec = deep_synth_spec(depth=1, hidden_hc=4, hidden_mc=8)
+    for port, ref in ((Trainer.__init__, JTrainer.__init__),
+                      (Trainer.fit, JTrainer.fit)):
+        want = list(inspect.signature(ref).parameters)
+        got = list(inspect.signature(port).parameters)
+        assert got[:len(want)] == want, (port.__qualname__, got, want)
+    params = inspect.signature(Trainer.__init__).parameters
+    assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+    # a mesh in the JAX position reaches the named refusal, not
+    # torch.device
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        Trainer(spec, 0, object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        Trainer(spec, 0, None, "batch", device="cpu")
+    with pytest.raises(TypeError):
+        Trainer(spec, 0, None, "data", "cpu")  # device is keyword only
+    assert Trainer(spec, 3, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"ckpt_every_batches": 4}, {"on_chunk": lambda cursor: None},
+    {"ckpt_dir": "ckpt"}, {"resume": True}])
+def test_fit_refuses_unported_checkpoint_arguments(kwargs):
+    spec = deep_synth_spec(depth=1, hidden_hc=4, hidden_mc=8)
+    tr = Trainer(spec, seed=0, device="cpu")
+    x = np.zeros((4, spec.projs[0].pre.N), np.float32)
+    y = np.zeros((4,), np.int32)
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        tr.fit(x, y, epochs=1, batch=4, **kwargs)
+
+
 def test_core_helpers_match_jax():
     """The ported helpers off the main path: hardmax, scalar encoding, the
     trace update, mutual information and the expanded HC mask."""

@@ -27,7 +27,12 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      weights to fp64; the three int8
      kernels run at Model 1's hidden shape, Model 1-struct's and a ragged
      one, with ``torch._int_mm`` timed beside ``quant_fwd`` as a
-     yardstick for the int8 product alone.
+     yardstick for the int8 product alone; ``quant_fwd`` also at Ni = 8192
+     with every code at +-127 (sums past 2**24), each of its rows with the
+     body it takes (tensor cores and cluster size, or ``__dp4a``: the
+     ragged shape, Mj = 10) and required to repeat bit for bit; each
+     ``hc_softmax`` row (also M = 2, a segment a lane) with its sub-warp
+     width and load width.
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
      32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
      supervised pass over 16384 synthetic images, then ``evaluate`` on
@@ -152,6 +157,9 @@ def kernel_cases(torch, gen):
     from repro_torch.core.compact import (build_table, gather_dense,
                                           gather_pre, unit_indices)
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bcpnn_fwd import cluster_size
+    from repro_torch.kernels.hc_softmax import softmax_plan
+    from repro_torch.kernels.quant import quant_fwd_plan
 
     dev = "cuda"
     f32 = torch.float32
@@ -191,13 +199,17 @@ def kernel_cases(torch, gen):
     cases = []
 
     def add(name, label, kern, plain, lib, nbytes, n_ops, cmp,
-            peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None):
+            peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None, note=None):
         """n_ops: a count at ``peak``, or ((count, peak rate), ...);
         fwd_shape: a forward's (B, contraction depth, Hj, Mj, bf16,
-        layout)."""
+        layout); note: the kernel's result -> how the kernel took the
+        shape (printed), for rows that must also repeat bit for bit."""
         ops = n_ops if isinstance(n_ops, tuple) else ((n_ops, peak),)
+        if fwd_shape is not None:
+            note = lambda got, shape=fwd_shape: \
+                f"cluster {cluster_size(*shape)}"
         cases.append((name, label, kern, plain, lib, nbytes, ops, cmp,
-                      product, fwd_shape))
+                      product, note))
 
     def trace_ops(product, epilogue):
         """The resident-trace update's operations: its product in 3xTF32
@@ -229,8 +241,15 @@ def kernel_cases(torch, gen):
         wg = w_c.float().contiguous()
         return lambda: torch.bmm(xg, wg)
 
+    def softmax_note(s, m):
+        def note(got):
+            v, lanes, loads = softmax_plan(s, got, m)
+            return (f"{lanes} lanes a segment, {v} floats a load, "
+                    + (f"{loads} loads a lane" if loads else "three passes"))
+        return note
+
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
-                           ("ragged", 37, 3, 10)):
+                           ("ragged", 37, 3, 10), ("narrow", 128, 64, 2)):
         s = randn(b, h * m) * 4
         lib = (lambda s=s, b=b, h=h, m=m:
                torch.softmax(s.view(b, h, m), dim=-1))
@@ -238,7 +257,7 @@ def kernel_cases(torch, gen):
             lambda s=s, h=h, m=m: ops.hc_softmax(s, h, m),
             lambda s=s, h=h, m=m: ref.ref_hc_softmax(s, h, m),
             lib, 2 * s.numel() * 4, 6 * s.numel(),
-            close_abs(2e-6))
+            close_abs(2e-6), note=softmax_note(s, m))
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
                                  ("readout", 128, 4096, 1, 10),
                                  ("ragged", 37, 1000, 3, 10)):
@@ -402,18 +421,37 @@ def kernel_cases(torch, gen):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
+    def quant_note(x, w_q, hj, mj):
+        def note(got):
+            body, ks = quant_fwd_plan(x, w_q, hj, mj)
+            return body + (f", cluster {ks}" if ks else "")
+        return note
+
+    # k8192: x = 1 and every code at +-127, most of a column's of one
+    # sign, so the int32 sums pass 2**24; scales keep the supports within a
+    # few tens.
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
-                                 ("ragged", 37, 1000, 3, 10)):
+                                 ("ragged", 37, 1000, 3, 10),
+                                 ("k8192", 128, 8192, 4, 128)):
         nj = hj * mj
-        x = rand(b, ni) if label == "hidden" else rand(b, ni) * 1.2 - 0.1
         w_q, bias, scale = codes(ni, nj), randn(nj), rand(hj) * 0.02 + 1e-3
+        if label == "hidden":
+            x = rand(b, ni)
+        elif label == "ragged":
+            x = rand(b, ni) * 1.2 - 0.1
+        else:
+            x = torch.ones((b, ni), device=dev, dtype=f32)
+            flip = rand(ni, nj) < torch.linspace(0.0, 0.05, nj, device=dev)
+            w_q = torch.where(flip, -127, 127).to(torch.int8)
+            scale = torch.full((hj,), 2e-5, device=dev, dtype=f32)
         add("quant_fwd", label,
             lambda x=x, w=w_q, bias=bias, sc=scale, hj=hj, mj=mj:
             ops.quant_fwd(x, w, bias, sc, hj, mj),
             lambda x=x, w=w_q, bias=bias, sc=scale, hj=hj, mj=mj:
             ref.ref_quant_fwd(x, w, bias, sc, hj, mj),
             None, 4 * b * ni + ni * nj + 4 * (nj + hj + b * nj),
-            2 * b * ni * nj, close_abs(1e-6), peak=PEAK_INT8_OPS_S)
+            2 * b * ni * nj, close_abs(1e-6), peak=PEAK_INT8_OPS_S,
+            note=quant_note(x, w_q, hj, mj))
     for label, b, hi, mi, hj, mj, nact in (
             ("struct", 128, 784, 2, 32, 128, 128),
             ("ragged", 37, 13, 3, 3, 10, 4)):
@@ -522,12 +560,11 @@ SOURCES = {
 
 
 def phase1(torch):
-    from repro_torch.kernels.bcpnn_fwd import cluster_size
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
     for name, label, kern, plain, lib, nbytes, ops, cmp, product, \
-            fwd_shape in kernel_cases(torch, gen):
+            note in kernel_cases(torch, gen):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -535,12 +572,13 @@ def phase1(torch):
         check(ok, f"{name}[{label}] disagrees with its plain version "
                   f"(max abs err {err:.3e})")
         extra = ""
-        if fwd_shape is not None:
-            # the cluster sums its partials in rank order: a repeat is the
-            # same bit for bit, and a race between the roles would show
+        if note is not None:
+            # a cluster sums its partials in a fixed order (the int8 ones
+            # exactly): a repeat is the same bit for bit, and a race
+            # between the roles would show
             check(all(torch.equal(kern(), got) for _ in range(10)),
                   f"{name}[{label}] differs between identical launches")
-            extra = f"  cluster {cluster_size(*fwd_shape)}"
+            extra = f"  {note(got)}"
         ms = device_ms(kern)
         plain_ms = device_ms(plain)
         lib_ms = device_ms(lib) if lib is not None else None

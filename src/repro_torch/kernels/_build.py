@@ -37,6 +37,7 @@ _F = ctypes.c_float
 # C entry point -> argument types (every pointer and the stream are void*).
 _SIGNATURES = {
     "bcpnn_hc_softmax": (_P, _P, ctypes.c_longlong, _I, _F, _P),
+    "bcpnn_hc_softmax_plan": (_P, _P, _I, _P),
     "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_fwd_cluster": (_I, _I, _I, _I, _I, _I, _P),
     "bcpnn_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -47,6 +48,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_quant_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _F, _P),
+    "bcpnn_quant_fwd_plan": (_P, _P, _I, _I, _I, _I, _P),
     "bcpnn_mma_tf32_rate": (_P, _I, _I, _I, _P),
 }
 

@@ -3,6 +3,8 @@
 // Three kernel bodies for seven of the Pallas TPU kernels:
 //
 //   bcpnn_hc_softmax     <- repro/kernels/hc_softmax.py::hc_softmax_pallas
+//                           (hc_softmax_kernel, sub-warp segments in
+//                           registers; hc_softmax_long_kernel past 256)
 //   bcpnn_fwd            <- repro/kernels/bcpnn_fwd.py::bcpnn_fwd_pallas
 //                           (bcpnn_fwd_tc_kernel, dense layout)
 //   bcpnn_patchy_fwd     <- repro/kernels/patchy.py::patchy_forward and
@@ -43,8 +45,6 @@
 // and the objects linked with the same flags and -shared.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
 #include <cstdint>
 #include <map>
@@ -61,59 +61,195 @@ using namespace bcpnn;
 // ------------------------------------------------------------ hc_softmax --
 //
 // out[r, h*M + m] = softmax_m(gain * s[r, h*M + m]) for every (row, HC)
-// segment of a contiguous (B, H*M) array.  One warp per segment; segments
-// of up to kSoftmaxVals*32 minicolumns stay in registers (one read, one
-// write), longer ones take three passes over global memory.
+// segment of a contiguous (B, H*M) array.
 //
 // Bound: bytes.  At Model 1 (B=128, H=32, M=128) it reads and writes 2 MiB
 // each, ~1.3 us at 3.35 TB/s, below the cost of a launch; the readout call
-// (B=128, H=1, M=10) is launch-bound.
+// (B=128, H=1, M=10) is launch-bound, so there only the length of the
+// dependent chain (load, reductions, exp, store) counts.
+//
+// A sub-warp of L lanes takes a segment, V consecutive values a lane per
+// load: float4, float2 or a scalar, the widest that M and both pointers'
+// alignment allow.  L is the next power of two of ceil(M / V), at most 32,
+// so a warp holds 32 / L segments and reduces each in log2(L) shuffles: M =
+// 128 is one 16-byte load a lane with no masked lane; M = 10 is five float2
+// loads over 8 lanes, four segments a warp, three shuffle steps; M = 2 is a
+// segment a lane.  Segments of up to kSoftmaxRegs values stay in registers
+// (IT loads a lane, a power of two): one read, one write.  Longer ones take
+// three passes over global memory (max, sum, write) with the same vector
+// loads, a warp a segment.  Blocks of 128 threads, so few segments still
+// spread over several SMs.
+//
+// IEEE expf and a true division, as the plain version (kernels/ref.py);
+// only the order of the sums differs.  fmaxf passes over a NaN, but exp of
+// it then makes the segment's sum and every value NaN, as in the plain
+// version; so does a +inf (inf - inf) and an all -inf segment (-inf - -inf).
+// NEG pad lanes (DESIGN.md §7) underflow to exactly 0.
 
-constexpr int kSoftmaxVals = 8;
-constexpr int kSoftmaxWarps = 8;
+constexpr int kSoftmaxThreads = 128;
+constexpr int kSoftmaxWarps = kSoftmaxThreads / kWarp;
+constexpr int kSoftmaxRegs = 256;  // the longest segment held in registers
 
-__global__ void __launch_bounds__(kSoftmaxWarps * kWarp)
-hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
-                  long long segments, int m, float gain) {
+// V consecutive floats from (or to) global memory aligned to 4V bytes.
+template <int V>
+__device__ __forceinline__ void ldg_vec(const float* p, float* d) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    d[0] = t.x; d[1] = t.y;
+  } else {
+    d[0] = __ldg(p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void stg_vec(float* p, const float* d) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  } else {
+    p[0] = d[0];
+  }
+}
+
+// Segments of at most kSoftmaxRegs values: L lanes a segment, IT loads of V
+// values a lane (value (i L + lane) V + e at load i).
+template <int V, int L, int IT>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+hc_softmax_kernel(const float* __restrict__ s, float* __restrict__ out, long long segments,
+                  int m, float gain) {
+  constexpr int kSegs = kWarp / L;  // segments a warp
+  const int lane = threadIdx.x % kWarp, sl = lane % L;
+  const long long seg =
+      ((long long)blockIdx.x * kSoftmaxWarps + threadIdx.x / kWarp) * kSegs + lane / L;
+  const bool live = seg < segments;  // uniform over the segment's lanes
+  const float* src = s + seg * m;
+  float* dst = out + seg * m;
+  float v[IT][V];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int c = (i * L + sl) * V;
+    if (live && c < m) {
+      ldg_vec<V>(src + c, v[i]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[i][e] *= gain;
+        mx = fmaxf(mx, v[i][e]);
+      }
+    }
+  }
+  mx = group_max<L>(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    if (live && (i * L + sl) * V < m) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[i][e] = expf(v[i][e] - mx);
+        sum += v[i][e];
+      }
+    }
+  }
+  sum = group_sum<L>(sum);
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int c = (i * L + sl) * V;
+    if (live && c < m) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i][e] = v[i][e] / sum;
+      stg_vec<V>(dst + c, v[i]);
+    }
+  }
+}
+
+// Segments longer than kSoftmaxRegs: a warp a segment, three passes.
+template <int V>
+__global__ void __launch_bounds__(kSoftmaxThreads)
+hc_softmax_long_kernel(const float* __restrict__ s, float* __restrict__ out, long long segments,
+                       int m, float gain) {
   const long long seg = (long long)blockIdx.x * kSoftmaxWarps + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (seg >= segments) return;  // warp-uniform
   const float* src = s + seg * m;
   float* dst = out + seg * m;
-  if (m <= kSoftmaxVals * kWarp) {
-    float v[kSoftmaxVals];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kSoftmaxVals; ++k) {
-      const int c = lane + k * kWarp;
-      v[k] = c < m ? src[c] * gain : -INFINITY;
-      mx = fmaxf(mx, v[k]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kSoftmaxVals; ++k) {
-      const int c = lane + k * kWarp;
-      if (c < m) {
-        v[k] = expf(v[k] - mx);
-        sum += v[k];
-      }
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int k = 0; k < kSoftmaxVals; ++k) {
-      const int c = lane + k * kWarp;
-      if (c < m) dst[c] = v[k] / sum;
-    }
-    return;
-  }
+  float t[V];
   float mx = -INFINITY;
-  for (int c = lane; c < m; c += kWarp) mx = fmaxf(mx, src[c] * gain);
-  mx = warp_max(mx);
+  for (int c = lane * V; c < m; c += kWarp * V) {
+    ldg_vec<V>(src + c, t);
+#pragma unroll
+    for (int e = 0; e < V; ++e) mx = fmaxf(mx, t[e] * gain);
+  }
+  mx = group_max<kWarp>(mx);
   float sum = 0.f;
-  for (int c = lane; c < m; c += kWarp) sum += expf(src[c] * gain - mx);
-  sum = warp_sum(sum);
-  for (int c = lane; c < m; c += kWarp) dst[c] = expf(src[c] * gain - mx) / sum;
+  for (int c = lane * V; c < m; c += kWarp * V) {
+    ldg_vec<V>(src + c, t);
+#pragma unroll
+    for (int e = 0; e < V; ++e) sum += expf(t[e] * gain - mx);
+  }
+  sum = group_sum<kWarp>(sum);
+  for (int c = lane * V; c < m; c += kWarp * V) {
+    ldg_vec<V>(src + c, t);
+#pragma unroll
+    for (int e = 0; e < V; ++e) t[e] = expf(t[e] * gain - mx) / sum;
+    stg_vec<V>(dst + c, t);
+  }
+}
+
+// How a segment of m values is taken: V values a load, L lanes, IT loads a
+// lane (0: the three-pass loop of hc_softmax_long_kernel).
+struct SoftmaxPlan {
+  int v, lanes, iters;
+};
+
+inline SoftmaxPlan softmax_plan(const float* s, const float* out, int m) {
+  const uintptr_t a = (uintptr_t)s | (uintptr_t)out;
+  const int v = m % 4 == 0 && (a & 15u) == 0 ? 4 : m % 2 == 0 && (a & 7u) == 0 ? 2 : 1;
+  if (m > kSoftmaxRegs) return {v, kWarp, 0};
+  const int loads = (m + v - 1) / v;
+  int lanes = 1, iters = 1;
+  while (lanes < loads && lanes < kWarp) lanes *= 2;
+  while (lanes * iters < loads) iters *= 2;
+  return {v, lanes, iters};
+}
+
+template <int V, int L, int IT>
+cudaError_t launch_softmax(const float* s, float* out, long long segments, int m, float gain,
+                           cudaStream_t st) {
+  const long long per_block = (long long)kSoftmaxWarps * (kWarp / L);
+  hc_softmax_kernel<V, L, IT><<<(unsigned)((segments + per_block - 1) / per_block),
+                                kSoftmaxThreads, 0, st>>>(s, out, segments, m, gain);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_softmax_v(const SoftmaxPlan& p, const float* s, float* out,
+                             long long segments, int m, float gain, cudaStream_t st) {
+  if (p.iters == 0) {
+    hc_softmax_long_kernel<V><<<(unsigned)((segments + kSoftmaxWarps - 1) / kSoftmaxWarps),
+                                kSoftmaxThreads, 0, st>>>(s, out, segments, m, gain);
+    return cudaGetLastError();
+  }
+  switch (p.lanes) {
+    case 1: return launch_softmax<V, 1, 1>(s, out, segments, m, gain, st);
+    case 2: return launch_softmax<V, 2, 1>(s, out, segments, m, gain, st);
+    case 4: return launch_softmax<V, 4, 1>(s, out, segments, m, gain, st);
+    case 8: return launch_softmax<V, 8, 1>(s, out, segments, m, gain, st);
+    case 16: return launch_softmax<V, 16, 1>(s, out, segments, m, gain, st);
+    default: break;
+  }
+  // 32 lanes: at most kSoftmaxRegs / (32 V) loads a lane
+  if (p.iters == 1) return launch_softmax<V, kWarp, 1>(s, out, segments, m, gain, st);
+  if (p.iters == 2) return launch_softmax<V, kWarp, 2>(s, out, segments, m, gain, st);
+  if constexpr (V <= 2) {
+    if (p.iters == 4) return launch_softmax<V, kWarp, 4>(s, out, segments, m, gain, st);
+  }
+  if constexpr (V == 1) {
+    if (p.iters == 8) return launch_softmax<V, kWarp, 8>(s, out, segments, m, gain, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // V consecutive floats from 8- or 16-byte-aligned shared memory (the
@@ -280,40 +416,6 @@ struct TraceTile {
 using WideTile = TraceTile<64, 128, 32, 4>;
 using NarrowTile = TraceTile<64, 32, 16, 2>;
 
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 or 4 bytes global -> shared, zero filled when !valid (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
 // One bulk (TMA) copy of ``bytes`` (a multiple of 16, both ends 16-byte
 // aligned) completing on ``bar``.
 __device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
@@ -321,28 +423,6 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-// Named barriers: arrive without waiting (the other side syncs), or sync.
-__device__ __forceinline__ void barrier_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-// Orders this thread's earlier generic-proxy accesses of shared memory
-// (loads, stores, cp.async) before the async proxy's later ones (the bulk
-// copies): run before the barrier after which a region is refilled.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // One team stages batch rows [b0, b0 + BK): the tile's x columns (the
@@ -777,10 +857,6 @@ cudaError_t launch_trace(const float* pij, const float* log_pi, const float* log
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
-
 // Picks the tile from Nj and the 16-byte paths from the operands (the
 // patchy layout's column blocks must also start on 16 bytes: Mj % 4 == 0).
 template <int L>
@@ -962,13 +1038,6 @@ struct FwdSmem {
   }
 };
 
-// The wgmma shared-memory descriptor of a K-major tile without swizzle:
-// start address, leading byte offset 128 (k), stride byte offset 256 (rows).
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
-}
-
 // d (64 x N, this thread's N/2 fp32) += A (64 x 8) B (8 x N), both tf32 in
 // shared memory, issued by one warpgroup; scale_d = 0 overwrites d.
 template <int N>
@@ -1040,32 +1109,12 @@ __device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db, i
   }
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving accesses of the accumulators across the
 // asynchronous products.
 template <int N>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// One 2-D TMA tensor copy of the box at (c0 inner, c1 outer), completing on bar.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // One 3-D TMA tensor copy of the box at (c0 inner, c1, c2 outer), completing on bar.
@@ -1479,42 +1528,6 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
   }
 }
 
-// The CUDA driver's tensor-map encoder, found through the runtime (the
-// library links only the runtime).
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-    }
-  }
-  return fn;
-}
-
-// A row-major tensor of 2 or 3 dimensions (dims and box innermost first)
-// copied in boxes, zero filled outside.
-inline bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
-                       int rank, const long long* dims, const int* box) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  cuuint64_t d[3], strides[2];
-  cuuint32_t b[3];
-  const cuuint32_t estrides[3] = {1, 1, 1};
-  for (int i = 0; i < rank; ++i) {
-    d[i] = (cuuint64_t)dims[i];
-    b[i] = (cuuint32_t)box[i];
-    if (i > 0) strides[i - 1] = (i == 1 ? (cuuint64_t)esize : strides[i - 2]) * d[i - 1];
-  }
-  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, strides, b, estrides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Shared bytes of a block (FwdSmem).
 template <class F>
 size_t fwd_smem(int ks, int Mj, int total) {
@@ -1712,10 +1725,22 @@ const char* bcpnn_error_string(int err) { return cudaGetErrorString((cudaError_t
 int bcpnn_hc_softmax(const float* s, float* out, long long segments, int m, float gain,
                      void* stream) {
   if (segments <= 0 || m <= 0) return (int)cudaSuccess;
-  const long long blocks = (segments + kSoftmaxWarps - 1) / kSoftmaxWarps;
-  hc_softmax_kernel<<<(unsigned)blocks, kSoftmaxWarps * kWarp, 0, (cudaStream_t)stream>>>(
-      s, out, segments, m, gain);
-  return (int)cudaGetLastError();
+  const SoftmaxPlan p = softmax_plan(s, out, m);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.v == 4) return (int)launch_softmax_v<4>(p, s, out, segments, m, gain, st);
+  if (p.v == 2) return (int)launch_softmax_v<2>(p, s, out, segments, m, gain, st);
+  return (int)launch_softmax_v<1>(p, s, out, segments, m, gain, st);
+}
+
+// How bcpnn_hc_softmax takes segments of m values between these pointers:
+// plan = {values a load, lanes a segment, loads a lane (0: the three-pass
+// loop)}.  Launches nothing (phase 1 of chip_smoke.py prints it).
+int bcpnn_hc_softmax_plan(const float* s, const float* out, int m, int* plan) {
+  const SoftmaxPlan p = softmax_plan(s, out, m);
+  plan[0] = p.v;
+  plan[1] = p.lanes;
+  plan[2] = p.iters;
+  return (int)cudaSuccess;
 }
 
 // ``bf16``: w and bias are __nv_bfloat16 (a bf16 serving pack), else float.

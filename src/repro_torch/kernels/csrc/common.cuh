@@ -1,10 +1,13 @@
 // Helpers shared by the kernel sources in this directory (bcpnn.cu,
 // quant.cu, yardstick.cu): warp reductions, the weight layouts and the
 // table lookup of the patchy layouts, the TF32 split (the forwards and the
-// resident-trace update) and the mma.sync product of the resident-trace
-// update.
+// resident-trace update), the mma.sync product of the resident-trace
+// update, cp.async copies, and the wgmma descriptor and fences (the fp32
+// forwards and the dense int8 forward).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -17,23 +20,154 @@ constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDefaultSmem = 48 * 1024;
 
-__device__ __forceinline__ float warp_max(float v) {
+// Sub-warp reductions over the L lanes (a power of two, at most 32) that
+// share a segment (a whole warp: L = kWarp), in log2(L) xor shuffles.
+template <int L>
+__device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  for (int o = L / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-// Barrier of the ``threads`` threads of group g only (named barriers 1..;
-// 0 is __syncthreads), so a block's groups drift apart and one group's
-// loads overlap another's arithmetic.
-__device__ __forceinline__ void group_barrier(int g, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(threads) : "memory");
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16, 8 or 4 bytes global -> shared, zero filled when !valid (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// (loads, stores, cp.async) before the async proxy's later ones (bulk
+// copies, wgmma operand reads): run before the barrier after which a region
+// is refilled or read by the tensor cores.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The wgmma shared-memory descriptor of a K-major tile without swizzle:
+// start address, leading byte offset 128 (k), stride byte offset 256 (rows).
+// A core matrix is 8 rows x 16 bytes (4 tf32 or 16 int8 values of k), 128
+// contiguous bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// mbarriers: init (``count`` arrivals a phase; one for those completed by
+// bulk (TMA) copies), arrive, arrive expecting ``bytes``, wait for a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One 2-D TMA tensor copy of the box at (c0 inner, c1 outer), completing on bar.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The CUDA driver's tensor-map encoder, found through the runtime (the
+// library links only the runtime).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+    }
+  }
+  return fn;
+}
+
+// A row-major tensor of 2 or 3 dimensions (dims and box innermost first)
+// copied in boxes, zero filled outside.
+inline bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
+                       int rank, const long long* dims, const int* box) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3];
+  const cuuint32_t estrides[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    if (i > 0) strides[i - 1] = (i == 1 ? (cuuint64_t)esize : strides[i - 2]) * d[i - 1];
+  }
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, strides, b, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Named barriers (0 is __syncthreads): arrive without waiting (the other
+// side syncs), or sync the ``threads`` threads of barrier id.
+__device__ __forceinline__ void barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Weight layouts of the forward and update bodies.
@@ -98,14 +232,14 @@ __device__ __forceinline__ void softmax_rows_to(float* sup, int rows, int Mj, fl
     float* srow = sup + lr * Mj;
     float mx = -INFINITY;
     for (int c = lane; c < Mj; c += kWarp) mx = fmaxf(mx, srow[c]);
-    mx = warp_max(mx);
+    mx = group_max<kWarp>(mx);
     float sum = 0.f;
     for (int c = lane; c < Mj; c += kWarp) {
       const float e = expf(srow[c] - mx);
       srow[c] = e;
       sum += e;
     }
-    sum = warp_sum(sum);
+    sum = group_sum<kWarp>(sum);
     float* orow = out + (size_t)gr * Nj + col0;
     for (int c = lane; c < Mj; c += kWarp) orow[c] = srow[c] / sum;
   }

@@ -1,9 +1,13 @@
 """Per-hypercolumn softmax (divisive normalization) on Hopper.
 
 Replaces the Pallas TPU kernel ``repro/kernels/hc_softmax.py::
-hc_softmax_pallas``.  CUDA source: ``csrc/bcpnn.cu::hc_softmax_kernel``:
-one warp per (row, HC) segment, the segment's minicolumns held in
-registers, max and sum by warp shuffles.
+hc_softmax_pallas``.  CUDA source: ``csrc/bcpnn.cu::hc_softmax_kernel``: a
+sub-warp of L lanes per (row, HC) segment, L the next power of two of
+ceil(M / V) (at most 32) for V = 4, 2 or 1 floats a load (the widest M and
+the alignment allow), so a warp holds 32 / L segments; segments of up to
+256 minicolumns stay in registers, max and sum by log2(L) shuffles; longer
+ones take ``hc_softmax_long_kernel``'s three passes.  ``softmax_plan``
+says which a shape takes.
 
 Bound: bytes (one read and one write of the support).  At Model 1 (B=128,
 H=32, M=128) that is 4.2 MB, ~1.3 us at 3.35 TB/s, below a launch's own
@@ -42,3 +46,14 @@ def hc_softmax_cuda(support: torch.Tensor, n_hc: int, n_mc: int,
     check_launch(rc, "hc_softmax")
     LAUNCHES += 1
     return out
+
+
+def softmax_plan(support: torch.Tensor, out: torch.Tensor, n_mc: int):
+    """How the kernel takes segments of ``n_mc`` values from ``support``
+    into ``out`` (CUDA tensors): (floats a load, lanes a segment, loads a
+    lane; 0 loads: the three-pass loop past 256 values).  Launches
+    nothing."""
+    plan = (ctypes.c_int * 3)()
+    check_launch(library().bcpnn_hc_softmax_plan(
+        support.data_ptr(), out.data_ptr(), n_mc, plan), "hc_softmax_plan")
+    return tuple(plan)

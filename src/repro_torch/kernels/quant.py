@@ -20,13 +20,20 @@ through the derived serving pack.  This module is its int8 tier:
   Model 1 (a complement-coded input row's codes sum to at most 784 * 128,
   so |acc| <= 1.3e7) but not for every input at Ni = 8192; the kernels'
   plain versions in ``ref.py`` are exact always.
-* **Kernels.**  ``quant_fwd`` (dense), ``quant_patchy_forward`` (patchy,
-  dense-resident codes) and ``quant_compact_forward`` (compact-resident
-  codes) are the three layouts of ``csrc/quant.cu::quant_fwd_kernel``:
-  activation codes made in the tile load, int32 ``__dp4a`` accumulation,
-  the fp32 epilogue ``(acc * scale[j] * fp32(1/127) + b) * gain`` and the
-  HC's softmax.  A CPU tensor takes the plain version; a CUDA tensor
-  launches the kernel or raises.
+* **Kernels.**  ``quant_fwd`` (dense) runs on the s8 tensor cores
+  (``csrc/quant.cu::quant_fwd_tc_kernel``: wgmma on K-major code tiles laid
+  out at staging, the contraction split over a thread-block cluster per
+  post-HC) where the HC is at most 128 columns, a multiple of 16, and x
+  and the codes have 16-byte aligned rows (Ni % 4 == 0); every other dense
+  shape, and
+  ``quant_patchy_forward`` (patchy, dense-resident codes) and
+  ``quant_compact_forward`` (compact-resident codes), take
+  ``csrc/quant.cu::quant_fwd_kernel`` (``__dp4a``).  ``quant_fwd_plan``
+  says which body a dense shape takes.  Both make the activation codes in
+  the tile load, accumulate exactly in int32, and end in the fp32 epilogue
+  ``(acc * scale[j] * fp32(1/127) + b) * gain`` and the HC's softmax.  A
+  CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises.
 """
 from __future__ import annotations
 
@@ -167,6 +174,18 @@ def quant_fwd(x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
         return ref_quant_fwd(x, w_q, bias, scale, n_hc, n_mc, gain)
     return _launch("quant_fwd", x, w_q, bias, scale, None, 1, n_hc, n_mc,
                    _DENSE, gain)
+
+
+def quant_fwd_plan(x: torch.Tensor, w_q: torch.Tensor, n_hc: int,
+                   n_mc: int):
+    """Which body ``quant_fwd`` launches for these operands (CUDA tensors):
+    ("tensor cores", cluster size) or ("dp4a", 0).  Launches nothing."""
+    plan = (ctypes.c_int * 2)()
+    b, ni = x.shape
+    check_launch(library().bcpnn_quant_fwd_plan(
+        x.data_ptr(), w_q.data_ptr(), b, ni, n_hc, n_mc, plan),
+        "quant_fwd_plan")
+    return ("tensor cores" if plan[0] else "dp4a"), plan[1]
 
 
 def quant_compact_forward(x: torch.Tensor, w_q: torch.Tensor,

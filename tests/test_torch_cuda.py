@@ -36,7 +36,7 @@ def _randn(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
-# (B, H, M): one warp per segment, registers up to M=256, loop beyond
+# (B, H, M): sub-warp segments in registers up to M=256, a loop beyond
 @pytest.mark.parametrize("b,h,m", [(1, 1, 2), (37, 3, 10), (128, 32, 128),
                                    (5, 2, 256), (3, 4, 300)])
 def test_hc_softmax_kernel(gen, b, h, m):
@@ -44,6 +44,69 @@ def test_hc_softmax_kernel(gen, b, h, m):
     got = ops.hc_softmax(s, h, m, 1.5)
     want = ref.ref_hc_softmax(s, h, m, 1.5)
     assert (got - want).abs().max().item() <= 2e-6
+
+
+# Every segment width: M picks the lanes a segment (1 .. 32) and the floats
+# a load (4, 2 or 1); 129 holds 8 loads a lane, 300 takes the loop.  The
+# offset view (4 bytes past an aligned base) takes the scalar or float2
+# loads of the same widths.
+SOFTMAX_WIDTHS = [1, 2, 3, 8, 10, 16, 17, 31, 32, 33, 64, 128, 129, 256, 300]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", SOFTMAX_WIDTHS)
+def test_hc_softmax_kernel_every_width(gen, m, offset):
+    b, h = 37, 3
+    buf = _randn(gen, b * h * m + offset) * 4
+    s = buf[offset:].view(b, h * m)
+    got = ops.hc_softmax(s, h, m, 1.5)
+    want = ref.ref_hc_softmax(s, h, m, 1.5)
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+def test_hc_softmax_plans_cover_every_width_and_load():
+    """SOFTMAX_WIDTHS on aligned and offset operands launch every sub-warp
+    width, every vector width and the long-segment loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels.hc_softmax import softmax_plan
+    plans = set()
+    for m in SOFTMAX_WIDTHS:
+        for offset in (0, 1):
+            buf = torch.empty(3 * m + offset, device="cuda")
+            plans.add(softmax_plan(buf[offset:], torch.empty(3 * m,
+                                                             device="cuda"), m))
+    assert {p[1] for p in plans if p[2]} == {1, 2, 4, 8, 16, 32}
+    assert {p[0] for p in plans} == {1, 2, 4}
+    assert {p[2] for p in plans} == {0, 1, 2, 4, 8}
+
+
+# the softmax pad value of DESIGN.md §7 (repro.kernels.tiling.NEG; the JAX
+# package is not importable on the machine with the card)
+NEG = -1e30  # repro: suppress[pad-fill-literal] — test input: the pad value itself
+
+
+@pytest.mark.parametrize("b,h,m", [(37, 3, 10), (128, 32, 128), (5, 4, 2),
+                                   (3, 2, 129), (3, 2, 300)])
+def test_hc_softmax_kernel_non_finite_and_pads(gen, b, h, m):
+    """A NaN, a +inf and an all -inf segment make their segments NaN, and
+    NEG pad lanes give exactly 0, as in the plain version."""
+    s = _randn(gen, b, h * m) * 4
+    s[0, 0] = float("nan")
+    s[1, m] = float("inf")
+    # repro: suppress[pad-fill-literal] — test input: an all -inf segment
+    s[2, :m] = float("-inf")
+    s[b - 1, (h - 1) * m + m // 2:] = NEG  # the last HC's upper half
+    got = ops.hc_softmax(s, h, m, 1.5)
+    want = ref.ref_hc_softmax(s, h, m, 1.5)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(want[0, :m]).all())
+    assert bool(torch.isnan(want[1, m:2 * m]).all())
+    assert bool(torch.isnan(want[2, :m]).all())
+    assert torch.equal(got == 0, want == 0)
+    assert bool((got[b - 1, (h - 1) * m + m // 2:] == 0).all())
+    ok = ~torch.isnan(want)
+    assert (got[ok] - want[ok]).abs().max().item() <= 2e-6
 
 
 # Mj picks the column tile (16, 32, 64, 128 lanes); Mj=256 takes two
@@ -445,6 +508,108 @@ def test_quant_fwd_kernel_on_unaligned_codes(gen):
     got = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
     want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
     assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+# (B, Ni, Hj, Mj, body): the dense layout's routing rule.  The tensor-core
+# body takes Mj <= 128, a multiple of 16, with x and the codes in 16-byte
+# aligned rows (Ni % 4 == 0): one or several batch tiles, K not a multiple
+# of the 32-deep slice, Mj below its column tile; every other shape takes
+# the __dp4a body.
+QUANT_ROUTES = [(128, 1568, 32, 128, "tensor cores"),
+                (1, 8, 1, 16, "tensor cores"),
+                (37, 1000, 3, 16, "tensor cores"),
+                (65, 260, 4, 32, "tensor cores"),
+                (130, 36, 2, 64, "tensor cores"),
+                (33, 1568, 5, 48, "tensor cores"),
+                (65, 257, 4, 32, "dp4a"),
+                (37, 1000, 3, 10, "dp4a"),
+                (40, 300, 2, 256, "dp4a")]
+
+
+@pytest.mark.parametrize("b,ni,hj,mj,body", QUANT_ROUTES)
+def test_quant_fwd_kernel_routes(gen, b, ni, hj, mj, body):
+    from repro_torch.kernels.quant import quant_fwd_plan
+    x = _rand(gen, b, ni) * 1.2 - 0.1
+    w_q = _codes(gen, ni, hj * mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    taken, ks = quant_fwd_plan(x, w_q, hj, mj)
+    assert taken == body and (ks >= 1) == (body == "tensor cores")
+    got = ops.quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+def test_quant_fwd_kernel_routes_unaligned_operands_to_dp4a(gen):
+    """x or the codes off a 16-byte boundary take the __dp4a body, and both
+    bodies give the plain version's rates."""
+    from repro_torch.kernels.quant import quant_fwd_plan
+    b, ni, hj, mj = 16, 64, 2, 32
+    x = _rand(gen, b, ni)
+    w_q = _codes(gen, ni, hj * mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    w_off = _codes(gen, ni * hj * mj + 1)[1:].view(ni, hj * mj)
+    w_off.copy_(w_q)
+    x_off = _rand(gen, b * ni + 1)[1:].view(b, ni)
+    x_off.copy_(x)
+    assert quant_fwd_plan(x, w_q, hj, mj)[0] == "tensor cores"
+    assert quant_fwd_plan(x, w_off, hj, mj)[0] == "dp4a"
+    assert quant_fwd_plan(x_off, w_q, hj, mj)[0] == "dp4a"
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
+    for xx, ww in ((x, w_q), (x, w_off), (x_off, w_q)):
+        got = ops.quant_fwd(xx, ww, bias, scale, hj, mj)
+        assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+def test_quant_fwd_kernel_past_2_24(gen):
+    """Ni = 8192 with x = 1 and every code at +-127, most of a column's of
+    one sign: the int32 sums pass 2**24 (where the reference's fp32 oracle
+    rounds, tests/test_quant.py::test_quant_fwd_close_to_fp32[8-8192-32-128])
+    and stay exact, so the rates equal the exact plain version's."""
+    b, ni, hj, mj = 128, 8192, 4, 128
+    x = torch.ones((b, ni), device="cuda")
+    flip = _rand(gen, ni, hj * mj) < torch.linspace(0.0, 0.05, hj * mj,
+                                                    device="cuda")
+    w_q = torch.where(flip, -127, 127).to(torch.int8)
+    bias = _randn(gen, hj * mj)
+    # supports of acc * scale / 127 within a few tens
+    scale = torch.full((hj,), 2e-5, device="cuda")
+    acc = ref.quant_acc_dense(x, w_q)
+    assert acc.max().item() > 2 ** 24
+    got = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert bool(torch.isfinite(want).all())
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+def test_quant_fwd_kernel_equals_patchy_with_every_pre_hc_live(gen):
+    """The tensor-core body against the __dp4a patchy body on a full table
+    (nact = Hi): the same sums, so rates within QUANT_TOL and the same
+    argmax in every HC."""
+    b, hi, mi, hj, mj = 128, 784, 2, 32, 128
+    ni, nj = hi * mi, hj * mj
+    table = torch.arange(hi, device="cuda",
+                         dtype=torch.int32).repeat(hj, 1).contiguous()
+    x = _rand(gen, b, ni) * 1.2 - 0.1
+    w_q = _codes(gen, ni, nj)
+    bias, scale = _quant_operands(gen, hj, nj)
+    dense = ops.quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
+    patchy = ops.quant_patchy_forward(x, w_q, bias, scale, table, mi, hj, mj,
+                                      1.25)
+    assert (dense - patchy).abs().max().item() <= QUANT_TOL
+    assert torch.equal(dense.view(b, hj, mj).argmax(-1),
+                       patchy.view(b, hj, mj).argmax(-1))
+
+
+def test_quant_fwd_kernel_repeats_bit_for_bit(gen):
+    """Integer partial sums are exact in any order: ten launches of the
+    tensor-core body give the same rates bit for bit."""
+    b, ni, hj, mj = 128, 1568, 32, 128
+    x = _rand(gen, b, ni)
+    w_q = _codes(gen, ni, hj * mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    first = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert all(torch.equal(ops.quant_fwd(x, w_q, bias, scale, hj, mj), first)
+               for _ in range(10))
 
 
 @pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)

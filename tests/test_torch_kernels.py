@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.hc_softmax import hc_softmax_pallas
 from repro_torch.core.bcpnn_layer import topk_mask
 from repro_torch.kernels import ops as tops
 
@@ -50,6 +51,20 @@ def test_hc_softmax_matches_jax(b, h, m, gain):
     s = (rng.standard_normal((b, h * m)) * 4).astype(np.float32)
     want = np.asarray(jops.hc_softmax(jnp.asarray(s), h, m, gain))
     got = tops.hc_softmax(_t(s), h, m, gain).numpy()
+    np.testing.assert_allclose(got, want, atol=FWD_TOL)
+
+
+# The CUDA kernel's edge widths: a segment a lane (M = 1), one load past a
+# whole warp (17, 33: masked lanes and a second load a lane) and one past
+# its float4 width (129: eight scalar loads a lane).
+@pytest.mark.parametrize("m", [1, 17, 33, 129])
+def test_hc_softmax_plain_matches_pallas_at_edge_widths(m):
+    rng = np.random.default_rng(m)
+    b, h = 5, 3
+    s = (rng.standard_normal((b, h * m)) * 4).astype(np.float32)
+    want = np.asarray(hc_softmax_pallas(jnp.asarray(s), h, m, 1.5,
+                                        interpret=True))
+    got = tops.hc_softmax(_t(s), h, m, 1.5).numpy()
     np.testing.assert_allclose(got, want, atol=FWD_TOL)
 
 

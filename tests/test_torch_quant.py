@@ -205,6 +205,74 @@ def test_quant_fwd_plain_matches_jax_kernel(b, ni, hj, mj):
                                rtol=0)
 
 
+# The dense kernel's edge shapes: one row, one either side of a 64-row
+# multiple, contractions either side of a 32-deep slice, the __dp4a body's
+# HC width (Mj = 10) and the tensor-core body's smallest (Mj = 16).
+@pytest.mark.parametrize("mj", [10, 16])
+@pytest.mark.parametrize("ni", [31, 33])
+@pytest.mark.parametrize("b", [1, 63, 65])
+def test_quant_fwd_plain_matches_jax_kernel_at_edge_shapes(b, ni, mj):
+    rng = np.random.default_rng(1000 * b + 10 * ni + mj)
+    hj = 3
+    x = rng.uniform(-0.1, 1.1, (b, ni)).astype(np.float32)
+    w_q = rng.integers(-127, 128, (ni, hj * mj)).astype(np.int8)
+    bias = rng.standard_normal(hj * mj).astype(np.float32)
+    scale = _scales(rng, hj, ni)
+    np.testing.assert_array_equal(
+        tref.quant_acc_dense(_t(x), _t(w_q)).numpy(), _int64_acc(x, w_q))
+    got = tops.quant_fwd(_t(x), _t(w_q), _t(bias), _t(scale), hj, mj, 1.25)
+    want = jq.quant_fwd_pallas(jnp.asarray(x), jnp.asarray(w_q),
+                               jnp.asarray(bias), jnp.asarray(scale), hj, mj,
+                               1.25, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL,
+                               rtol=0)
+
+
+def test_kernel_activation_codes_round_half_to_even():
+    """The dense tensor-core kernel makes a rate's code as the low byte of
+    fp32(fp32(saturate(v) * 127) + 1.5 * 2**23) (csrc/quant.cu::code_bits):
+    equal to ``quantize_acts`` (clip, x127, round half to even) on random
+    rates in and out of [0, 1], infinities, and the fp32 neighbours of
+    every tie (k + 0.5) / 127."""
+    rng = np.random.default_rng(11)
+    ties = ((np.arange(127) + 0.5) / 127).astype(np.float32)
+    near = np.concatenate([ties, np.nextafter(ties, np.float32(0)),
+                           np.nextafter(ties, np.float32(1))])
+    edges = np.float32([0.0, -0.0, 1.0, np.inf,
+                        # repro: suppress[pad-fill-literal] — test input: a rate of -inf clips to 0
+                        -np.inf])
+    v = np.concatenate([rng.uniform(-0.5, 1.5, 1 << 20).astype(np.float32),
+                        rng.random(1 << 20, dtype=np.float32), near, edges])
+    sat = np.clip(v, np.float32(0), np.float32(1))
+    prod = (sat * np.float32(127)).astype(np.float32)
+    assert bool((prod - np.floor(prod) == 0.5).any())  # exact ties occur
+    magic = (prod + np.float32(1.5 * 2 ** 23)).astype(np.float32)
+    kernel = (magic.view(np.uint32) & 0xFF).astype(np.int8)
+    np.testing.assert_array_equal(kernel, tq.quantize_acts(_t(v)).numpy())
+
+
+def test_kernel_softmax_quotient_equals_the_division():
+    """The dense tensor-core kernel divides a row's exp values by their sum
+    through the reciprocal and one FMA correction
+    (csrc/quant.cu::quotient): q = a * inv, q + (a - q b) * inv, each
+    rounded once (emulated exactly in float64).  Equal to the fp32 division
+    wherever the quotient is at least 2**-118, within 1e-42 below."""
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    b = rng.uniform(1.0, 128.0, n).astype(np.float32)
+    a = np.exp(-rng.uniform(0.0, 100.0, n)).astype(np.float32)
+    a[:64] = 1.0
+    f64 = np.float64
+    inv = (f64(1.0) / b.astype(f64)).astype(np.float32)
+    q = (a.astype(f64) * inv).astype(np.float32)
+    r = (a.astype(f64) - q.astype(f64) * b).astype(np.float32)
+    got = (q.astype(f64) + r.astype(f64) * inv).astype(np.float32)
+    want = a / b
+    big = want >= np.float32(2.0 ** -118)
+    np.testing.assert_array_equal(got[big], want[big])
+    assert np.abs(got.astype(f64) - want).max() < 1e-42
+
+
 @pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
 def test_quant_patchy_and_compact_plain_match_jax_kernels(b, hi, mi, hj, mj,
                                                           nact):

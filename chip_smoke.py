@@ -25,12 +25,16 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      over 10 launches, and rows at Model 1's hidden shape and behind a
      Model 1-struct table hold the forwards with fitted-range log-odds
      weights to fp64; the three int8
-     kernels run at Model 1's hidden shape, Model 1-struct's and a ragged
-     one, with ``torch._int_mm`` timed beside ``quant_fwd`` as a
-     yardstick for the int8 product alone; ``quant_fwd`` also at Ni = 8192
-     with every code at +-127 (sums past 2**24), each of its rows with the
-     body it takes (tensor cores and cluster size, or ``__dp4a``: the
-     ragged shape, Mj = 10) and required to repeat bit for bit; each
+     kernels (one s8 tensor-core body) run at Model 1's hidden shape,
+     Model 1-struct's and a ragged one, with ``torch._int_mm`` timed beside
+     ``quant_fwd`` as a yardstick for the int8 product alone;
+     ``quant_fwd`` also at Ni = 8192 with every code at +-127 (sums past
+     2**24); each int8 row with the plan it takes (tile rows, cluster
+     size) and required to repeat bit for bit, and the dense forward at
+     Model 1 and the two gathered ones at Model 1-struct timed under each
+     forced plan (tiles of 64 or 128 rows, clusters of 1 to 4), with the
+     same rates bit for bit under every plan, and whether ``torch.bmm``
+     takes their int8 operands (the product alone); each
      ``hc_softmax`` row (also M = 2, a segment a lane) with its sub-warp
      width and load width.
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
@@ -67,12 +71,15 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      serving with the card forbidden to synchronise.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
-     and (c), of (b)'s unsupervised step and evaluation batch, and of the
-     int8 and bf16
-     evaluation and served batches:
+     and (c), of (b)'s unsupervised step and evaluation batch, of the
+     int8 and bf16 evaluation and served batches of Model 1 and (c), and
+     of (b)'s int8 served batch:
      wall time per step untraced, then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
      kernels that take the most device time.
+  7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
+     process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
+     (each run under its own name); any failure fails the run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -80,6 +87,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -421,10 +429,10 @@ def kernel_cases(torch, gen):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
 
-    def quant_note(x, w_q, hj, mj):
+    def quant_note(x, w_q, hj, mj, table=None, mi=1):
         def note(got):
-            body, ks = quant_fwd_plan(x, w_q, hj, mj)
-            return body + (f", cluster {ks}" if ks else "")
+            rows, ks = quant_fwd_plan(x, w_q, hj, mj, table, mi)
+            return f"s8 tensor cores, tiles of {rows} rows, cluster {ks}"
         return note
 
     # k8192: x = 1 and every code at +-127, most of a column's of one
@@ -461,22 +469,23 @@ def kernel_cases(torch, gen):
         x = rand(b, ni) if label == "struct" else rand(b, ni) * 1.2 - 0.1
         w_q, w_c = codes(ni, nj), codes(hj, k, mj)
         bias, scale = randn(nj), rand(hj) * 0.02 + 1e-3
-        for name, kern, plain in (
-                ("quant_patchy_forward",
+        for name, w, kern, plain in (
+                ("quant_patchy_forward", w_q,
                  lambda x=x, w=w_q, bias=bias, sc=scale, t=table, mi=mi,
                  hj=hj, mj=mj:
                  ops.quant_patchy_forward(x, w, bias, sc, t, mi, hj, mj),
                  lambda x=x, w=w_q, bias=bias, sc=scale, t=table, mi=mi,
                  hj=hj, mj=mj:
                  ref.ref_quant_patchy_forward(x, w, bias, sc, t, mi, hj, mj)),
-                ("quant_compact_forward",
+                ("quant_compact_forward", w_c,
                  lambda x=x, w=w_c, bias=bias, sc=scale, t=table, mi=mi:
                  ops.quant_compact_forward(x, w, bias, sc, t, mi),
                  lambda x=x, w=w_c, bias=bias, sc=scale, t=table, mi=mi:
                  ref.ref_quant_compact_forward(x, w, bias, sc, t, mi))):
             add(name, label, kern, plain, None,
                 live + 4 * (b * ni + nj + hj + hj * nact + b * nj),
-                2 * b * live, close_abs(1e-6), peak=PEAK_INT8_OPS_S)
+                2 * b * live, close_abs(1e-6), peak=PEAK_INT8_OPS_S,
+                note=quant_note(x, w, hj, mj, table, mi))
 
     # Model 1's hidden layer with weights at the fitted range of log-odds
     # (log clip(pij) - log pi - log pj from traces of binary-pixel inputs
@@ -597,6 +606,8 @@ def phase1(torch):
               flush=True)
         rows.setdefault(name, {})[label] = row
     int_mm_yardstick(torch, gen, rows["quant_fwd"]["hidden"])
+    quant_plan_times(torch, gen, rows)
+    int8_bmm_check(torch, gen, rows)
     copy_yardstick(torch, gen, rows["bcpnn_update"]["hidden"])
     mma_yardstick(torch, rows["bcpnn_update"]["hidden"])
     return rows
@@ -646,6 +657,77 @@ def copy_yardstick(torch, gen, row):
           f"{ms * 1e3:.2f} us ({row['copy_bytes_s'] / 1e12:.3f} TB/s); at that "
           f"rate the update's {3 * src.numel() * 4 / 1e6:.1f} MB of trace "
           f"traffic take {1.5 * ms * 1e3:.2f} us", flush=True)
+
+
+def quant_plan_times(torch, gen, rows):
+    """The int8 forwards at Model 1 (dense) and Model 1-struct (patchy,
+    compact) with the plan forced: tiles of 64 or 128 rows, clusters of 1
+    to 4 blocks.  The time of each (what the launcher's rule is set from),
+    and the same rates bit for bit under every plan (integer partial
+    sums)."""
+    from repro_torch.core.bcpnn_layer import topk_mask
+    from repro_torch.core.compact import build_table
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.quant import quant_fwd_plan
+    b, hi, mi, hj, mj, nact = 128, 784, 2, 32, 128, 128
+    ni, nj = hi * mi, hj * mj
+    dev = "cuda"
+    table = build_table(topk_mask(torch.rand((hi, hj), generator=gen,
+                                             device=dev), nact), nact)
+    x = torch.rand((b, ni), generator=gen, device=dev)
+    bias = torch.randn((nj,), generator=gen, device=dev)
+    scale = torch.rand((hj,), generator=gen, device=dev) * 0.02 + 1e-3
+    w_q = torch.randint(-127, 128, (ni, nj), generator=gen, device=dev,
+                        dtype=torch.int8)
+    w_c = torch.randint(-127, 128, (hj, nact * mi, mj), generator=gen,
+                        device=dev, dtype=torch.int8)
+    for name, label, tbl, w, call in (
+            ("quant_fwd", "hidden", None, w_q,
+             lambda **kw: ops.quant_fwd(x, w_q, bias, scale, hj, mj, **kw)),
+            ("quant_patchy_forward", "struct", table, w_q,
+             lambda **kw: ops.quant_patchy_forward(x, w_q, bias, scale, table,
+                                                   mi, hj, mj, **kw)),
+            ("quant_compact_forward", "struct", table, w_c,
+             lambda **kw: ops.quant_compact_forward(x, w_c, bias, scale,
+                                                    table, mi, **kw))):
+        plan = quant_fwd_plan(x, w, hj, mj, tbl, mi)
+        first = call()
+        times = {}
+        for tile in (64, 128):
+            for ks in (1, 2, 3, 4):
+                check(torch.equal(call(rows=tile, cluster=ks), first),
+                      f"{name}[{label}] with tiles of {tile} rows, cluster "
+                      f"{ks}, differs from its own plan {plan}")
+                times[f"{tile}x{ks}"] = device_ms(
+                    lambda tile=tile, ks=ks: call(rows=tile, cluster=ks))
+        rows[name][label]["plan_ms"] = times
+        print(f"[phase1] {name}[{label}] by plan (tile rows x cluster; the "
+              f"rule takes {plan[0]}x{plan[1]}; rates equal bit for bit under "
+              f"every plan): "
+              + ", ".join(f"{k}: {ms * 1e3:.2f} us" for k, ms in times.items()),
+              flush=True)
+
+
+def int8_bmm_check(torch, gen, rows):
+    """Whether ``torch.bmm`` multiplies int8 codes on the card, at the
+    gathered forwards' pre-gathered (Hj, B, K) x (Hj, K, Mj) shapes of
+    Model 1-struct: the one library call that could time their product
+    alone.  Timed where it runs; the refusal printed where it does not."""
+    xg = torch.randint(0, 128, (32, 128, 256), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wg = torch.randint(-127, 128, (32, 256, 128), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    try:
+        torch.bmm(xg, wg)
+    except (RuntimeError, NotImplementedError) as e:
+        answer = f"refused ({type(e).__name__}: {str(e).splitlines()[0]})"
+    else:
+        ms = device_ms(lambda: torch.bmm(xg, wg))
+        for name in ("quant_patchy_forward", "quant_compact_forward"):
+            rows[name]["struct"]["product_library_ms"] = ms
+        answer = f"runs, {ms * 1e3:.2f} us"
+    print(f"[phase1] yardstick: torch.bmm on int8 (32, 128, 256) x "
+          f"(32, 256, 128) codes: {answer}", flush=True)
 
 
 def int_mm_yardstick(torch, gen, row):
@@ -1243,6 +1325,27 @@ def phase6(torch, tr, fitted, xte, yte):
     return runs
 
 
+# --------------------------------------------------------------- phase 7 --
+
+def phase7():
+    """The ``gpu`` tests in their own pytest process, the log written under
+    a name no other run takes; a failing test fails the run."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    log = out / time.strftime("gpu_tests_%Y%m%dT%H%M%SZ.log", time.gmtime())
+    with open(log, "w") as f:
+        rc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+             "-m", "gpu", "tests/test_torch_cuda.py"], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, stdout=f,
+            stderr=subprocess.STDOUT, timeout=600).returncode
+    tail = log.read_text().strip().splitlines()[-1:] or ["(no output)"]
+    check(rc == 0, f"gpu tests failed (rc {rc}, log {log.relative_to(ROOT)}):"
+                   f" {tail[0]}")
+    print(f"[phase7] gpu tests: {tail[0]} (log {log.relative_to(ROOT)})",
+          flush=True)
+
+
 # --------------------------------------------------------------- phase 4 --
 
 def phase4(torch, tr, tr_b, tr_c, xte, yte):
@@ -1251,9 +1354,10 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
     ``patchy_update`` launch each) and eval batch (one ``patchy_forward``),
     and of (c)'s unsupervised step and eval batch on their fitted Model
     1-struct states (results are dropped; only
-    the state's generator advances); then, for both states, the eval
-    batch in int8 and bf16 (``infer``, which packs the state on every
-    call) and the served batch (``infer_packed`` on a pack made once).
+    the state's generator advances); then, for the dense and (c) states,
+    the eval batch in int8 and bf16 (``infer``, which packs the state on
+    every call) and the served batch (``infer_packed`` on a pack made
+    once), and (b)'s int8 served batch (one ``quant_patchy_forward``).
     The trace slows the host, so the idle share divides the traced
     device-busy time by the untraced wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1285,6 +1389,11 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
                 lambda st=st, sp_d=sp_d: infer(st, sp_d, x)
             steps[f"{label}{dtype} served_batch"] = \
                 lambda params=params, sp_d=sp_d: infer_packed(params, sp_d, x)
+    # (b)'s int8 served batch: one quant_patchy_forward launch
+    spec_b8 = spec_b.with_infer_dtype("int8")
+    params_b8 = pack_state(state_b, spec_b8)
+    steps["(b) int8 served_batch"] = lambda: infer_packed(params_b8, spec_b8,
+                                                          x)
     n = 20
     for name, fn in steps.items():
         for _ in range(3):
@@ -1344,6 +1453,7 @@ def main() -> int:
     fitted, struct_launches = phase5(torch, xtr, ytr, xte, yte)
     serve_launches = phase6(torch, tr, fitted, xte, yte)
     phase4(torch, tr, fitted["b"], fitted["c"], xte, yte)
+    phase7()
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "bcpnn_patchy_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_quant_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P),
-    "bcpnn_quant_fwd_plan": (_P, _P, _I, _I, _I, _I, _P),
+                        _I, _I, _F, _P),
+    "bcpnn_quant_fwd_plan": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "bcpnn_mma_tf32_rate": (_P, _I, _I, _I, _P),
 }
 

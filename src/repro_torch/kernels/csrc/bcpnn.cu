@@ -985,14 +985,9 @@ constexpr int kTcMma = kTcMmaWarps * kWarp;
 constexpr int kTcStage = kTcStageWarps * kWarp;
 constexpr int kTcThreads = kTcMma + kTcStage;
 constexpr int kTcMaxCluster = 8;
-constexpr int kMaxSmem = 227 * 1024;
 // Named barriers (0 is __syncthreads): a split buffer is full (1, 2) or
 // empty (3, 4); the staging warps' own (5).
 constexpr int kBarFull = 1, kBarEmpty = 3, kBarStage = 5;
-// How the raw slices move: TMA tensor copies, or cp.async in 16-, 8- (x
-// only, gathered) or 4-byte pieces, or plain loads (w only: a bf16 weight
-// of odd width).
-enum StageCopy : int { kCopyTma = 0, kCopy16 = 1, kCopy4 = 2, kCopyElem = 3, kCopy8 = 4 };
 
 // One block's tile: 128 rows x BN columns, weight layout L; its
 // shared-memory map in 4-byte words.  Core matrix (wgmma, K-major, no
@@ -1115,16 +1110,6 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// One 3-D TMA tensor copy of the box at (c0 inner, c1, c2 outer), completing on bar.
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // fn(e) for e = st, st + kTcStage, ... below N: the staging warps' share
@@ -1664,8 +1649,9 @@ cudaError_t with_fwd_tile(int Mj, Fn&& fn) {
 }
 
 // Picks the tile from the HC width and the copy paths from the operands.
-// Dense: TMA for both where both operands' rows are 16-byte aligned and
-// sized.  Gathered: x by cp.async in the widest piece that divides Mi and
+// Dense: TMA for both where both operands' rows and the HC's first column
+// are 16-byte aligned and sized (a TMA box that starts off a 16-byte
+// boundary faults).  Gathered: x by cp.async in the widest piece that divides Mi and
 // the alignment allows; compact w by TMA where its rows are 16-byte aligned
 // and sized.  Elsewhere w by cp.async in 16- or 4-byte pieces, or plain
 // loads (a bf16 weight of odd width).
@@ -1685,7 +1671,7 @@ cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, const i
     }
     if constexpr (L == kDense) {
       const bool x16 = sh.Ni % 4 == 0 && aligned16(x);
-      if (x16 && Nj % kPer16 == 0 && aligned16(w)) {
+      if (x16 && w16) {  // (a box's first column, h * Mj, 16-byte aligned)
         xcopy = wcopy = kCopyTma;
       } else {
         xcopy = x16 ? kCopy16 : kCopy4;

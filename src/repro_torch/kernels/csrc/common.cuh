@@ -2,8 +2,9 @@
 // quant.cu, yardstick.cu): warp reductions, the weight layouts and the
 // table lookup of the patchy layouts, the TF32 split (the forwards and the
 // resident-trace update), the mma.sync product of the resident-trace
-// update, cp.async copies, and the wgmma descriptor and fences (the fp32
-// forwards and the dense int8 forward).
+// update, cp.async copies, the wgmma descriptor and fences, mbarriers and
+// TMA copies (the fp32 and int8 forwards), and the copy routes of a
+// forward's slices (StageCopy).
 #pragma once
 
 #include <cuda.h>
@@ -19,6 +20,12 @@ namespace bcpnn {
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may take
+
+// How a forward's raw slices move: TMA tensor copies, or cp.async in 16-,
+// 8- (x only, gathered) or 4-byte pieces, or plain loads (w only: rows
+// too narrow or misaligned for 4-byte pieces).
+enum StageCopy : int { kCopyTma = 0, kCopy16 = 1, kCopy4 = 2, kCopyElem = 3, kCopy8 = 4 };
 
 // Sub-warp reductions over the L lanes (a power of two, at most 32) that
 // share a segment (a whole warp: L = kWarp), in log2(L) xor shuffles.
@@ -122,6 +129,16 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
       "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One 3-D TMA tensor copy of the box at (c0 inner, c1, c2 outer), completing on bar.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 

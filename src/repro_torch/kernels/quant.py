@@ -20,25 +20,24 @@ through the derived serving pack.  This module is its int8 tier:
   Model 1 (a complement-coded input row's codes sum to at most 784 * 128,
   so |acc| <= 1.3e7) but not for every input at Ni = 8192; the kernels'
   plain versions in ``ref.py`` are exact always.
-* **Kernels.**  ``quant_fwd`` (dense) runs on the s8 tensor cores
-  (``csrc/quant.cu::quant_fwd_tc_kernel``: wgmma on K-major code tiles laid
+* **Kernels.**  ``quant_fwd`` (dense codes), ``quant_patchy_forward``
+  (patchy, dense-resident codes, each post-HC's live rows gathered) and
+  ``quant_compact_forward`` (compact-resident codes) are the three layouts
+  of one body on the s8 tensor cores,
+  ``csrc/quant.cu::quant_fwd_tc_kernel``: wgmma on K-major code tiles laid
   out at staging, the contraction split over a thread-block cluster per
-  post-HC) where the HC is at most 128 columns, a multiple of 16, and x
-  and the codes have 16-byte aligned rows (Ni % 4 == 0); every other dense
-  shape, and
-  ``quant_patchy_forward`` (patchy, dense-resident codes) and
-  ``quant_compact_forward`` (compact-resident codes), take
-  ``csrc/quant.cu::quant_fwd_kernel`` (``__dp4a``).  ``quant_fwd_plan``
-  says which body a dense shape takes.  Both make the activation codes in
-  the tile load, accumulate exactly in int32, and end in the fp32 epilogue
-  ``(acc * scale[j] * fp32(1/127) + b) * gain`` and the HC's softmax.  A
-  CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-  raises.
+  post-HC, every shape and alignment taken (TMA where rows allow it,
+  cp.async pieces or plain loads elsewhere; HCs past 128 columns in
+  column chunks).  ``quant_fwd_plan`` says which tile height and cluster
+  size a shape takes.  The body makes the activation codes in the tile load,
+  accumulates exactly in int32, and ends in the fp32 epilogue ``(acc *
+  scale[j] * fp32(1/127) + b) * gain`` and the HC's softmax.  A CPU tensor
+  takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +49,7 @@ INT8_MAX = 127          # symmetric: code -128 is never emitted
 ACT_SCALE = 1.0 / 127   # fixed Q0.7 step for rates in [0, 1]
 # Largest contraction whose int32 accumulator cannot overflow.
 MAX_EXACT_K = (2 ** 31 - 1) // (INT8_MAX * INT8_MAX)
+MAX_CLUSTER = 8  # blocks a thread-block cluster at most (csrc/quant.cu)
 
 # Kernel launches in this process, per entry point (only where a kernel is
 # launched).
@@ -137,7 +137,8 @@ def quant_support_compact_torch(x, w_q, scale, b, table, mi: int):
 
 def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
             scale: torch.Tensor, table: Optional[torch.Tensor], mi: int,
-            hj: int, mj: int, layout: int, gain: float) -> torch.Tensor:
+            hj: int, mj: int, layout: int, gain: float, rows: int,
+            cluster: int) -> torch.Tensor:
     require_current_device(x)
     dev = x.device
     b, ni = x.shape
@@ -149,6 +150,11 @@ def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
     if k > MAX_EXACT_K:
         raise ValueError(f"{name}: a {k}-term int8 contraction can overflow "
                          f"the int32 accumulator (at most {MAX_EXACT_K})")
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"{name}: cluster {cluster} is not in "
+                         f"[0, {MAX_CLUSTER}]")
+    if rows not in (0, 64, 128):
+        raise ValueError(f"{name}: tiles of {rows} rows (64, 128 or 0)")
     require(x, "x", (b, ni), dev)
     require(w_q, "w_q", (hj, k, mj) if layout == _COMPACT else (ni, hj * mj),
             dev, torch.int8)
@@ -158,7 +164,8 @@ def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
     rc = library().bcpnn_quant_fwd(
         x.data_ptr(), w_q.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         None if table is None else table.data_ptr(), out.data_ptr(), b, ni,
-        hj, mj, mi, nact, layout, ctypes.c_float(gain), stream_ptr(x))
+        hj, mj, mi, nact, layout, rows, cluster, ctypes.c_float(gain),
+        stream_ptr(x))
     check_launch(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -166,34 +173,49 @@ def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
 
 def quant_fwd(x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
               scale: torch.Tensor, n_hc: int, n_mc: int,
-              gain: float = 1.0) -> torch.Tensor:
+              gain: float = 1.0, *, rows: int = 0,
+              cluster: int = 0) -> torch.Tensor:
     """x (B, Ni) fp32 rates, w_q (Ni, n_hc*n_mc) int8, bias (Nj,) and
-    scale (n_hc,) fp32 -> rates (B, Nj): the int8 ``bcpnn_fwd``."""
+    scale (n_hc,) fp32 -> rates (B, Nj): the int8 ``bcpnn_fwd``.
+    ``rows`` and ``cluster`` (CUDA only, for timing and tests): a block's
+    tile height (64 or 128 rows) and the thread-block cluster size (1 to
+    MAX_CLUSTER); 0 leaves either to the launcher (``quant_fwd_plan``)."""
     if x.device.type == "cpu":
         from .ref import ref_quant_fwd
         return ref_quant_fwd(x, w_q, bias, scale, n_hc, n_mc, gain)
     return _launch("quant_fwd", x, w_q, bias, scale, None, 1, n_hc, n_mc,
-                   _DENSE, gain)
+                   _DENSE, gain, rows, cluster)
 
 
 def quant_fwd_plan(x: torch.Tensor, w_q: torch.Tensor, n_hc: int,
-                   n_mc: int):
-    """Which body ``quant_fwd`` launches for these operands (CUDA tensors):
-    ("tensor cores", cluster size) or ("dp4a", 0).  Launches nothing."""
-    plan = (ctypes.c_int * 2)()
+                   n_mc: int, table: Optional[torch.Tensor] = None,
+                   mi: int = 1) -> Tuple[int, int]:
+    """(tile rows, cluster size): the plan the int8 forward takes for these
+    operands (CUDA tensors) by the launcher's rule, dense without a table;
+    with one, patchy for (Ni, Nj) codes and compact for (Hj, K, Mj) ones.
+    Every shape runs on the one tensor-core body, so its plan is all there
+    is to report.  Launches nothing."""
     b, ni = x.shape
+    if table is None:
+        layout, k = _DENSE, ni
+    else:
+        layout = _COMPACT if w_q.dim() == 3 else _PATCHY
+        k = table.shape[1] * mi
+    plan = (ctypes.c_int * 2)()
     check_launch(library().bcpnn_quant_fwd_plan(
-        x.data_ptr(), w_q.data_ptr(), b, ni, n_hc, n_mc, plan),
+        x.data_ptr(), w_q.data_ptr(), b, ni, k, n_hc, n_mc, mi, layout, plan),
         "quant_fwd_plan")
-    return ("tensor cores" if plan[0] else "dp4a"), plan[1]
+    return plan[0], plan[1]
 
 
 def quant_compact_forward(x: torch.Tensor, w_q: torch.Tensor,
                           bias: torch.Tensor, scale: torch.Tensor,
                           table: torch.Tensor, mi: int,
-                          gain: float = 1.0) -> torch.Tensor:
+                          gain: float = 1.0, *, rows: int = 0,
+                          cluster: int = 0) -> torch.Tensor:
     """x (B, Ni), compact-resident codes w_q (Hj, K, Mj) int8, bias
-    (Hj*Mj,), scale (Hj,), table (Hj, nact) -> rates (B, Hj*Mj)."""
+    (Hj*Mj,), scale (Hj,), table (Hj, nact) -> rates (B, Hj*Mj).
+    ``rows`` and ``cluster`` as for ``quant_fwd``."""
     if x.device.type == "cpu":
         from .ref import ref_quant_compact_forward
         return ref_quant_compact_forward(x, w_q, bias, scale, table, mi, gain)
@@ -202,19 +224,21 @@ def quant_compact_forward(x: torch.Tensor, w_q: torch.Tensor,
                          f"(Hj, K, Mj)")
     hj, _, mj = w_q.shape
     return _launch("quant_compact_forward", x, w_q, bias, scale, table, mi,
-                   hj, mj, _COMPACT, gain)
+                   hj, mj, _COMPACT, gain, rows, cluster)
 
 
 def quant_patchy_forward(x: torch.Tensor, w_q: torch.Tensor,
                          bias: torch.Tensor, scale: torch.Tensor,
                          table: torch.Tensor, mi: int, hj: int, mj: int,
-                         gain: float = 1.0) -> torch.Tensor:
+                         gain: float = 1.0, *, rows: int = 0,
+                         cluster: int = 0) -> torch.Tensor:
     """x (B, Ni), dense-resident masked codes w_q (Ni, Hj*Mj) int8 (silent
     synapses are exactly code 0), bias, scale, table (Hj, nact) -> rates
-    (B, Hj*Mj), reading only each post-HC's live rows."""
+    (B, Hj*Mj), reading only each post-HC's live rows.  ``rows`` and
+    ``cluster`` as for ``quant_fwd``."""
     if x.device.type == "cpu":
         from .ref import ref_quant_patchy_forward
         return ref_quant_patchy_forward(x, w_q, bias, scale, table, mi, hj,
                                         mj, gain)
     return _launch("quant_patchy_forward", x, w_q, bias, scale, table, mi,
-                   hj, mj, _PATCHY, gain)
+                   hj, mj, _PATCHY, gain, rows, cluster)

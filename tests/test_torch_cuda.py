@@ -175,11 +175,12 @@ def test_bcpnn_fwd_kernel_at_fitted_log_odds(gen):
 
 
 # B = 37, Ni = 1000 on each way the slices reach shared memory: TMA tensor
-# copies (Nj = 128), 4-byte cp.async of w (Nj = 30), and 4-byte x with
-# plain bf16 loads (Ni = 1001, Mj = 7).
+# copies (Nj = 128), 4-byte cp.async of w (Nj = 30, and Nj = 20, whose
+# 16-byte rows would start the second HC's box off a 16-byte boundary),
+# and 4-byte x with plain bf16 loads (Ni = 1001, Mj = 7).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ni,hj,mj", [(1000, 2, 64), (1000, 3, 10),
-                                      (1001, 3, 7)])
+                                      (1000, 2, 10), (1001, 3, 7)])
 def test_bcpnn_fwd_kernel_copy_paths(gen, dtype, ni, hj, mj):
     b = 37
     x = _rand(gen, b, ni)
@@ -510,52 +511,51 @@ def test_quant_fwd_kernel_on_unaligned_codes(gen):
     assert (got - want).abs().max().item() <= QUANT_TOL
 
 
-# (B, Ni, Hj, Mj, body): the dense layout's routing rule.  The tensor-core
-# body takes Mj <= 128, a multiple of 16, with x and the codes in 16-byte
-# aligned rows (Ni % 4 == 0): one or several batch tiles, K not a multiple
-# of the 32-deep slice, Mj below its column tile; every other shape takes
-# the __dp4a body.
-QUANT_ROUTES = [(128, 1568, 32, 128, "tensor cores"),
-                (1, 8, 1, 16, "tensor cores"),
-                (37, 1000, 3, 16, "tensor cores"),
-                (65, 260, 4, 32, "tensor cores"),
-                (130, 36, 2, 64, "tensor cores"),
-                (33, 1568, 5, 48, "tensor cores"),
-                (65, 257, 4, 32, "dp4a"),
-                (37, 1000, 3, 10, "dp4a"),
-                (40, 300, 2, 256, "dp4a")]
+# (B, Ni, Hj, Mj): dense shapes, each taking one of the body's copy routes.
+# x and the codes by TMA where their rows (and the HC's first column) are
+# 16-byte aligned and sized (Ni % 4 == 0, Mj % 16 == 0): one or several
+# batch tiles, K not a multiple of the 32-deep slice, Mj below its column
+# tile (the box reads the next HC's codes, masked at staging); x by 4-byte
+# cp.async pieces where Ni % 4 != 0; the codes by 4-byte pieces or plain
+# loads where Mj % 16 != 0 (40: 4-byte words, 10: loads); Mj = 256 in two
+# column chunks.
+QUANT_ROUTES = [(128, 1568, 32, 128),
+                (1, 8, 1, 16),
+                (37, 1000, 3, 16),
+                (65, 260, 4, 32),
+                (130, 36, 2, 64),
+                (33, 1568, 5, 48),
+                (65, 257, 4, 32),
+                (37, 1000, 3, 10),
+                (16, 96, 8, 10),
+                (64, 257, 4, 40),
+                (40, 300, 2, 256)]
 
 
-@pytest.mark.parametrize("b,ni,hj,mj,body", QUANT_ROUTES)
-def test_quant_fwd_kernel_routes(gen, b, ni, hj, mj, body):
+@pytest.mark.parametrize("b,ni,hj,mj", QUANT_ROUTES)
+def test_quant_fwd_kernel_routes(gen, b, ni, hj, mj):
     from repro_torch.kernels.quant import quant_fwd_plan
     x = _rand(gen, b, ni) * 1.2 - 0.1
     w_q = _codes(gen, ni, hj * mj)
     bias, scale = _quant_operands(gen, hj, hj * mj)
-    taken, ks = quant_fwd_plan(x, w_q, hj, mj)
-    assert taken == body and (ks >= 1) == (body == "tensor cores")
+    rows, ks = quant_fwd_plan(x, w_q, hj, mj)
+    assert rows in (64, 128) and 1 <= ks <= 8
     got = ops.quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
     want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj, 1.25)
     assert (got - want).abs().max().item() <= QUANT_TOL
 
 
-def test_quant_fwd_kernel_routes_unaligned_operands_to_dp4a(gen):
-    """x or the codes off a 16-byte boundary take the __dp4a body, and both
-    bodies give the plain version's rates."""
-    from repro_torch.kernels.quant import quant_fwd_plan
+def test_quant_fwd_kernel_takes_unaligned_operands(gen):
+    """x or the codes off a 16-byte boundary take cp.async pieces in place
+    of TMA, in the same body, and give the plain version's rates."""
     b, ni, hj, mj = 16, 64, 2, 32
     x = _rand(gen, b, ni)
     w_q = _codes(gen, ni, hj * mj)
     bias, scale = _quant_operands(gen, hj, hj * mj)
-    w_off = _codes(gen, ni * hj * mj + 1)[1:].view(ni, hj * mj)
-    w_off.copy_(w_q)
-    x_off = _rand(gen, b * ni + 1)[1:].view(b, ni)
-    x_off.copy_(x)
-    assert quant_fwd_plan(x, w_q, hj, mj)[0] == "tensor cores"
-    assert quant_fwd_plan(x, w_off, hj, mj)[0] == "dp4a"
-    assert quant_fwd_plan(x_off, w_q, hj, mj)[0] == "dp4a"
+    w_off = _unaligned(w_q, 1)
+    x_off = _unaligned(x, 1)
     want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
-    for xx, ww in ((x, w_q), (x, w_off), (x_off, w_q)):
+    for xx, ww in ((x, w_q), (x, w_off), (x_off, w_q), (x_off, w_off)):
         got = ops.quant_fwd(xx, ww, bias, scale, hj, mj)
         assert (got - want).abs().max().item() <= QUANT_TOL
 
@@ -582,9 +582,9 @@ def test_quant_fwd_kernel_past_2_24(gen):
 
 
 def test_quant_fwd_kernel_equals_patchy_with_every_pre_hc_live(gen):
-    """The tensor-core body against the __dp4a patchy body on a full table
-    (nact = Hi): the same sums, so rates within QUANT_TOL and the same
-    argmax in every HC."""
+    """The dense layout (x and codes by TMA) against the patchy one (both
+    gathered by cp.async) on a full table (nact = Hi): the same sums, so
+    rates within QUANT_TOL and the same argmax in every HC."""
     b, hi, mi, hj, mj = 128, 784, 2, 32, 128
     ni, nj = hi * mi, hj * mj
     table = torch.arange(hi, device="cuda",
@@ -612,20 +612,136 @@ def test_quant_fwd_kernel_repeats_bit_for_bit(gen):
                for _ in range(10))
 
 
-@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
-def test_quant_patchy_and_compact_kernels(gen, b, hi, mi, hj, mj, nact):
+# PATCHY_SHAPES and the gathered int8 body's edges: K not a multiple of the
+# 32-deep slice, odd Mi (x in 4-byte pieces), Mi % 4 == 0 (16-byte pieces),
+# Mj of 10 (codes by plain loads), 48 (below its column tile) and 256 (two
+# column chunks), one row and two batch tiles, and x and the codes off a
+# 16-byte boundary.  (B, Hi, Mi, Hj, Mj, nact, x offset, w offset)
+QUANT_PATCHY_SHAPES = [s + (0, 0) for s in PATCHY_SHAPES] + [
+    (1, 50, 3, 4, 48, 11, 0, 0),        # B = 1, K = 33, Mj = 48
+    (130, 40, 2, 3, 10, 13, 0, 0),      # two tiles, K = 26, Mj = 10
+    (37, 30, 4, 2, 256, 9, 0, 0),       # x 16 B, K = 36, two chunks
+    (20, 25, 5, 3, 16, 7, 0, 0),        # Mi = 5, K = 35
+    (20, 25, 2, 3, 16, 7, 1, 1),        # unaligned x and codes
+    (128, 784, 2, 32, 128, 128, 1, 3)]  # Model 1-struct, unaligned
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact,xo,wo", QUANT_PATCHY_SHAPES)
+def test_quant_patchy_and_compact_kernels(gen, b, hi, mi, hj, mj, nact, xo,
+                                          wo):
     ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
-    x = _rand(gen, b, ni) * 1.2 - 0.1
+    x = _unaligned(_rand(gen, b, ni) * 1.2 - 0.1, xo)
     bias, scale = _quant_operands(gen, hj, nj)
-    w_q = _codes(gen, ni, nj)
+    w_q = _unaligned(_codes(gen, ni, nj), wo)
     got = ops.quant_patchy_forward(x, w_q, bias, scale, table, mi, hj, mj,
                                    1.25)
     want = ref.ref_quant_patchy_forward(x, w_q, bias, scale, table, mi, hj,
                                         mj, 1.25)
     assert (got - want).abs().max().item() <= QUANT_TOL
-    w_c = _codes(gen, hj, nact * mi, mj)
+    w_c = _unaligned(_codes(gen, hj, nact * mi, mj), wo)
     got = ops.quant_compact_forward(x, w_c, bias, scale, table, mi, 1.25)
     want = ref.ref_quant_compact_forward(x, w_c, bias, scale, table, mi, 1.25)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+
+
+def _quant_gathered(gen, b, hi, mi, hj, mj, nact):
+    """Both gathered int8 forwards on one set of operands (calls taking
+    the keyword ``cluster``), and their plain versions' rates."""
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni) * 1.2 - 0.1
+    bias, scale = _quant_operands(gen, hj, nj)
+    w_q, w_c = _codes(gen, ni, nj), _codes(gen, hj, nact * mi, mj)
+    return (
+        lambda **kw: ops.quant_patchy_forward(x, w_q, bias, scale, table, mi,
+                                              hj, mj, 1.25, **kw),
+        lambda **kw: ops.quant_compact_forward(x, w_c, bias, scale, table,
+                                               mi, 1.25, **kw),
+        ref.ref_quant_patchy_forward(x, w_q, bias, scale, table, mi, hj, mj,
+                                     1.25),
+        ref.ref_quant_compact_forward(x, w_c, bias, scale, table, mi, 1.25))
+
+
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", [(128, 784, 2, 32, 128, 128),
+                                                (37, 13, 3, 3, 10, 4)])
+def test_quant_gathered_kernels_repeat_bit_for_bit(gen, b, hi, mi, hj, mj,
+                                                   nact):
+    """Integer partial sums are exact in any order: ten launches of each
+    gathered forward give the same rates bit for bit."""
+    patchy, compact, _, _ = _quant_gathered(gen, b, hi, mi, hj, mj, nact)
+    for call in (patchy, compact):
+        first = call()
+        assert all(torch.equal(call(), first) for _ in range(10))
+
+
+@pytest.mark.parametrize("layout", ["dense", "patchy", "compact"])
+def test_quant_kernels_same_rates_under_every_plan(gen, layout):
+    """Model 1-struct's table (Model 1's shape, dense) with the plan forced
+    to tiles of 64 and 128 rows and clusters of 1 to 4 blocks: the int32
+    partials sum exactly, so the rates are the same bit for bit under every
+    plan (the launcher's own included), and within QUANT_TOL of the plain
+    version."""
+    patchy, compact, want_p, want_c = _quant_gathered(gen, 128, 784, 2, 32,
+                                                      128, 128)
+    if layout == "dense":
+        x = _rand(gen, 128, 1568)
+        w_q = _codes(gen, 1568, 4096)
+        bias, scale = _quant_operands(gen, 32, 4096)
+
+        def call(**kw):
+            return ops.quant_fwd(x, w_q, bias, scale, 32, 128, 1.25, **kw)
+        want = ref.ref_quant_fwd(x, w_q, bias, scale, 32, 128, 1.25)
+    else:
+        call, want = (patchy, want_p) if layout == "patchy" else \
+            (compact, want_c)
+    first = call()
+    assert (first - want).abs().max().item() <= QUANT_TOL
+    for rows in (64, 128):
+        for ks in (1, 2, 3, 4):
+            assert torch.equal(call(rows=rows, cluster=ks), first)
+
+
+def test_quant_gathered_kernels_at_a_long_contraction(gen):
+    """K = 70000 gathered terms (within MAX_EXACT_K): a 128-row tile's
+    units would not fit in shared memory beside its ring at any cluster
+    size, so the plan takes 64-row tiles, and both forwards give the plain
+    version's rates."""
+    from repro_torch.kernels.quant import quant_fwd_plan
+    b, hi, mi, hj, mj, nact = 2, 35000, 2, 1, 16, 35000
+    patchy, compact, want_p, want_c = _quant_gathered(gen, b, hi, mi, hj,
+                                                      mj, nact)
+    x, w_q = _rand(gen, b, hi * mi), _codes(gen, hi * mi, hj * mj)
+    table = torch.arange(hi, device="cuda", dtype=torch.int32)[None]
+    assert quant_fwd_plan(x, w_q, hj, mj, table, mi)[0] == 64
+    assert (patchy() - want_p).abs().max().item() <= QUANT_TOL
+    assert (compact() - want_c).abs().max().item() <= QUANT_TOL
+
+
+@pytest.mark.parametrize("layout", ["dense", "patchy", "compact"])
+def test_quant_kernels_read_nan_x_as_code_0(gen, layout):
+    """A NaN rate saturates to code 0 in the kernels (__saturatef), so the
+    rates equal the plain version's with that rate set to 0."""
+    b, hi, mi, hj, mj, nact = 37, 13, 3, 3, 16, 4
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    x = _rand(gen, b, ni)
+    bias, scale = _quant_operands(gen, hj, nj)
+    w_q = _codes(gen, hj, nact * mi, mj) if layout == "compact" else \
+        _codes(gen, ni, nj)
+    live = int(table[0, 0]) * mi
+    xn, x0 = x.clone(), x.clone()
+    xn[::3, live] = _canonical_nan()
+    x0[::3, live] = 0.0
+    if layout == "dense":
+        got = ops.quant_fwd(xn, w_q, bias, scale, hj, mj)
+        want = ref.ref_quant_fwd(x0, w_q, bias, scale, hj, mj)
+    elif layout == "patchy":
+        got = ops.quant_patchy_forward(xn, w_q, bias, scale, table, mi, hj,
+                                       mj)
+        want = ref.ref_quant_patchy_forward(x0, w_q, bias, scale, table, mi,
+                                            hj, mj)
+    else:
+        got = ops.quant_compact_forward(xn, w_q, bias, scale, table, mi)
+        want = ref.ref_quant_compact_forward(x0, w_q, bias, scale, table, mi)
+    assert bool(torch.isfinite(got).all())
     assert (got - want).abs().max().item() <= QUANT_TOL
 
 
@@ -811,6 +927,9 @@ def test_quant_launches_counted_and_bad_operands_refused(gen):
         lambda: ops.quant_compact_forward(x, w_q, bias, scale, table, 2),
         lambda: ops.quant_compact_forward(x, _codes(gen, 5, 9, 10), bias,
                                           scale, table, 2),
+        lambda: ops.quant_fwd(x, w_q, bias, scale, 5, 10, cluster=9),
+        lambda: ops.quant_patchy_forward(x, w_q, bias, scale, table, 2, 5, 10,
+                                         cluster=-1),
         lambda: ops.bcpnn_fwd(x, w_q, bias, 5, 10),                 # int8 w
         lambda: ops.bcpnn_fwd(x, w_q.to(torch.bfloat16), bias, 5, 10),
     ]

@@ -206,8 +206,9 @@ def test_quant_fwd_plain_matches_jax_kernel(b, ni, hj, mj):
 
 
 # The dense kernel's edge shapes: one row, one either side of a 64-row
-# multiple, contractions either side of a 32-deep slice, the __dp4a body's
-# HC width (Mj = 10) and the tensor-core body's smallest (Mj = 16).
+# multiple, contractions either side of a 32-deep slice, an HC width whose
+# codes are not whole 16-byte runs (Mj = 10) and the smallest column tile
+# (Mj = 16).
 @pytest.mark.parametrize("mj", [10, 16])
 @pytest.mark.parametrize("ni", [31, 33])
 @pytest.mark.parametrize("b", [1, 63, 65])
@@ -303,6 +304,37 @@ def test_quant_patchy_and_compact_plain_match_jax_kernels(b, hi, mi, hj, mj,
     want = jq.quant_patchy_forward(jnp.asarray(x), jnp.asarray(w_q),
                                    *args[2:], mi, hj, mj, 1.25,
                                    interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL,
+                               rtol=0)
+
+
+# The gathered kernels' edge shapes: one row, one either side of a 64-row
+# multiple, an odd Mi (K = nact * 3 = 33, not a multiple of the 32-deep
+# slice) and the HC widths 10 and 16, as for the dense kernel above.
+@pytest.mark.parametrize("mj", [10, 16])
+@pytest.mark.parametrize("b", [1, 63, 65])
+def test_quant_patchy_and_compact_plain_match_jax_kernels_at_edge_shapes(b,
+                                                                         mj):
+    rng = np.random.default_rng(100 * b + mj)
+    hi, mi, hj, nact = 17, 3, 3, 11
+    ni, k = hi * mi, nact * mi
+    x = rng.uniform(-0.1, 1.1, (b, ni)).astype(np.float32)
+    table = _table(rng, hi, hj, nact)
+    w_q = rng.integers(-127, 128, (ni, hj * mj)).astype(np.int8)
+    w_c = rng.integers(-127, 128, (hj, k, mj)).astype(np.int8)
+    bias = rng.standard_normal(hj * mj).astype(np.float32)
+    scale = _scales(rng, hj, k)
+    args = (jnp.asarray(bias), jnp.asarray(scale), jnp.asarray(table))
+    got = tops.quant_compact_forward(_t(x), _t(w_c), _t(bias), _t(scale),
+                                     _t(table), mi, 1.25)
+    want = jq.quant_compact_forward(jnp.asarray(x), jnp.asarray(w_c), *args,
+                                    mi, 1.25, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL,
+                               rtol=0)
+    got = tops.quant_patchy_forward(_t(x), _t(w_q), _t(bias), _t(scale),
+                                    _t(table), mi, hj, mj, 1.25)
+    want = jq.quant_patchy_forward(jnp.asarray(x), jnp.asarray(w_q), *args,
+                                   mi, hj, mj, 1.25, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL,
                                rtol=0)
 

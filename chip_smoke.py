@@ -40,7 +40,11 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
      32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
      supervised pass over 16384 synthetic images, then ``evaluate`` on
-     train and test, with every kernel's launch count over that run; then
+     train and test, with every kernel's launch count over that run (as
+     predicted); the fit's epoch programs replay captured steps, and the
+     eager loop of the same step functions from the same seed must end in
+     the same state bit for bit, with ``unsup_s``/``sup_s`` of both and
+     ``evaluate`` (``eval_batches``) equal to the eager accuracy; then
      a fit whose data does not divide the batch (1000 images: 7 whole
      batches and a 104-row tail), which must launch the update kernel on
      every step, the masked tail's too, and whose masked steps must match
@@ -54,11 +58,13 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      (784x2 -> 32x128 -> 10, nact 128, a rewire every 64 steps) in its
      three plasticity layouts: (c) compact-resident, (b) patchy-held,
      (a) the paper's default (patchy forward, dense masked update).  Each
-     fits as phase 2 does, with its launch counts checked against the
+     fits as phase 2 does (graphed against the eager loop, bit for bit,
+     masks and tables equal), with its launch counts checked against the
      prediction, its masks exactly-nact and valid after 10 rewires, and
      (c) held to the JAX reference's test accuracy.  Then 70 unsupervised
      steps across a rewire, a readout step and an online fold with the
-     card forbidden to synchronise; a (c) fit with a padded tail; single
+     card forbidden to synchronise, eagerly and as replays of the captured
+     steps (and an eval batch); a (c) fit with a padded tail; single
      steps from one state, kernels against the plain backend (a masked
      unsupervised step, and an online fold from trace clock 63 that
      crosses a rewire); and (c)'s hidden rates against fp64.
@@ -73,8 +79,12 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      unsupervised step, the readout step and the evaluation batch, dense
      and (c), of (b)'s unsupervised step and evaluation batch, of the
      int8 and bf16 evaluation and served batches of Model 1 and (c), and
-     of (b)'s int8 served batch:
-     wall time per step untraced, then device-busy time per step from
+     of (b)'s int8 served batch, all eager; and of the unsupervised step,
+     readout step and evaluation batch of Model 1, (b) and (c) as the
+     epoch programs run them (a replay of the captured step, with the
+     host's share between replays):
+     wall time per step untraced (the median of 5 windows of 20 steps),
+     then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
      kernels that take the most device time.
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
@@ -783,13 +793,117 @@ def phase2(torch):
     print(f"[phase2] accuracy train {acc_train:.4f} test {acc_test:.4f}; "
           f"launches {json.dumps(launches)}", flush=True)
     check(acc_test > 0.85, f"Model-1 test accuracy {acc_test:.4f} <= 0.85")
-    for name, n in launches.items():
-        if name in ("bcpnn_fwd", "bcpnn_update", "hc_softmax"):
-            check(n > 0, f"kernel {name} was never launched by the main path")
-        else:
-            check(n == 0, f"the dense fit launched {name} {n} times")
+    want = {name: MODEL1_LAUNCHES.get(name, 0) for name in launches}
+    check(launches == want, f"the Model-1 fit and evaluation launched "
+                            f"{launches}, predicted {want}")
+    graphed_vs_eager(torch, "[phase2] Model 1", tr, stats, MODEL1_MNIST,
+                     xtr, ytr, xte, yte)
     tail_fit(torch, xtr, ytr)
     return tr, (xtr, ytr, xte, yte), launches
+
+
+# Launches of the Model-1 fit (5 epochs of 128 steps, the readout pass of
+# 128) and its evaluation (128 + 16 batches); unnamed kernels: 0.
+MODEL1_LAUNCHES = {"bcpnn_fwd": 272, "bcpnn_update": 768, "hc_softmax": 784}
+
+
+def eager_fit(torch, cfg, xtr, ytr, epochs=5, batch=128, seed=0):
+    """The fit as the loop of functional (not donated) steps that
+    ``Trainer.fit``'s epoch programs replay, from the same seed: whole
+    batches the plain step, a padded tail the masked one.  Returns the
+    state, ``unsup_s`` and ``sup_s`` (host clock, ending in a
+    synchronize)."""
+    import numpy as np
+    from repro_torch.core import Trainer
+    from repro_torch.core.bcpnn_layer import forward
+    from repro_torch.core.network import (supervised_readout_step,
+                                          train_projection_step)
+    from repro_torch.core.trainer import _batchify_padded
+    tr = Trainer(cfg, seed=seed, device="cuda")
+    spec, st = tr.spec, tr.state
+    xs_np, valid_np = _batchify_padded(np.asarray(xtr, np.float32), batch)
+    ys_np, _ = _batchify_padded(np.asarray(ytr, np.int32), batch)
+    xs, ys, valid = (torch.from_numpy(a).cuda()
+                     for a in (xs_np, ys_np, valid_np))
+    nb = xs.shape[0]
+    tail = nb - 1 if valid_np.min() < 1 else -1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = xs
+    for layer in range(spec.depth):
+        for _ in range(epochs):
+            for b in range(nb):
+                st = train_projection_step(
+                    st, spec, cur[b], layer,
+                    valid=valid[b] if b == tail else None)
+        if layer + 1 < spec.depth:
+            cur = torch.stack([forward(st.projs[layer], spec.projs[layer], h)
+                               for h in cur])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for b in range(nb):
+        st = supervised_readout_step(st, spec, xs[b], ys[b],
+                                     valid=valid[b] if b == tail else None)
+    torch.cuda.synchronize()
+    return st, t1 - t0, time.perf_counter() - t1
+
+
+def eager_accuracy(torch, state, spec, x, y, batch=128) -> float:
+    """``evaluate``'s accuracy from eager functional ``infer`` calls,
+    accumulated as the eval program accumulates it."""
+    from repro_torch.core.network import infer
+    from repro_torch.core.trainer import _eval_data
+    xs, ys, valid = _eval_data(x, y, batch, state.device)
+    correct = torch.zeros((), dtype=torch.float32, device=state.device)
+    total = torch.zeros_like(correct)
+    for b in range(xs.shape[0]):
+        _, pred = infer(state, spec, xs[b], valid=valid[b])
+        correct.add_(((pred == ys[b]).to(torch.float32) * valid[b]).sum())
+        total.add_(valid[b].sum())
+    return float(correct / torch.clamp_min(total, 1.0))
+
+
+def state_identity(torch, a, b):
+    """(largest absolute difference over every tensor of two states, the
+    number of tensors, whether every mask, table and clock mirror is
+    equal)."""
+    from repro_torch.core.graphs import state_tensors
+    ta, tb = state_tensors(a), state_tensors(b)
+    worst = max((x.double() - y.double()).abs().max().item()
+                for x, y in zip(ta, tb))
+    same = len(ta) == len(tb) and all(
+        torch.equal(p.mask, q.mask)
+        and (p.table is None) == (q.table is None)
+        and (p.table is None or torch.equal(p.table, q.table))
+        and p.traces.t_host == q.traces.t_host
+        for p, q in zip(a.projs + (a.readout,), b.projs + (b.readout,)))
+    return worst, len(ta), same
+
+
+def graphed_vs_eager(torch, label, tr, stats, cfg, xtr, ytr, xte, yte):
+    """A graphed fit (``tr``, fitted by ``Trainer.fit``) against the eager
+    loop of the same steps from the same seed: the same state bit for bit,
+    masks and tables equal, and ``evaluate`` through ``eval_batches``
+    equal to the eager accuracy.  Launches here are no fit's: the counts
+    are left as they were."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    state, unsup_s, sup_s = eager_fit(torch, cfg, xtr, ytr)
+    worst, n, same = state_identity(torch, tr.state, state)
+    acc_g = tr.evaluate(xte, yte)
+    acc_e = eager_accuracy(torch, state, tr.spec, xte, yte)
+    ops.set_launch_counts(counts)
+    print(f"{label} graphed vs eager fit: unsup_s {stats['unsup_s']:.4f} "
+          f"vs {unsup_s:.4f}, sup_s {stats['sup_s']:.4f} vs {sup_s:.4f}; "
+          f"state max abs diff {worst:.3e} over {n} arrays, masks, tables "
+          f"and clocks {'equal' if same else 'DIFFER'}; test accuracy "
+          f"through eval_batches {acc_g:.6f}, eager {acc_e:.6f}",
+          flush=True)
+    check(worst == 0 and same, f"{label}: the graphed fit parts from the "
+                               f"eager loop (max abs diff {worst:.3e}, "
+                               f"masks and tables equal: {same})")
+    check(acc_g == acc_e, f"{label}: evaluate gives {acc_g}, the eager "
+                          f"loop {acc_e}")
 
 
 def state_diff(a, b) -> float:
@@ -956,15 +1070,21 @@ STRUCT_LAUNCHES = {
 }
 
 
+# Rewires in one fit: 640 unsupervised steps, one every 64.
+STRUCT_REWIRES = 10
+
+
 def struct_cfg(variant):
     import dataclasses
     from repro_torch.configs.bcpnn_models import MODEL1_MNIST_STRUCT
     return dataclasses.replace(MODEL1_MNIST_STRUCT, **STRUCT_VARIANTS[variant])
 
 
-def check_masks(tr, mask0, variant):
+def check_masks(tr, mask0, version0, variant):
     """Exactly nact live pre-HCs per post-HC, a state that passes the
-    deployment guard, and evidence that the rewires ran."""
+    deployment guard, and evidence that the rewires ran: the fit's epoch
+    programs donate the state, so each rewire writes its mask into the
+    one mask tensor, whose version counter counts the writes."""
     from repro_torch.core.bcpnn_layer import validate_patchy_state
     proj, pspec = tr.state.projs[0], tr.spec.projs[0]
     per_col = proj.mask.sum(dim=0)
@@ -975,7 +1095,10 @@ def check_masks(tr, mask0, variant):
     moved = int((proj.mask != mask0).sum().item()) // 2
     check(proj.traces.t_host == int(proj.traces.t.item()),
           f"({variant}) host clock {proj.traces.t_host} != device clock")
-    check(proj.mask is not mask0, f"({variant}) the mask was never rewired")
+    rewires = proj.mask._version - version0
+    check(rewires == STRUCT_REWIRES, f"({variant}) the mask was written by "
+                                     f"{rewires} rewires, not "
+                                     f"{STRUCT_REWIRES}")
     if variant != "c":
         check(moved > 0, f"({variant}) 10 rewires moved no pre-HC")
     return moved
@@ -991,14 +1114,15 @@ def struct_fits(torch, xtr, ytr, xte, yte):
         ops.reset_launch_counts()
         t = time.perf_counter()
         tr = Trainer(struct_cfg(variant), seed=0, device="cuda")
-        mask0 = tr.state.projs[0].mask
+        mask0 = tr.state.projs[0].mask.clone()
+        version0 = tr.state.projs[0].mask._version
         stats = tr.fit(xtr, ytr, epochs=5, batch=128)
         t_fit = time.perf_counter() - t
         acc_train = tr.evaluate(xtr, ytr)
         acc_test = tr.evaluate(xte, yte)
         torch.cuda.synchronize()
         got = ops.launch_counts()
-        moved = check_masks(tr, mask0, variant)
+        moved = check_masks(tr, mask0, version0, variant)
         print(f"[phase5] ({variant}) Model 1-struct fit: unsup_s "
               f"{stats['unsup_s']:.4f}  sup_s {stats['sup_s']:.4f}  "
               f"train_ms_per_img {stats['train_ms_per_img']:.6f}  (fit "
@@ -1007,6 +1131,8 @@ def struct_fits(torch, xtr, ytr, xte, yte):
               f"{json.dumps(got)}", flush=True)
         want = {name: STRUCT_LAUNCHES[variant].get(name, 0) for name in got}
         check(got == want, f"({variant}) launches {got}, predicted {want}")
+        graphed_vs_eager(torch, f"[phase5] ({variant})", tr, stats,
+                         struct_cfg(variant), xtr, ytr, xte, yte)
         fitted[variant], launches[variant] = tr, got
     floor = JAX_REFERENCE_TEST_ACC - ACC_SLACK
     acc_c = fitted["c"].evaluate(xte, yte)
@@ -1041,6 +1167,39 @@ def no_sync_steps(torch, variant, xtr, ytr):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     check(state.projs[0].traces.t_host == 72, f"({variant}) clock mirror off")
+
+
+def no_sync_replays(torch, variant, xtr, ytr):
+    """The epoch programs' captured steps, captured on a fresh state at
+    their first batch, then replayed with any implicit device
+    synchronisation an error: 69 unsupervised steps across the rewire at
+    clock 64, two readout steps and two eval batches."""
+    from repro_torch.core import Trainer
+    fresh = Trainer(struct_cfg(variant), seed=1, device="cuda")
+    n = 70
+    xs = torch.from_numpy(xtr[:128 * n]).cuda().view(n, 128, -1)
+    ys = torch.from_numpy(ytr[:128 * n]).cuda().view(n, 128)
+    valid = torch.ones((2, 128), device="cuda")
+    unsup, sup, ev = fresh._unsup_fn(0, False), fresh._sup_fn(False), \
+        fresh._eval_fn()
+    fresh.state = unsup(fresh.state, xs[:1])
+    fresh.state = sup(fresh.state, xs[:1], ys[:1])
+    ev(fresh.state, xs[:1], ys[:1], valid[:1])
+    mask = fresh.state.projs[0].mask.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fresh.state = unsup(fresh.state, xs[1:])
+        fresh.state = sup(fresh.state, xs[:2], ys[:2])
+        acc = ev(fresh.state, xs[:2], ys[:2], valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    proj = fresh.state.projs[0]
+    check(proj.traces.t_host == n == int(proj.traces.t.item()),
+          f"({variant}) clock mirror {proj.traces.t_host} after {n} steps")
+    check(0.0 <= float(acc) <= 1.0, f"({variant}) eval replay gave {acc}")
+    return int((proj.mask != mask).sum().item()) // 2
 
 
 def struct_tail_fit(torch, xtr, ytr):
@@ -1166,11 +1325,17 @@ def struct_served_rates(torch, tr, xte):
 
 def phase5(torch, xtr, ytr, xte, yte):
     fitted, launches = struct_fits(torch, xtr, ytr, xte, yte)
+    moved = {}
     for variant in STRUCT_VARIANTS:
         no_sync_steps(torch, variant, xtr, ytr)
+        moved[variant] = no_sync_replays(torch, variant, xtr, ytr)
     print("[phase5] (c), (b), (a): 70 steps across a rewire, a masked "
           "step, a readout step and an online fold each ran with no device "
-          "synchronisation", flush=True)
+          "synchronisation; so did 69 replayed unsupervised steps across "
+          "the rewire at clock 64 (pre-HCs it moved: "
+          + ", ".join(f"({v}) {m}" for v, m in moved.items())
+          + "), two replayed readout steps and two eval batches",
+          flush=True)
     struct_tail_fit(torch, xtr, ytr)
     struct_single_steps(torch, fitted, xtr, ytr)
     struct_served_rates(torch, fitted["c"], xte)
@@ -1348,6 +1513,12 @@ def phase7():
 
 # --------------------------------------------------------------- phase 4 --
 
+# Phase 4 times a step's untraced wall in this many windows of 20 steps
+# and keeps the median: the host is shared, and one window's wall has
+# parted from another's by up to 2x.
+WALL_WINDOWS = 5
+
+
 def phase4(torch, tr, tr_b, tr_c, xte, yte):
     """Time, then trace, 20 steps of each main-path step type on the
     fitted dense Model-1 state, of (b)'s unsupervised step (one
@@ -1358,8 +1529,12 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
     the eval batch in int8 and bf16 (``infer``, which packs the state on
     every call) and the served batch (``infer_packed`` on a pack made
     once), and (b)'s int8 served batch (one ``quant_patchy_forward``).
-    The trace slows the host, so the idle share divides the traced
-    device-busy time by the untraced wall time."""
+    Last, for Model 1, (b) and (c): the eval program's step run eagerly
+    (``eager_eval_step``), then the unsupervised step, readout step and
+    eval batch as the epoch programs run them (``graphed_steps``, on
+    copies of the fitted states).  The trace slows the host, so the idle
+    share divides the traced device-busy time by the untraced wall time
+    (the median of ``WALL_WINDOWS`` windows)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.network import (infer, infer_packed, pack_state,
                                           supervised_readout_step,
@@ -1394,16 +1569,24 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
     params_b8 = pack_state(state_b, spec_b8)
     steps["(b) int8 served_batch"] = lambda: infer_packed(params_b8, spec_b8,
                                                           x)
+    for label, st, sp in (("", state, spec), ("(b) ", state_b, spec_b),
+                          ("(c) ", state_c, spec_c)):
+        steps[f"{label}eval_step"] = eager_eval_step(torch, st, sp, x, y)
+        for name, fn in graphed_steps(torch, st, sp, x, y).items():
+            steps[f"{label}graphed {name}"] = fn
     n = 20
     for name, fn in steps.items():
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6 / n
+        walls = []
+        for _ in range(WALL_WINDOWS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e6 / n)
+        wall_us = statistics.median(walls)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
@@ -1421,6 +1604,61 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
               f"{sum(e.count for e in kernels) / n:.1f} kernels/step; top: "
               + "; ".join(f"{e.key[:40]} {e.self_device_time_total / n:.1f}"
                           f" us" for e in top), flush=True)
+
+
+def clone_state(state):
+    """A copy of a state with every tensor and the generator its own."""
+    import dataclasses
+    from repro_torch.core.graphs import scratch_clone
+    st = scratch_clone(state)
+    return dataclasses.replace(st, projs=tuple(
+        dataclasses.replace(p, mask=p.mask.clone(),
+                            table=None if p.table is None else p.table.clone())
+        for p in st.projs))
+
+
+def eager_eval_step(torch, state, spec, x, y):
+    """The eval program's step run eagerly: ``infer`` under a validity
+    mask, its correct and genuine rows added into two accumulators (more
+    work than the ``eval_batch`` row's bare ``infer``)."""
+    from repro_torch.core.network import infer
+    valid = torch.ones(x.shape[0], device=x.device)
+    correct = torch.zeros((), device=x.device)
+    total = torch.zeros_like(correct)
+
+    def step():
+        _, pred = infer(state, spec, x, valid=valid)
+        correct.add_(((pred == y).to(torch.float32) * valid).sum())
+        total.add_(valid.sum())
+
+    return step
+
+
+def graphed_steps(torch, state, spec, x, y):
+    """One step each of the unsupervised step, the readout step and the
+    eval batch as the epoch programs run them: the input copy and the
+    replay of the captured step, then the host's share (the clock mirror's
+    tick and the rewire check).  They step a copy of ``state``; each is
+    captured here, by its first call."""
+    from repro_torch.core import trainer as T
+    from repro_torch.core.network import rewire_layer
+    box = [clone_state(state)]
+    unsup = T._projection_program(spec, 0, frozen=False, noise=False)
+    readout = T._readout_program(spec)
+    ev = T._EvalProgram(spec)
+    valid = torch.ones(x.shape[0], device=x.device)
+
+    def unsup_step():
+        unsup(box[0], x)
+        box[0] = rewire_layer(T._tick(box[0], 0), spec, 0, donate=True)
+
+    def readout_step():
+        readout(box[0], x, y)
+        box[0] = T._tick(box[0], None)
+
+    ev(box[0], x[None], y[None], valid[None])  # allocates and captures
+    return {"unsup_step": unsup_step, "readout_step": readout_step,
+            "eval_batch": lambda: ev.steps(box[0], x, y, valid)}
 
 
 def main() -> int:

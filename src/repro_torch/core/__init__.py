@@ -1,5 +1,6 @@
 """BCPNN core — the port's counterpart of ``repro.core`` for the names
-ported so far (dense, patchy and compact layouts, single device)."""
+ported so far (dense, patchy and compact layouts, single device; the
+epoch programs as captured steps on the card, ``graphs.py``)."""
 from .hypercolumns import LayerGeom, encode_scalar_hcs, hc_hardmax, hc_softmax
 from .traces import (Traces, init_traces, mutual_information, update_traces,
                      weights_from_traces)
@@ -16,17 +17,24 @@ from .network import (
     DeepState,
     NetworkSpec,
     as_spec,
+    hidden_rates,
     infer,
     init_deep,
+    init_network,
     make_network_spec,
     online_learn_step,
     spec_from_dict,
     spec_to_dict,
     stack_rates,
     supervised_readout_step,
+    supervised_step,
     train_projection_step,
+    unsupervised_layer_step,
+    unsupervised_step,
 )
-from .trainer import Trainer, evaluate_padded
+from .trainer import (Trainer, eval_batches, evaluate_padded,
+                      supervised_epoch, unsupervised_epoch,
+                      unsupervised_layer_epoch)
 
 __all__ = [
     "LayerGeom", "encode_scalar_hcs", "hc_hardmax", "hc_softmax",
@@ -39,9 +47,11 @@ __all__ = [
     "build_table", "cached_table", "compact_network_spec",
     "compactify_projection", "compactify_state", "densify_pij",
     "densify_projection", "rewire_compact",
-    "BCPNNConfig", "DeepState", "NetworkSpec", "as_spec", "infer",
-    "init_deep", "make_network_spec", "online_learn_step", "spec_from_dict",
-    "spec_to_dict", "stack_rates", "supervised_readout_step",
-    "train_projection_step",
-    "Trainer", "evaluate_padded",
+    "BCPNNConfig", "DeepState", "NetworkSpec", "as_spec", "hidden_rates",
+    "infer", "init_deep", "init_network", "make_network_spec",
+    "online_learn_step", "spec_from_dict", "spec_to_dict", "stack_rates",
+    "supervised_readout_step", "supervised_step", "train_projection_step",
+    "unsupervised_layer_step", "unsupervised_step",
+    "Trainer", "eval_batches", "evaluate_padded", "supervised_epoch",
+    "unsupervised_epoch", "unsupervised_layer_epoch",
 ]

@@ -278,13 +278,38 @@ def normalize(support_vals: torch.Tensor, spec: ProjSpec) -> torch.Tensor:
 
 
 def learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
-          y: torch.Tensor) -> Projection:
-    """Plasticity stage: one streaming batch update of traces + weights."""
+          y: torch.Tensor, *, donate: bool = False) -> Projection:
+    """Plasticity stage: one streaming batch update of traces + weights.
+    ``donate=True`` writes the result over ``proj``'s own tensors (see
+    ``write_back``); by default ``proj`` is left as it was."""
     if spec.backend == "cuda":
-        return _kernel_ops().fused_learn(proj, spec, x, y)
+        return _kernel_ops().fused_learn(proj, spec, x, y, donate=donate)
     if is_compact(spec) and proj.table is not None:
-        return _compact_ops().learn_compact_torch(proj, spec, x, y)
-    return _learn_torch(proj, spec, x, y)
+        new = _compact_ops().learn_compact_torch(proj, spec, x, y)
+    else:
+        new = _learn_torch(proj, spec, x, y)
+    return write_back(proj, new) if donate else new
+
+
+def write_back(old: Projection, new: Projection) -> Projection:
+    """``new``'s values copied into ``old``'s tensors, returned as a
+    Projection of those tensors with ``new``'s host clock: a donated step
+    keeps every tensor of its state at its address, which a captured step
+    reads and writes.  The kernel path writes its results in place and
+    needs no copy; this serves the plain backend and the rewire."""
+    pairs = [(old.traces.pi, new.traces.pi), (old.traces.pj, new.traces.pj),
+             (old.traces.pij, new.traces.pij), (old.traces.t, new.traces.t),
+             (old.w, new.w), (old.b, new.b), (old.mask, new.mask)]
+    if old.table is not None:
+        pairs.append((old.table, new.table))
+    for dst, src in pairs:
+        if dst is not src:
+            dst.copy_(src)
+    return Projection(
+        traces=Traces(pi=old.traces.pi, pj=old.traces.pj,
+                      pij=old.traces.pij, t=old.traces.t,
+                      t_host=new.traces.t_host),
+        w=old.w, b=old.b, mask=old.mask, table=old.table)
 
 
 # ------------------------------------------- packed (serving) dispatch ----
@@ -388,37 +413,44 @@ def masked_inputs(x: torch.Tensor, y: torch.Tensor, valid: torch.Tensor):
 
 
 def learn_masked(proj: Projection, spec: ProjSpec, x: torch.Tensor,
-                 y: torch.Tensor, valid: torch.Tensor) -> Projection:
+                 y: torch.Tensor, valid: torch.Tensor, *,
+                 donate: bool = False) -> Projection:
     """Plasticity step over a zero-padded tail batch: batch stats divide
     by the number of GENUINE rows (``valid`` 0/1 per row), so pad slots are
     inert.  On ``"cuda"`` the update kernel takes the zeroed rows with that
     count, read on the device, as its divisor.  (The JAX package runs this
     step plain on both backends: its Pallas kernels bake in a static batch
-    divisor.)"""
+    divisor.)  ``donate`` as in ``learn``."""
     xv, yv, n = masked_inputs(x, y, valid)
     if spec.backend == "cuda":
-        return _kernel_ops().fused_learn(proj, spec, xv, yv, count=n)
+        return _kernel_ops().fused_learn(proj, spec, xv, yv, count=n,
+                                         donate=donate)
     xm = xv.sum(dim=0) / n
     ym = yv.sum(dim=0) / n
     if is_compact(spec) and proj.table is not None:
         c = _compact_ops()
         co_c = c.compact_co_stats(xv, yv, proj.table, spec.pre.M,
                                   spec.post.M, n_valid=n)
-        return c.apply_compact_stats(proj, spec, xm, ym, co_c)
-    co = (xv.T @ yv) / n
-    return apply_dense_stats(proj, spec, xm, ym, co)
+        new = c.apply_compact_stats(proj, spec, xm, ym, co_c)
+    else:
+        new = apply_dense_stats(proj, spec, xm, ym, (xv.T @ yv) / n)
+    return write_back(proj, new) if donate else new
 
 
 # ------------------------------------------------ structural plasticity ----
 
-def maybe_rewire(proj: Projection, spec: ProjSpec) -> Projection:
+def maybe_rewire(proj: Projection, spec: ProjSpec, *,
+                 donate: bool = False) -> Projection:
     """Rewire when the projection's trace clock is a ``struct_every``
     multiple, else pass through.  The decision reads the clock's host
     mirror (``Traces.t_host``), so it costs no read from the card.  The
-    one rewire entry of the unsupervised step and the online fold."""
+    one rewire entry of the unsupervised step and the online fold.
+    ``donate=True`` writes the new mask, weights, bias (and, compact, the
+    re-gathered pij and the table) over ``proj``'s own tensors."""
     if spec.struct_every <= 0 or proj.traces.t_host % spec.struct_every:
         return proj
-    return rewire(proj, spec)
+    new = rewire(proj, spec)
+    return write_back(proj, new) if donate else new
 
 
 def rewire(proj: Projection, spec: ProjSpec) -> Projection:

@@ -14,9 +14,13 @@ supervised readout learning, and inference.
 Every step function returns a NEW ``DeepState`` and leaves its input's
 tensors as they were; the one thing shared and advanced in place is the
 state's ``torch.Generator``, which every draw of exploration noise
-consumes.  Structural plasticity rides along after each stack learn
-(``maybe_rewire``): the rewire decision reads the host mirror of the
-trace clock, so no step reads the card back.
+consumes.  With ``donate=True`` (keyword only) a learning step instead
+writes its result over the input's tensors and returns a state of those
+same tensors, bit for bit what the functional step gives: the port's
+counterpart of the JAX epoch's ``donate_argnums``, and what a captured
+step (``core/graphs.py``) needs.  Structural plasticity rides along after
+each stack learn (``maybe_rewire``): the rewire decision reads the host
+mirror of the trace clock, so no step reads the card back.
 """
 from __future__ import annotations
 
@@ -220,24 +224,68 @@ def _noisy_rates(proj: Projection, pspec: ProjSpec, h: torch.Tensor,
     return normalize(s, pspec)
 
 
-def train_projection_step(state: DeepState, spec: NetworkSpec,
+def _with_proj(state: DeepState, layer: int, proj: Projection,
+               step: torch.Tensor) -> DeepState:
+    projs = state.projs[:layer] + (proj,) + state.projs[layer + 1:]
+    return DeepState(projs=projs, readout=state.readout, step=step,
+                     generator=state.generator)
+
+
+def _next_step(state: DeepState, donate: bool) -> torch.Tensor:
+    return state.step.add_(1) if donate else state.step + 1
+
+
+def learn_projection_step(state: DeepState, spec: NetworkSpec,
                           h: torch.Tensor, layer: int,
                           valid: Optional[torch.Tensor] = None,
-                          noise: Optional[torch.Tensor] = None) -> DeepState:
-    """Plasticity on stack projection ``layer`` given its DIRECT input
-    rates ``h`` (the frozen lower layers already applied).  ``valid``
-    (optional, (B,) 0/1) marks genuine rows of a zero-padded tail batch,
-    whose stats then divide by the real row count (``learn_masked``)."""
+                          noise: Optional[torch.Tensor] = None, *,
+                          donate: bool = False) -> DeepState:
+    """``train_projection_step`` without its rewire: the device's share of
+    the step, which a captured step replays (the rewire is decided on the
+    host clock, between replays: ``rewire_layer``)."""
     pspec = spec.projs[layer]
     y = _noisy_rates(state.projs[layer], pspec, h, state.generator, noise)
     if valid is None:
-        proj = learn(state.projs[layer], pspec, h, y)
+        proj = learn(state.projs[layer], pspec, h, y, donate=donate)
     else:
-        proj = learn_masked(state.projs[layer], pspec, h, y, valid)
-    proj = maybe_rewire(proj, pspec)
-    projs = state.projs[:layer] + (proj,) + state.projs[layer + 1:]
-    return DeepState(projs=projs, readout=state.readout,
-                     step=state.step + 1, generator=state.generator)
+        proj = learn_masked(state.projs[layer], pspec, h, y, valid,
+                            donate=donate)
+    return _with_proj(state, layer, proj, _next_step(state, donate))
+
+
+def rewire_layer(state: DeepState, spec: NetworkSpec, layer: int, *,
+                 donate: bool = False) -> DeepState:
+    """``maybe_rewire`` on stack projection ``layer``."""
+    proj = maybe_rewire(state.projs[layer], spec.projs[layer], donate=donate)
+    if proj is state.projs[layer]:
+        return state
+    return _with_proj(state, layer, proj, state.step)
+
+
+def train_projection_step(state: DeepState, spec: NetworkSpec,
+                          h: torch.Tensor, layer: int,
+                          valid: Optional[torch.Tensor] = None,
+                          noise: Optional[torch.Tensor] = None, *,
+                          donate: bool = False) -> DeepState:
+    """Plasticity on stack projection ``layer`` given its DIRECT input
+    rates ``h`` (the frozen lower layers already applied).  ``valid``
+    (optional, (B,) 0/1) marks genuine rows of a zero-padded tail batch,
+    whose stats then divide by the real row count (``learn_masked``).
+    ``noise`` (optional, (B, Nj)) replaces the draw from the generator."""
+    state = learn_projection_step(state, spec, h, layer, valid, noise,
+                                  donate=donate)
+    return rewire_layer(state, spec, layer, donate=donate)
+
+
+def unsupervised_layer_step(state: DeepState, spec: NetworkSpec,
+                            x: torch.Tensor, layer: int, *,
+                            noise: Optional[torch.Tensor] = None,
+                            donate: bool = False) -> DeepState:
+    """One streaming batch of unsupervised learning on stack projection
+    ``layer`` (projections below it are frozen feature extractors)."""
+    h = stack_rates(state, spec, x, depth=layer)
+    return train_projection_step(state, spec, h, layer, noise=noise,
+                                 donate=donate)
 
 
 def _one_hot(labels: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -249,18 +297,20 @@ def _one_hot(labels: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
 
 def supervised_readout_step(state: DeepState, spec: NetworkSpec,
                             x: torch.Tensor, labels: torch.Tensor,
-                            valid: Optional[torch.Tensor] = None
-                            ) -> DeepState:
+                            valid: Optional[torch.Tensor] = None, *,
+                            donate: bool = False) -> DeepState:
     """One streaming batch of the supervised readout (labels: (B,) int).
     The stack is frozen; only the readout projection learns."""
     h = stack_rates(state, spec, x)
     y = _one_hot(labels, spec.n_classes, h)
     if valid is None:
-        ro = learn(state.readout, spec.readout, h, y)
+        ro = learn(state.readout, spec.readout, h, y, donate=donate)
     else:
-        ro = learn_masked(state.readout, spec.readout, h, y, valid)
+        ro = learn_masked(state.readout, spec.readout, h, y, valid,
+                          donate=donate)
     return DeepState(projs=state.projs, readout=ro,
-                     step=state.step + 1, generator=state.generator)
+                     step=_next_step(state, donate),
+                     generator=state.generator)
 
 
 def online_learn_step(state: DeepState, spec: NetworkSpec, x: torch.Tensor,
@@ -424,6 +474,37 @@ def as_spec(spec_or_cfg) -> NetworkSpec:
     if isinstance(spec_or_cfg, NetworkSpec):
         return spec_or_cfg
     return spec_or_cfg.network_spec()
+
+
+# ------------------------------------------------- depth-1 helpers ----
+
+def init_network(spec_or_cfg, seed: int = 0,
+                 device: DeviceLike = None) -> DeepState:
+    """``init_deep`` from a BCPNNConfig or a NetworkSpec."""
+    return init_deep(as_spec(spec_or_cfg), seed, device)
+
+
+def hidden_rates(state: DeepState, spec_or_cfg,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The deterministic rates of the last hidden population."""
+    return stack_rates(state, as_spec(spec_or_cfg), x)
+
+
+def unsupervised_step(state: DeepState, spec_or_cfg, x: torch.Tensor,
+                      layer: int = 0, *,
+                      noise: Optional[torch.Tensor] = None,
+                      donate: bool = False) -> DeepState:
+    """One streaming batch of unsupervised representation learning."""
+    return unsupervised_layer_step(state, as_spec(spec_or_cfg), x, layer,
+                                   noise=noise, donate=donate)
+
+
+def supervised_step(state: DeepState, spec_or_cfg, x: torch.Tensor,
+                    labels: torch.Tensor, *,
+                    donate: bool = False) -> DeepState:
+    """One streaming batch of the supervised readout (labels: (B,) int)."""
+    return supervised_readout_step(state, as_spec(spec_or_cfg), x, labels,
+                                   donate=donate)
 
 
 # ------------------------------------------------- spec (de)serialization --

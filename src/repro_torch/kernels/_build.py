@@ -172,6 +172,33 @@ def require_current_device(t: torch.Tensor) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
+def _span(t: torch.Tensor):
+    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1
+
+
+def require_outputs(out, pij: torch.Tensor, device: torch.device):
+    """The (pij', w) destinations of an update kernel: fresh tensors when
+    ``out`` is None, else the caller's pair, each float32, contiguous and
+    of pij's shape on ``device``.  pij' may be pij itself (in place) but no
+    other view of its memory; w shares memory with neither.  Raises
+    ``ValueError`` on anything else."""
+    if out is None:
+        return torch.empty_like(pij), torch.empty_like(pij)
+    pij_out, w_out = out
+    for t, name in ((pij_out, "pij_out"), (w_out, "w_out")):
+        require(t, name, tuple(pij.shape), device)
+    if _overlap(pij_out, pij) and pij_out.data_ptr() != pij.data_ptr():
+        raise ValueError("pij_out overlaps pij without being pij itself")
+    if _overlap(w_out, pij) or _overlap(w_out, pij_out):
+        raise ValueError("w_out shares memory with pij or pij_out")
+    return pij_out, w_out
+
+
 def weight_dtype(w: torch.Tensor) -> torch.dtype:
     """The element type of a forward kernel's weights and bias: float32, or
     the bfloat16 of a bf16 serving pack.  Raises on anything else."""

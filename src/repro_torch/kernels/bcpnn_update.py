@@ -18,9 +18,12 @@ accuracy, never a single TF32 pass) over batch slices staged with
 host sync), and the (Hi, Hj) hypercolumn mask is indexed in the kernel
 instead of streaming an expanded (Ni, Nj) unit mask.  A zero-padded tail
 batch passes ``count``, its genuine row count as a 0-d device tensor,
-which the kernel divides by instead of B.  Outputs are fresh tensors: the
-old trace is left as it was.  ``ref.split_tf32_mm`` models the product's
-arithmetic on the CPU.
+which the kernel divides by instead of B.  Outputs are fresh tensors, the
+old trace left as it was, unless the caller names them (``out``): a
+donated step writes pij' over pij and w over the old w.  Each block reads
+only the pij tile it writes, and reads it before it writes it, so in
+place is safe.  ``ref.split_tf32_mm`` models the product's arithmetic on
+the CPU.
 
 Bound: bytes.  At Model 1's hidden projection (B=128, Ni=1568, Nj=4096)
 the 77 MB of traffic (read pij, write pij' and w) take ~23 us at 3.35
@@ -34,12 +37,12 @@ overlap only in part.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import (check_launch, library, require, require_current_device,
-                     stream_ptr)
+                     require_outputs, stream_ptr)
 from .ref import ref_bcpnn_update
 
 # Kernel launches in this process (only where the kernel is launched).
@@ -49,8 +52,11 @@ LAUNCHES = 0
 def bcpnn_update_cuda(pij: torch.Tensor, log_pi: torch.Tensor,
                       log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       mask: torch.Tensor, alpha, eps: float = 1e-4,
-                      count: Optional[torch.Tensor] = None):
-    """Returns (new_pij, new_w), both (Ni, Nj) float32.
+                      count: Optional[torch.Tensor] = None,
+                      out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Returns (new_pij, new_w), both (Ni, Nj) float32: fresh tensors, or
+    ``out`` = (pij_out, w_out) written and returned (pij_out may be pij
+    itself).
 
     pij (Ni, Nj); log_pi (Ni,); log_pj (Nj,); x (B, Ni); y (B, Nj); mask
     the (Hi, Hj) hypercolumn mask (Hi divides Ni, Hj divides Nj); alpha a
@@ -61,7 +67,7 @@ def bcpnn_update_cuda(pij: torch.Tensor, log_pi: torch.Tensor,
     global LAUNCHES
     if pij.device.type == "cpu":
         return ref_bcpnn_update(pij, log_pi, log_pj, x, y, mask, alpha, eps,
-                                count)
+                                count, out)
     require_current_device(pij)
     dev = pij.device
     ni, nj = pij.shape
@@ -79,8 +85,7 @@ def bcpnn_update_cuda(pij: torch.Tensor, log_pi: torch.Tensor,
         require(t, name, shape, dev)
     if count is not None:
         require(count, "count", (), dev)
-    new_pij = torch.empty_like(pij)
-    w = torch.empty_like(pij)
+    new_pij, w = require_outputs(out, pij, dev)
     rc = library().bcpnn_update(
         pij.data_ptr(), log_pi.data_ptr(), log_pj.data_ptr(), x.data_ptr(),
         y.data_ptr(), mask.data_ptr(), a.data_ptr(),

@@ -47,12 +47,26 @@ def launch_counts() -> Dict[str, int]:
     return counts
 
 
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the counts of the kernels named in ``counts``."""
+    for name, n in counts.items():
+        if name in _KERNEL_MODULES:
+            _KERNEL_MODULES[name].LAUNCHES = n
+        elif name in _patchy_module.LAUNCHES:
+            _patchy_module.LAUNCHES[name] = n
+        else:
+            _quant_module.LAUNCHES[name] = n
+
+
 def reset_launch_counts() -> None:
-    for m in _KERNEL_MODULES.values():
-        m.LAUNCHES = 0
-    for per_entry in (_patchy_module.LAUNCHES, _quant_module.LAUNCHES):
-        for name in per_entry:
-            per_entry[name] = 0
+    set_launch_counts({name: 0 for name in launch_counts()})
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` to the counts: what one replay of a captured step
+    launched, since a replay runs none of the wrappers that count."""
+    now = launch_counts()
+    set_launch_counts({name: now[name] + n for name, n in delta.items()})
 
 
 def _table(proj: Union[Projection, InferPack], spec: ProjSpec) -> torch.Tensor:
@@ -104,8 +118,8 @@ def fused_packed_forward(pack: InferPack, spec: ProjSpec,
 
 
 def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
-                y: torch.Tensor,
-                count: Optional[torch.Tensor] = None) -> Projection:
+                y: torch.Tensor, count: Optional[torch.Tensor] = None, *,
+                donate: bool = False) -> Projection:
     """Kernel-fused equivalent of core.bcpnn_layer.learn.
 
     The cheap vector traces (p_i, p_j) and the smoothing ``a`` update in
@@ -113,7 +127,13 @@ def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
     host sync); the joint-trace EMA and weight fold run in the update
     kernel of the projection's layout.  ``count`` (0-d, optional) is the
     number of genuine rows of a batch whose pad rows are zero: every batch
-    statistic divides by it instead of B (``learn_masked``)."""
+    statistic divides by it instead of B (``learn_masked``).
+
+    ``donate=True`` writes the new state over ``proj``'s own tensors (the
+    update kernel's pij' over pij and w over w, the vectors and the clock
+    in place) and returns a Projection of those same tensors: what a
+    captured step needs, whose every operand keeps its address.  The
+    arithmetic is the same, so the result is the same bit for bit."""
     if is_compact(spec) and proj.table is None:
         raise ValueError(
             "fused_learn: ProjSpec.compact projection carries a dense-layout "
@@ -126,23 +146,31 @@ def fused_learn(proj: Projection, spec: ProjSpec, x: torch.Tensor,
         xm, ym = x.mean(dim=0), y.mean(dim=0)
     else:
         xm, ym = x.sum(dim=0) / count, y.sum(dim=0) / count
-    pi = (1.0 - a) * tr.pi + a * xm
-    pj = (1.0 - a) * tr.pj + a * ym
+    # In place, each result goes to its own tensor once the old value has
+    # been read: pi and pj after their EMA, b (= log p_j) before the
+    # update kernel reads it, the clock after ``a``.
+    pi = torch.add((1.0 - a) * tr.pi, a * xm,
+                   out=tr.pi if donate else None)
+    pj = torch.add((1.0 - a) * tr.pj, a * ym,
+                   out=tr.pj if donate else None)
     log_pi = torch.log(torch.clamp(pi, spec.eps, 1.0))
-    log_pj = torch.log(torch.clamp(pj, spec.eps, 1.0))
+    log_pj = torch.log(torch.clamp(pj, spec.eps, 1.0),
+                       out=proj.b if donate else None)
+    out = (tr.pij, proj.w) if donate else None
     if is_compact(spec):
         new_pij, w = compact_update(tr.pij, log_pi, log_pj, x, y, proj.table,
-                                    a, spec.pre.M, eps=spec.eps, count=count)
+                                    a, spec.pre.M, eps=spec.eps, count=count,
+                                    out=out)
     elif is_patchy(spec) and spec.patchy_traces:
         new_pij, w = patchy_update(tr.pij, log_pi, log_pj, x, y,
                                    _table(proj, spec), a, spec.pre.M,
                                    spec.post.H, spec.post.M, eps=spec.eps,
-                                   count=count)
+                                   count=count, out=out)
     else:
         new_pij, w = bcpnn_update(tr.pij, log_pi, log_pj, x, y, proj.mask, a,
-                                  eps=spec.eps, count=count)
+                                  eps=spec.eps, count=count, out=out)
+    t = tr.t.add_(1) if donate else tr.t + 1
     return Projection(
-        traces=Traces(pi=pi, pj=pj, pij=new_pij, t=tr.t + 1,
-                      t_host=tr.t_host + 1),
+        traces=Traces(pi=pi, pj=pj, pij=new_pij, t=t, t_host=tr.t_host + 1),
         w=w, b=log_pj, mask=proj.mask, table=proj.table,
     )

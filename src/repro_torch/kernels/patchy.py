@@ -25,7 +25,9 @@ Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
     the fold on them only; copy tiles cover the (Ni, Nj) grid and write
     the silent entries back as read (pij held bit for bit, w 0), building
     their live predicate from the table rows of the post-HCs they cover.
-    Fresh outputs, no copy or memset beforehand.
+    Fresh outputs, no copy or memset beforehand, or the caller's (``out``):
+    written over pij in place, silent entries are stored as they were read
+    and live entries only by the gathered tile that read them.
   * ``compact_update`` -> ``csrc/bcpnn.cu::trace_update_kernel`` with the
     compact layout, the same body: gathered tiles of a post-HC's K live
     rows (x gathered through its table row), the 3xTF32 product, the EMA
@@ -53,12 +55,13 @@ boundary (``validate_patchy_state``), not per launch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import (check_launch, check_table, library, require,
-                     require_current_device, stream_ptr, weight_dtype)
+                     require_current_device, require_outputs, stream_ptr,
+                     weight_dtype)
 from .ref import (ref_compact_forward, ref_compact_update, ref_patchy_forward,
                   ref_patchy_update)
 
@@ -119,7 +122,8 @@ def compact_forward(x: torch.Tensor, w_c: torch.Tensor, bias: torch.Tensor,
 def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
             log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             table: torch.Tensor, alpha, mi: int, hj: int, mj: int, eps: float,
-            count: Optional[torch.Tensor], compact: bool):
+            count: Optional[torch.Tensor], compact: bool,
+            out: Optional[Tuple[torch.Tensor, torch.Tensor]]):
     require_current_device(pij)
     dev = pij.device
     b, ni = x.shape
@@ -134,7 +138,7 @@ def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
         require(t, what, want, dev)
     if count is not None:
         require(count, "count", (), dev)
-    new_pij, w = torch.empty_like(pij), torch.empty_like(pij)
+    new_pij, w = require_outputs(out, pij, dev)
     rc = library().bcpnn_patchy_update(
         pij.data_ptr(), log_pi.data_ptr(), log_pj.data_ptr(), x.data_ptr(),
         y.data_ptr(), table.data_ptr(), a.data_ptr(),
@@ -149,30 +153,32 @@ def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,
 def patchy_update(pij: torch.Tensor, log_pi: torch.Tensor,
                   log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                   table: torch.Tensor, alpha, mi: int, hj: int, mj: int,
-                  eps: float = 1e-4, count: Optional[torch.Tensor] = None):
+                  eps: float = 1e-4, count: Optional[torch.Tensor] = None,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Patchy-held plasticity on dense-resident traces.  pij (Ni, Hj*Mj);
     log_pi (Ni,); log_pj (Hj*Mj,); x (B, Ni); y (B, Hj*Mj); table
-    (Hj, nact).  Returns fresh (new_pij, new_w), (Ni, Hj*Mj): live entries
-    the EMA and the fold, silent pij held, silent w 0."""
+    (Hj, nact).  Returns (new_pij, new_w), (Ni, Hj*Mj), fresh or ``out``:
+    live entries the EMA and the fold, silent pij held, silent w 0."""
     if pij.device.type == "cpu":
         return ref_patchy_update(pij, log_pi, log_pj, x, y, table, alpha, mi,
-                                 hj, mj, eps, count)
+                                 hj, mj, eps, count, out)
     return _update("patchy_update", pij, log_pi, log_pj, x, y, table, alpha,
-                   mi, hj, mj, eps, count, compact=False)
+                   mi, hj, mj, eps, count, False, out)
 
 
 def compact_update(pij_c: torch.Tensor, log_pi: torch.Tensor,
                    log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                    table: torch.Tensor, alpha, mi: int, eps: float = 1e-4,
-                   count: Optional[torch.Tensor] = None):
+                   count: Optional[torch.Tensor] = None,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Scatter-free compact plasticity on the resident (Hj, K, Mj) trace.
-    Returns fresh (new_pij_c, new_w_c), both (Hj, K, Mj)."""
+    Returns (new_pij_c, new_w_c), both (Hj, K, Mj), fresh or ``out``."""
     if pij_c.device.type == "cpu":
         return ref_compact_update(pij_c, log_pi, log_pj, x, y, table, alpha,
-                                  mi, eps, count)
+                                  mi, eps, count, out)
     if pij_c.dim() != 3:
         raise ValueError(f"pij_c has shape {tuple(pij_c.shape)}, expected "
                          f"(Hj, K, Mj)")
     hj, _, mj = pij_c.shape
     return _update("compact_update", pij_c, log_pi, log_pj, x, y, table,
-                   alpha, mi, hj, mj, eps, count, compact=True)
+                   alpha, mi, hj, mj, eps, count, True, out)

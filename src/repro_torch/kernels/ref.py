@@ -39,17 +39,28 @@ def ref_bcpnn_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return ref_hc_softmax(support, n_hc, n_mc, gain).to(x.dtype)
 
 
+def _into(out, new_pij: torch.Tensor, w: torch.Tensor):
+    """An update's results, written into the caller's (pij', w) when it
+    names them (``out``), as the kernels write theirs."""
+    if out is None:
+        return new_pij, w
+    out[0].copy_(new_pij)
+    out[1].copy_(w)
+    return out[0], out[1]
+
+
 def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
                      log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                      mask: torch.Tensor, alpha, eps: float = 1e-4,
-                     count=None):
+                     count=None, out=None):
     """Plasticity stage: trace EMA + Bayesian log-weight recompute.
 
     pij (Ni, Nj); log_pi (Ni,); log_pj (Nj,); x (B, Ni); y (B, Nj); alpha a
-    scalar; ``count`` (optional) divides XᵀY in place of B.  ``mask`` is the (Hi, Hj) hypercolumn-level mask, as the CUDA
-    kernel takes it; the minicolumn counts follow from the shapes.  (The
-    JAX oracle takes the mask expanded to (Ni, Nj); the product is the
-    same.)  Returns (new_pij, new_w).
+    scalar; ``count`` (optional) divides XᵀY in place of B.  ``mask`` is
+    the (Hi, Hj) hypercolumn-level mask, as the CUDA kernel takes it; the
+    minicolumn counts follow from the shapes.  (The JAX oracle takes the
+    mask expanded to (Ni, Nj); the product is the same.)  Returns
+    (new_pij, new_w): fresh, or ``out`` written (pij' may be pij).
     """
     ni, nj = pij.shape
     hi, hj = mask.shape
@@ -59,7 +70,7 @@ def ref_bcpnn_update(pij: torch.Tensor, log_pi: torch.Tensor,
     w = torch.log(torch.clamp(new_pij, eps * eps, 1.0)) \
         - (log_pi[:, None] + log_pj[None, :])
     w = w.reshape(hi, ni // hi, hj, nj // hj) * mask[:, None, :, None]
-    return new_pij, w.reshape(ni, nj)
+    return _into(out, new_pij, w.reshape(ni, nj))
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -142,27 +153,28 @@ def _compact_step(pij_c, log_pi, log_pj, x, y, table, alpha, mi, eps,
 def ref_patchy_update(pij: torch.Tensor, log_pi: torch.Tensor,
                       log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       table: torch.Tensor, alpha, mi: int, hj: int, mj: int,
-                      eps: float = 1e-4, count=None):
+                      eps: float = 1e-4, count=None, out=None):
     """Patchy-held plasticity on dense-resident (Ni, Hj*Mj) traces: live
     entries take the EMA and the fold; silent pij entries hold their
-    value and silent w entries are 0.  Returns (new_pij, new_w)."""
+    value and silent w entries are 0.  Returns (new_pij, new_w), fresh or
+    ``out``."""
     ni = pij.shape[0]
     ui = unit_indices(table, mi, sentinel=ni)
     new_c, w_c = _compact_step(gather_dense(pij, ui, hj, mj), log_pi, log_pj,
                                x, y, table, alpha, mi, eps, count)
     new_pij = scatter_dense(pij.reshape(ni, hj, mj), ui, new_c)
     w = scatter_dense(pij.new_zeros((ni, hj, mj)), ui, w_c)
-    return new_pij.reshape(ni, hj * mj), w.reshape(ni, hj * mj)
+    return _into(out, new_pij.reshape(ni, hj * mj), w.reshape(ni, hj * mj))
 
 
 def ref_compact_update(pij_c: torch.Tensor, log_pi: torch.Tensor,
                        log_pj: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                        table: torch.Tensor, alpha, mi: int,
-                       eps: float = 1e-4, count=None):
+                       eps: float = 1e-4, count=None, out=None):
     """Compact plasticity on resident (Hj, K, Mj) traces.  Returns
-    (new_pij_c, new_w_c)."""
-    return _compact_step(pij_c, log_pi, log_pj, x, y, table, alpha, mi, eps,
-                         count)
+    (new_pij_c, new_w_c), fresh or ``out``."""
+    return _into(out, *_compact_step(pij_c, log_pi, log_pj, x, y, table,
+                                     alpha, mi, eps, count))
 
 
 # ------------------------------------------------------------- int8 ----

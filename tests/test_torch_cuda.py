@@ -972,3 +972,197 @@ def test_low_precision_infer_on_card_matches_cpu_plain(gen, layout, dtype):
     assert (pk - pp).abs().max().item() <= 1e-5
     assert torch.equal(qk, qp)
     assert (pk[8:] == 0).all() and (qk[8:] == -1).all()
+
+
+# ------------------------------------------- donated and captured steps ----
+
+# (B, Hi, Mi, Hj, Mj, nact): Model 1-struct (the dense update at its full
+# 1568 x 4096 too) and the ragged shape of phase 1
+IN_PLACE_SHAPES = [(128, 784, 2, 32, 128, 128), (37, 13, 3, 3, 10, 4)]
+
+
+@pytest.mark.parametrize("n", [None, 5])
+@pytest.mark.parametrize("b,hi,mi,hj,mj,nact", IN_PLACE_SHAPES)
+def test_update_kernels_in_place_equal_out_of_place(gen, b, hi, mi, hj, mj,
+                                                    nact, n):
+    """Each of the three layouts' update written over pij and w (``out``)
+    gives what the fresh outputs hold, bit for bit: every block reads only
+    the pij tile it writes.  The patchy update in place still leaves its
+    silent entries as they were."""
+    ni, nj, table = _patchy_operands(gen, b, hi, mi, hj, mj, nact)
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, b, ni), _rand(gen, b, nj)
+    count = None
+    if n is not None:
+        x[n:], y[n:] = 0.0, 0.0
+        count = torch.tensor(float(n), device="cuda")
+    a = torch.tensor(0.02, device="cuda")
+    mask = topk_mask(_rand(gen, hi, hj), nact)
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    pij_c = _rand(gen, hj, nact * mi, mj) * 0.01 + 1e-5
+    silent = ~_live_units(table, hi, mi, mj)
+    calls = {
+        "bcpnn_update": (pij, lambda p, **kw: ops.bcpnn_update(
+            p, lpi, lpj, x, y, mask, a, count=count, **kw)),
+        "patchy_update": (pij, lambda p, **kw: ops.patchy_update(
+            p, lpi, lpj, x, y, table, a, mi, hj, mj, count=count, **kw)),
+        "compact_update": (pij_c, lambda p, **kw: ops.compact_update(
+            p, lpi, lpj, x, y, table, a, mi, count=count, **kw)),
+    }
+    for name, (p0, call) in calls.items():
+        want = call(p0)
+        p, w = p0.clone(), torch.full_like(p0, float("nan"))
+        ops.reset_launch_counts()
+        got = call(p, out=(p, w))
+        assert ops.launch_counts()[name] == 1
+        assert got[0] is p and got[1] is w, name
+        assert torch.equal(p, want[0]) and torch.equal(w, want[1]), name
+        if name == "patchy_update":
+            assert torch.equal(p[silent], p0[silent])
+            assert bool((w[silent] == 0).all())
+
+
+LAYOUTS = {"dense": {}, "a": dict(nact=[40, 3]),
+           "b": dict(nact=[40, 3], patchy_traces=True),
+           "c": dict(nact=[40, 3], patchy_traces=True, compact=True)}
+
+
+def _small_fit_data(spec, n=75):
+    rng = np.random.default_rng(7)
+    x = rng.random((n, spec.input_geom.H), dtype=np.float32)
+    return (np.stack([x, 1 - x], -1).reshape(n, -1),
+            rng.integers(0, spec.n_classes, n))
+
+
+def _eager_fit(spec, x, labels, epochs, batch, seed):
+    """The loop of functional steps that ``Trainer.fit`` replays; returns
+    the state and the launches it made."""
+    from repro_torch.core import Trainer
+    from repro_torch.core.bcpnn_layer import forward
+    from repro_torch.core.network import (supervised_readout_step,
+                                          train_projection_step)
+    from repro_torch.core.trainer import _batchify_padded
+    st = Trainer(spec, seed=seed, device="cuda").state
+    xs_np, valid_np = _batchify_padded(x, batch)
+    ys_np, _ = _batchify_padded(labels.astype(np.int32), batch)
+    xs, ys, valid = (torch.from_numpy(v).cuda()
+                     for v in (xs_np, ys_np, valid_np))
+    nb = xs.shape[0]
+    ops.reset_launch_counts()
+    cur = xs
+    for layer in range(spec.depth):
+        for _ in range(epochs):
+            for b in range(nb):
+                st = train_projection_step(
+                    st, spec, cur[b], layer,
+                    valid=valid[b] if b == nb - 1 else None)
+        if layer + 1 < spec.depth:
+            cur = torch.stack([forward(st.projs[layer], spec.projs[layer],
+                                       h) for h in cur])
+    for b in range(nb):
+        st = supervised_readout_step(st, spec, xs[b], ys[b],
+                                     valid=valid[b] if b == nb - 1 else None)
+    torch.cuda.synchronize()
+    return st, ops.launch_counts()
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_graphed_fit_equals_the_eager_step_loop(gen, layout):
+    """``Trainer.fit`` on the card (captured steps replayed, depth 2, a
+    rewire every 3 steps, a padded tail taken eagerly) ends in the eager
+    loop's state bit for bit, with the same launch counts; ``evaluate``
+    through the captured eval step gives the accuracy of eager ``infer``
+    calls on the same batches of that state, and counts one forward per
+    stack projection and one softmax per batch."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    from repro_torch.core.graphs import state_tensors
+    from repro_torch.core.network import infer
+    from repro_torch.core.trainer import _eval_data
+    spec = deep_synth_spec(side=12, depth=2, hidden_hc=4, hidden_mc=8,
+                           struct_every=3, **LAYOUTS[layout])
+    x, labels = _small_fit_data(spec)
+    want, eager_counts = _eager_fit(spec, x, labels, 2, 16, seed=3)
+    tr = Trainer(spec, seed=3, device="cuda")
+    ops.reset_launch_counts()
+    tr.fit(x, labels, epochs=2, batch=16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == eager_counts
+    for a, b in zip(state_tensors(tr.state), state_tensors(want)):
+        assert torch.equal(a, b)
+    for p, q in zip(tr.state.projs, want.projs):
+        assert p.traces.t_host == q.traces.t_host == 10
+    ops.reset_launch_counts()
+    acc = tr.evaluate(x, labels, batch=16)
+    counts = ops.launch_counts()
+    assert counts["hc_softmax"] == 5  # the readout's normalize, 5 batches
+    assert sum(counts.values()) == 5 * 3  # and the two stack forwards
+    xs, ys, valid = _eval_data(x, labels, 16, torch.device("cuda"))
+    correct = 0.0
+    for b in range(xs.shape[0]):
+        _, pred = infer(want, spec, xs[b], valid=valid[b])
+        correct += float((pred == ys[b]).sum())
+    assert acc == pytest.approx(correct / len(x), abs=1e-6)
+
+
+def test_graphed_steps_make_no_sync_and_count_their_launches(gen):
+    """After capture at the first batch, 8 replayed unsupervised steps
+    across the rewire at clock 6 (patchy-held layout), a readout step and
+    an eval batch run with any device synchronisation an error; each
+    replay adds what its capture counted, the capture itself nothing."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    spec = deep_synth_spec(side=12, depth=1, hidden_hc=4, hidden_mc=8,
+                           nact=[40], patchy_traces=True, struct_every=6)
+    tr = Trainer(spec, seed=0, device="cuda")
+    x, labels = _small_fit_data(spec, 9 * 16)
+    xs = torch.from_numpy(x).cuda().view(9, 16, -1)
+    ys = torch.from_numpy(labels.astype(np.int32)).cuda().view(9, 16)
+    valid = torch.ones((9, 16), device="cuda")
+    unsup, sup, ev = tr._unsup_fn(0, False), tr._sup_fn(False), tr._eval_fn()
+    ops.reset_launch_counts()
+    tr.state = unsup(tr.state, xs[:1])
+    assert ops.launch_counts()["patchy_update"] == 1  # the first replay
+    tr.state = sup(tr.state, xs[:1], ys[:1])
+    ev(tr.state, xs[:1], ys[:1], valid[:1])
+    mask = tr.state.projs[0].mask.clone()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.state = unsup(tr.state, xs[1:])
+        tr.state = sup(tr.state, xs[:1], ys[:1])
+        acc = ev(tr.state, xs[:1], ys[:1], valid[:1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = ops.launch_counts()
+    assert counts["patchy_update"] == 8 and counts["bcpnn_update"] == 1
+    assert counts["patchy_forward"] == 2 and counts["hc_softmax"] == 9
+    proj = tr.state.projs[0]
+    assert proj.traces.t_host == 9 == int(proj.traces.t)
+    assert not torch.equal(proj.mask, mask)  # the rewire at 6 ran
+    assert 0.0 <= float(acc) <= 1.0
+
+
+def test_captures_survive_graphs_collected_as_garbage(gen):
+    """A Trainer is a reference cycle (its cached epoch programs refer back
+    to it), so its graphs die only when the cycle collector runs, and a
+    graph destroyed during another capture invalidates that capture.  With
+    the collector run at almost every allocation, trainers dropped one
+    after another still leave the next one's captures whole."""
+    import gc
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    spec = deep_synth_spec(side=12, depth=1, hidden_hc=4, hidden_mc=8)
+    x, labels = _small_fit_data(spec)
+    threshold = gc.get_threshold()
+    try:
+        for seed in range(3):
+            tr = Trainer(spec, seed=seed, device="cuda")
+            tr.fit(x, labels, epochs=1, batch=16)
+            assert 0.0 <= tr.evaluate(x, labels, batch=16) <= 1.0
+            del tr
+            gc.set_threshold(1)
+    finally:
+        gc.set_threshold(*threshold)

@@ -75,6 +75,28 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      kernel path against the plain path on 2048 test rows, a repack after
      a feedback fold that must serve the new scales, and packing and
      serving with the card forbidden to synchronise.
+  8. checkpoints and serving at full width: phase 2's Model-1 trainer
+     saved (``Trainer.save``, timed) and loaded from the directory alone
+     (``load_model``, timed), every tensor and the generator's state equal
+     and the same ``evaluate``; Model-1 and (c) fits checkpointing every 64
+     batches, killed by ``on_chunk`` raising ``WorkerLost`` mid
+     unsupervised epoch, resumed by a trainer of another seed and held to
+     the uninterrupted fit bit for bit, generator included ((c) rewires
+     after the kill); ``BCPNNService`` streams (default buckets 1..64, one
+     captured CUDA graph each) of all 2048 test rows at a Poisson 4000/s
+     over Model 1 in fp32 and int8 and (c) in int8, every served batch held
+     to eager ``infer_packed`` on the same padded group bit for bit, served
+     accuracy equal to the evaluation's, the launch counts reset before
+     each stream and read after (each the sum of its replays' captures),
+     with p50/p99 latency, images/s and the launches of each bucket's
+     graph; a cold Model-1 readout relearned from a feedback stream while
+     serving (above the launcher's floor) and (b) learning its stack with a
+     rewire while serving, each equal to an offline replay of the same
+     feedback bit for bit, and (b)'s batches served after the rewire equal
+     to eager ``infer_packed``; the quarantine (a ``nan-state`` fault and a
+     NaN feedback row through the kernels) rolling back bit for bit while
+     the slot keeps serving; and ``python -m
+     repro_torch.launch.serve_bcpnn --smoke`` in a process of its own.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
      and (c), of (b)'s unsupervised step and evaluation batch, of the
@@ -82,7 +104,9 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      of (b)'s int8 served batch, all eager; and of the unsupervised step,
      readout step and evaluation batch of Model 1, (b) and (c) as the
      epoch programs run them (a replay of the captured step, with the
-     host's share between replays):
+     host's share between replays); and phase 8's served batches at bucket
+     64, eager, as a replay of the bucket's graph, the replay with one
+     wait, and with the host copies in and out (``ServeProgram.serve``):
      wall time per step untraced (the median of 5 windows of 20 steps),
      then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
@@ -103,6 +127,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -1490,6 +1516,446 @@ def phase6(torch, tr, fitted, xte, yte):
     return runs
 
 
+# --------------------------------------------------------------- phase 8 --
+
+# 64-batch chunks of the fit before the kill: the fifth ends at batch 64 of
+# the third unsupervised epoch.
+KILL_CHUNK = 5
+# The Poisson rate of the served streams (requests/s): a bucket-64 batch
+# takes far less than the 16 ms such a rate needs to fill it.
+SERVE_RATE_HZ = 4000.0
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def phase8(torch, tr, fitted, data):
+    """Checkpoints, then serving through ``BCPNNService`` at full width;
+    returns (launches per served stream, phase-4 rows of the served
+    batches)."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="phase8_", dir=ROOT / "build"))
+    try:
+        phase8_checkpoints(torch, tr, data, root)
+        runs, rows = phase8_serving(torch, tr, fitted, data)
+        runs.update(phase8_online(torch, tr, fitted, data))
+        phase8_quarantine(torch, tr, data)
+        phase8_launcher(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs, rows
+
+
+def kill_and_resume(torch, label, cfg, xtr, ytr, root):
+    """A fit checkpointing every 64 batches, killed by ``on_chunk``
+    raising ``WorkerLost`` after chunk ``KILL_CHUNK``, resumed by a trainer
+    of another seed, against the uninterrupted fit: every tensor, mask,
+    table, clock and the generator's state equal."""
+    from repro_torch.core import Trainer
+    from repro_torch.distributed import WorkerLost
+    ref = Trainer(cfg, seed=0, device="cuda")
+    ref.fit(xtr, ytr, epochs=5, batch=128, ckpt_every_batches=64)
+    d = str(root / label.strip("()").replace(" ", "_"))
+    seen = []
+
+    def boom(cur):
+        seen.append(cur)
+        if len(seen) == KILL_CHUNK:
+            raise WorkerLost(f"killed at {cur}")
+
+    killed = Trainer(cfg, seed=0, device="cuda")
+    try:
+        killed.fit(xtr, ytr, epochs=5, batch=128, ckpt_dir=d,
+                   ckpt_every_batches=64, on_chunk=boom)
+        fail(f"{label}: the fit ran past the kill")
+    except WorkerLost:
+        pass
+    check(seen[-1].phase == "unsupervised" and seen[-1].batch == 64,
+          f"{label}: the kill came at {seen[-1]}, not mid unsupervised "
+          f"epoch")
+    del killed
+    t = time.perf_counter()
+    resumed = Trainer(cfg, seed=1, device="cuda")
+    stats = resumed.fit(xtr, ytr, epochs=5, batch=128, ckpt_dir=d,
+                        ckpt_every_batches=64, resume=True)
+    t_resume = time.perf_counter() - t
+    worst, n, same = state_identity(torch, ref.state, resumed.state)
+    gen_same = torch.equal(ref.state.generator.get_state(),
+                           resumed.state.generator.get_state())
+    print(f"[phase8] {label} fit killed after chunk {KILL_CHUNK} at "
+          f"{seen[-1]}, resumed ({t_resume:.3f} s, straggler_events "
+          f"{stats['straggler_events']:.0f}): state max abs diff "
+          f"{worst:.3e} over {n} arrays vs the uninterrupted fit, masks, "
+          f"tables and clocks {'equal' if same else 'DIFFER'}, generator "
+          f"{'equal' if gen_same else 'DIFFERS'}", flush=True)
+    check(worst == 0 and same and gen_same,
+          f"{label}: the resumed fit parts from the uninterrupted one")
+    return ref
+
+
+def phase8_checkpoints(torch, tr, data, root):
+    from repro_torch.checkpoint import load_model
+    from repro_torch.core import evaluate_padded
+    xtr, ytr, xte, yte = data
+    d = str(root / "model1")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.save(d)
+    save_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    state, spec, step = load_model(d)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    worst, n, same = state_identity(torch, tr.state, state)
+    gen_same = torch.equal(tr.state.generator.get_state(),
+                           state.generator.get_state())
+    acc, acc_tr = evaluate_padded(state, spec, xte, yte), tr.evaluate(xte, yte)
+    nbytes = sum(os.path.getsize(os.path.join(d, f"step_{step}", f))
+                 for f in os.listdir(os.path.join(d, f"step_{step}")))
+    print(f"[phase8] Model 1 Trainer.save (blocking) {save_ms:.1f} ms, "
+          f"load_model {restore_ms:.1f} ms, {nbytes / 1e6:.1f} MB at step "
+          f"{step}; restored state max abs diff {worst:.3e} over {n} "
+          f"arrays, masks and clocks {'equal' if same else 'DIFFER'}, "
+          f"generator {'equal' if gen_same else 'DIFFERS'}; test accuracy "
+          f"{acc:.6f} (trainer {acc_tr:.6f})", flush=True)
+    check(spec == tr.spec, f"load_model gave spec {spec}")
+    check(worst == 0 and same and gen_same,
+          "load_model's state parts from the saved trainer's")
+    check(acc == acc_tr, f"the loaded state evaluates {acc}, the trainer "
+                         f"{acc_tr}")
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST
+    kill_and_resume(torch, "Model 1", MODEL1_MNIST, xtr, ytr, root)
+    # (c) rewires every 64 steps of its clock: at 384, 448, ... after the
+    # kill at clock 320
+    kill_and_resume(torch, "(c)", struct_cfg("c"), xtr, ytr, root)
+
+
+class Recorder:
+    """Wraps a slot's ``ServeProgram.serve``: every served batch's padded
+    input and results, in order."""
+
+    def __init__(self, program):
+        self.serve, self.records, self.walls = program.serve, [], []
+        program.serve = self
+
+    def __call__(self, x, valid):
+        t = time.perf_counter()
+        probs, pred = self.serve(x, valid)
+        self.walls.append(time.perf_counter() - t)
+        self.records.append((x.copy(), valid.copy(), probs, pred))
+        return probs, pred
+
+    def replay_launches(self, buckets) -> dict:
+        """The launches the recorded batches' replays added."""
+        out: dict = {}
+        for x, *_ in self.records:
+            for k, c in buckets[len(x)].launches.items():
+                out[k] = out.get(k, 0) + c
+        return out
+
+    def wall_us(self) -> str:
+        """p50/p99 of the served batches' ``serve`` walls, in µs."""
+        w = np.asarray(self.walls) * 1e6
+        return (f"{np.percentile(w, 50):.1f}/{np.percentile(w, 99):.1f} "
+                f"us")
+
+    def check_eager(self, torch, label, pack, spec, start=0):
+        """Each recorded batch from ``start`` against eager
+        ``infer_packed`` on the same padded group, bit for bit."""
+        from repro_torch.core.network import infer_packed
+        for x, valid, probs, pred in self.records[start:]:
+            p, q = infer_packed(pack, spec, torch.from_numpy(x).cuda(),
+                                torch.from_numpy(valid).cuda())
+            check(np.array_equal(p.cpu().numpy(), probs)
+                  and np.array_equal(q.cpu().numpy(), pred),
+                  f"{label}: a served bucket of {len(x)} parts from eager "
+                  f"infer_packed")
+        return len(self.records) - start
+
+
+def serve_stream(torch, label, state, spec, dtype, kernels, xte, yte):
+    """All test rows, each once, through a started service at
+    ``SERVE_RATE_HZ``; the launch counts set to 0 just before and read
+    just after, and each of ``kernels`` launched."""
+    from repro_torch.core import evaluate_padded
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BCPNNService, run_open_loop
+    svc = BCPNNService(state, spec, max_batch=64, infer_dtype=dtype)
+    slot = svc._slot(None)
+    rec = Recorder(slot.program)
+    t = time.perf_counter()
+    svc.start()
+    warm_s = time.perf_counter() - t
+    check(tuple(sorted(slot.program.buckets)) == SERVE_BUCKETS,
+          f"{label}: captured buckets {sorted(slot.program.buckets)}")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = run_open_loop(svc, xte, yte, n_requests=len(xte),
+                        rate_hz=SERVE_RATE_HZ, seed=0, replace=False)
+    svc.stop()
+    launches = ops.launch_counts()
+    snap = svc.snapshot()
+    n = rec.check_eager(torch, label, slot.pack, slot.spec)
+    want = {k: 0 for k in launches}
+    want.update(rec.replay_launches(slot.program.buckets))
+    check(launches == want, f"{label}: the stream launched {launches}, its "
+                            f"replays' captures count {want}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"{label}: the stream launched {launches}, none of one of "
+          f"{kernels}")
+    check(len(rep.results) == len(xte) and not rep.errors
+          and not rep.n_rejected, f"{label}: {len(rep.results)} served, "
+                                  f"{len(rep.errors)} failed")
+    acc = rep.accuracy()
+    acc6 = evaluate_padded(state, slot.spec, xte, yte)
+    per_bucket = {b: sum(p.launches.values())
+                  for b, p in sorted(slot.program.buckets.items())}
+    hist = {}
+    for x, *_ in rec.records:
+        hist[len(x)] = hist.get(len(x), 0) + 1
+    print(f"[phase8] serve {label}: {len(rep.results)} rows at "
+          f"{SERVE_RATE_HZ:.0f}/s offered in {n} batches {hist}, p50 "
+          f"{snap['p50_ms']:.3f} ms p99 {snap['p99_ms']:.3f} ms, "
+          f"{snap['images_per_s']:.1f} images/s, occupancy "
+          f"{snap['batch_occupancy']:.3f}, ServeProgram.serve p50/p99 "
+          f"{rec.wall_us()}, timed batch median "
+          f"{svc.step_timer.median * 1e6:.1f} us; every row equals eager "
+          f"infer_packed; accuracy {acc:.6f} (phase 6's evaluation "
+          f"{acc6:.6f}); warm-up {warm_s:.3f} s; launches per captured "
+          f"bucket {per_bucket}; stream launches {json.dumps(launches)}",
+          flush=True)
+    check(acc == acc6, f"{label}: served accuracy {acc} != {acc6}")
+    return launches, slot
+
+
+def phase8_serving(torch, tr, fitted, data):
+    from repro_torch.core.network import infer_packed
+    xtr, ytr, xte, yte = data
+    runs, rows = {}, {}
+    x64 = torch.from_numpy(xte[:64]).cuda()
+    v64 = torch.ones(64, device="cuda")
+    x64h, v64h = xte[:64].copy(), np.ones(64, np.float32)
+    for run, t, dtype, fwd in (
+            ("model1_fp32", tr, "fp32", "bcpnn_fwd"),
+            ("model1_int8", tr, "int8", "quant_fwd"),
+            ("struct_c_int8", fitted["c"], "int8", "quant_compact_forward")):
+        launches, slot = serve_stream(torch, run, t.state, t.spec, dtype,
+                                      (fwd, "hc_softmax"), xte, yte)
+        runs[f"serve_{run}"] = launches
+        prog, pack, sp = slot.program, slot.pack, slot.spec
+        rows[f"{run} served_batch[64] eager"] = \
+            lambda pack=pack, sp=sp: infer_packed(pack, sp, x64, v64)
+        rows[f"{run} served_batch[64] graphed"] = \
+            lambda prog=prog: prog(x64, v64)
+        rows[f"{run} served_batch[64] graphed, one wait"] = \
+            lambda prog=prog: (prog(x64, v64),
+                               torch.cuda.current_stream().synchronize())
+        rows[f"{run} served_batch[64] graphed, host in and out"] = \
+            lambda prog=prog: prog.serve(x64h, v64h)
+    return runs, rows
+
+
+def feedback_recorder(svc):
+    """Wraps ``svc.feedback``: the labelled rows in the order admitted."""
+    fed, feedback = [], svc.feedback
+
+    def record(x, label, model=None):
+        feedback(x, label, model=model)
+        fed.append((np.asarray(x, np.float32), int(label)))
+
+    svc.feedback = record
+    return fed
+
+
+def replay(state, fed, batch, step):
+    """The offline replay of a feedback stream: full batches, then one
+    cycled tail, through ``step``."""
+    from repro_torch.serve import cycle_batch
+    import torch
+    while fed:
+        chunk, fed = fed[:batch], fed[batch:]
+        x, y = (torch.from_numpy(a).cuda() for a in cycle_batch(chunk, batch))
+        state = step(state, x, y)
+    return state
+
+
+def wait_for(cond, what, timeout_s=120.0):
+    end = time.perf_counter() + timeout_s
+    while not cond():
+        check(time.perf_counter() < end, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def phase8_online(torch, tr, fitted, data):
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.core import evaluate_padded, init_projection
+    from repro_torch.core.network import (online_learn_step, pack_state,
+                                          supervised_readout_step)
+    from repro_torch.device import make_generator
+    from repro_torch.serve import BCPNNService, run_open_loop
+    xtr, ytr, xte, yte = data
+    spec, state = tr.spec, tr.state
+    cold = dataclasses.replace(state, readout=init_projection(
+        spec.readout, make_generator(99, state.device)))
+    acc_base = evaluate_padded(state, spec, xte, yte)
+    acc_cold = evaluate_padded(cold, spec, xte, yte)
+    svc = BCPNNService(cold, spec, max_batch=64, online_learning=True,
+                       feedback_batch=64, feedback_eager=False)
+    fed = feedback_recorder(svc)
+    rec = Recorder(svc._slot(None).program)
+    svc.start()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = run_open_loop(svc, xte, yte, n_requests=len(xte),
+                        rate_hz=SERVE_RATE_HZ, seed=1, feedback_frac=1.0,
+                        fb_x=xtr, fb_y=ytr)
+    svc.stop()
+    runs = {"online_model1_readout": ops.launch_counts()}
+    snap = svc.snapshot()
+    per_fold = fold_launches(runs["online_model1_readout"], rec,
+                             svc._slot(None).program, snap["learn_steps"])
+    acc = evaluate_padded(svc.state, spec, xte, yte)
+    floor = acc_cold + 0.3 * max(0.0, acc_base - acc_cold)
+    ref = replay(cold, list(fed), 64, lambda st, x, y:
+                 supervised_readout_step(st, spec, x, y))
+    worst, n, same = state_identity(torch, ref, svc.state)
+    print(f"[phase8] Model 1 cold readout relearned from {len(fed)} "
+          f"feedback rows in {snap['learn_steps']:.0f} folds while serving "
+          f"{len(rep.results)} requests (p50 {snap['p50_ms']:.3f} ms, p99 "
+          f"{snap['p99_ms']:.3f} ms): test accuracy cold {acc_cold:.4f} -> "
+          f"{acc:.4f} (floor {floor:.4f}, trained {acc_base:.4f}), served "
+          f"{rep.accuracy(0, 0.3):.4f} early -> {rep.accuracy(0.7, 1):.4f} "
+          f"late; offline replay max abs diff {worst:.3e}; launches per "
+          f"fold {per_fold}", flush=True)
+    check(acc > floor, f"online relearning reached {acc} <= floor {floor}")
+    check(worst == 0 and same, "the served folds part from the offline "
+                               "replay of the same feedback")
+    check(len(rep.results) == len(xte), "online serving dropped requests")
+
+    trb = fitted["b"]
+    spec_b, state_b = trb.spec, trb.state
+    svc = BCPNNService(state_b, spec_b, max_batch=64, online_learning=True,
+                       learn_stack=True, feedback_batch=32,
+                       feedback_eager=False)
+    fed = feedback_recorder(svc)
+    rec = Recorder(svc._slot(None).program)
+    svc.start()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = run_open_loop(svc, xte, yte, n_requests=len(xte),
+                        rate_hz=SERVE_RATE_HZ, seed=2, feedback_frac=1.0,
+                        fb_x=xtr, fb_y=ytr)
+    for i in range(8 * 32):  # past the next struct_every boundary
+        svc.feedback(xtr[i], int(ytr[i]))
+    folds = len(fed) // 32
+    wait_for(lambda: svc.snapshot()["learn_steps"] == folds, "the folds")
+    start = len(rec.records)
+    ids = [svc.submit(x) for x in xte[:200]]
+    for rid in ids:
+        svc.result(rid, timeout=60)
+    svc.stop()
+    runs["online_struct_b_stack"] = ops.launch_counts()
+    per_fold_b = fold_launches(runs["online_struct_b_stack"], rec,
+                               svc._slot(None).program, folds)
+    final = svc.state
+    n_after = rec.check_eager(torch, "(b) after the rewire",
+                              pack_state(final, spec_b), spec_b, start)
+    ref = replay(state_b, list(fed), 32, lambda st, x, y: online_learn_step(
+        st, spec_b, x, y, learn_stack=True))
+    worst, n, same = state_identity(torch, ref, final)
+    t0, t1 = state_b.projs[0].traces.t_host, final.projs[0].traces.t_host
+    moved = int((final.projs[0].mask != state_b.projs[0].mask).sum()) // 2
+    svc.revalidate()
+    print(f"[phase8] (b) learn_stack: {len(fed)} feedback rows in "
+          f"{folds} folds, clock {t0} -> {t1} across "
+          f"{t1 // 64 - t0 // 64} rewire(s), {moved} pre-HCs moved; offline "
+          f"replay max abs diff {worst:.3e}, masks and clocks "
+          f"{'equal' if same else 'DIFFER'}; {n_after} batches served "
+          f"after the rewire equal eager infer_packed; launches per fold "
+          f"{per_fold_b}", flush=True)
+    check(t1 // 64 > t0 // 64 and moved > 0, "(b): no rewire while serving")
+    check(worst == 0 and same, "(b): the served stack folds part from the "
+                               "offline replay")
+    return runs
+
+
+def fold_launches(launches, rec, program, folds) -> dict:
+    """Launches per fold of an online stream: the stream's, less its
+    served batches' replays, over the folds."""
+    replays = rec.replay_launches(program.buckets)
+    return {k: (n - replays.get(k, 0)) / folds
+            for k, n in launches.items() if n - replays.get(k, 0)}
+
+
+def phase8_quarantine(torch, tr, data):
+    from repro_torch.core.graphs import state_tensors
+    from repro_torch.core.network import infer_packed
+    from repro_torch.serve import BCPNNService, FaultInjector, Quarantined
+    xtr, ytr, xte, yte = data
+    for label, schedule, nan_row in (("nan-state fault", {"nan-state": {1}},
+                                      False),
+                                     ("NaN feedback row", {}, True)):
+        svc = BCPNNService(tr.state, tr.spec, max_batch=64,
+                           online_learning=True, feedback_batch=64,
+                           feedback_eager=False,
+                           fault_injector=FaultInjector(schedule=schedule))
+        svc.start()
+        try:
+            for i in range(64):
+                svc.feedback(xtr[i], int(ytr[i]))
+            wait_for(lambda: svc.snapshot()["learn_steps"] == 1, "a fold")
+            good = [t.clone() for t in state_tensors(svc.model_state())]
+            for i in range(64, 128):
+                row = xtr[i].copy()
+                if nan_row and i == 100:
+                    row[5] = np.nan
+                svc.feedback(row, int(ytr[i]))
+            wait_for(lambda: svc.snapshot()["quarantined"] == 1.0,
+                     f"the quarantine ({label})")
+            rolled = all(torch.equal(g, a) for g, a in
+                         zip(good, state_tensors(svc.model_state())))
+            r = svc.classify(xte[0], timeout=60)
+            p, q = infer_packed(svc.model_pack(), svc.spec,
+                                torch.from_numpy(xte[:1]).cuda(),
+                                torch.ones(1, device="cuda"))
+            served = (r.pred == int(q[0]) and
+                      np.array_equal(r.probs, p[0].cpu().numpy()))
+            try:
+                svc.feedback(xtr[0], int(ytr[0]))
+                refused = False
+            except Quarantined:
+                refused = True
+        finally:
+            svc.stop()
+        print(f"[phase8] quarantine ({label}): rolled back "
+              f"{'bit for bit' if rolled else 'WRONGLY'}, still serving "
+              f"{'as eager infer_packed' if served else 'WRONGLY'}, "
+              f"feedback {'refused' if refused else 'ACCEPTED'}", flush=True)
+        check(rolled and served and refused, f"quarantine ({label}) failed")
+
+
+def phase8_launcher(root):
+    """``python -m repro_torch.launch.serve_bcpnn --smoke`` in a process
+    of its own."""
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_bcpnn", "--smoke",
+         "--ckpt-dir", str(root / "launcher")], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    lines = (out.stdout + out.stderr).strip().splitlines()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "serve_bcpnn_smoke.log").write_text(
+        out.stdout + out.stderr)
+    for line in lines:
+        if line.startswith("[serve-bcpnn]"):
+            print(f"[phase8] {line}", flush=True)
+    print(f"[phase8] serve_bcpnn --smoke: rc {out.returncode} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    check(out.returncode == 0, f"serve_bcpnn --smoke failed: "
+                               f"{lines[-1:] or ['(no output)']}")
+
+
 # --------------------------------------------------------------- phase 7 --
 
 def phase7():
@@ -1519,7 +1985,7 @@ def phase7():
 WALL_WINDOWS = 5
 
 
-def phase4(torch, tr, tr_b, tr_c, xte, yte):
+def phase4(torch, tr, tr_b, tr_c, xte, yte, served):
     """Time, then trace, 20 steps of each main-path step type on the
     fitted dense Model-1 state, of (b)'s unsupervised step (one
     ``patchy_update`` launch each) and eval batch (one ``patchy_forward``),
@@ -1574,6 +2040,7 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte):
         steps[f"{label}eval_step"] = eager_eval_step(torch, st, sp, x, y)
         for name, fn in graphed_steps(torch, st, sp, x, y).items():
             steps[f"{label}graphed {name}"] = fn
+    steps.update(served)  # phase 8's served batches at bucket 64
     n = 20
     for name, fn in steps.items():
         for _ in range(3):
@@ -1690,7 +2157,8 @@ def main() -> int:
     phase3(torch, tr, xte, yte)
     fitted, struct_launches = phase5(torch, xtr, ytr, xte, yte)
     serve_launches = phase6(torch, tr, fitted, xte, yte)
-    phase4(torch, tr, fitted["b"], fitted["c"], xte, yte)
+    stream_launches, served = phase8(torch, tr, fitted, data)
+    phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
     phase7()
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
@@ -1699,7 +2167,7 @@ def main() -> int:
     # the state that runs them; every run's counts are under "runs".
     runs = {"model1": launches, **{f"struct_{v}": c
                                    for v, c in struct_launches.items()},
-            **serve_launches}
+            **serve_launches, **stream_launches}
     main_run = {"patchy_forward": "struct_b", "patchy_update": "struct_b",
                 "compact_forward": "struct_c", "compact_update": "struct_c",
                 "quant_fwd": "model1_int8",

@@ -1,7 +1,9 @@
 """Captured steps: one training or evaluation step recorded once as a CUDA
-graph and replayed per batch.  The port's own module: the JAX trainer runs
-each epoch as one jitted, donated ``lax.scan``, and XLA's jit has no module
-to mirror.
+graph and replayed per batch (``StepProgram``), and the served batch
+recorded once per bucket (``ServeProgram``).  The port's own module: the
+JAX trainer runs each epoch as one jitted, donated ``lax.scan`` and the JAX
+serving engine jits one program per (model, bucket); XLA's jit has no
+module to mirror.
 
 A captured step reads its batch from static input buffers, copied into
 before each replay, and updates the state it was captured on in place (the
@@ -36,13 +38,15 @@ failures raise: nothing falls back to the eager step on the card.
 from __future__ import annotations
 
 import gc
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .bcpnn_layer import Projection, is_patchy
+from .bcpnn_layer import InferPack, Projection, is_patchy
 from .compact import build_table, cached_table
-from .network import DeepState, NetworkSpec
+from .network import (DeepState, InferParams, NetworkSpec, infer_packed,
+                      pack_state)
 from .traces import Traces
 
 
@@ -177,3 +181,157 @@ class StepProgram:
                 entry[3] = mask._version
         self.graph.replay()
         ops.add_launch_counts(self.launches)
+
+
+# ------------------------------------------------------- served batches --
+
+def pack_tensors(params: InferParams) -> List[torch.Tensor]:
+    """Every tensor of a serving pack, in a fixed order."""
+    out = []
+    for pk in params.projs + (params.readout,):
+        out += [t for t in (pk.w, pk.b, pk.scale, pk.table) if t is not None]
+    return out
+
+
+def _own_pack(params: InferParams) -> InferParams:
+    """A pack of tensors of its own (fp32 packs alias the state, and a
+    patchy table may be the memo's)."""
+    def own(pk: InferPack) -> InferPack:
+        # A copy of the pack pack_state derived at this fold boundary:
+        # repro: suppress[infer-pack-mutation] — only its tensors are copied
+        return InferPack(*(None if t is None else t.clone()
+                           for t in (pk.w, pk.b, pk.scale, pk.table)))
+
+    return InferParams(projs=tuple(own(p) for p in params.projs),
+                       readout=own(params.readout))
+
+
+class _Bucket:
+    """One bucket's graph: static inputs ``x``/``valid``, static outputs
+    ``probs``/``pred``, pinned host copies of all four, and the launches
+    one replay makes."""
+
+    def __init__(self, graph, x, valid, probs, pred, launches):
+        self.graph, self.x, self.valid = graph, x, valid
+        self.probs, self.pred, self.launches = probs, pred, launches
+        self.host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                          for t in (x, valid, probs, pred))
+
+
+class ServeProgram:
+    """The served batch of one model: ``infer_packed(pack, spec, x,
+    valid)`` at each bucket size.  On the card each bucket is captured
+    once as a CUDA graph over a static pack (``pack``), static inputs and
+    static outputs, and replayed per batch; on the CPU it runs eagerly
+    over the pack of the last ``load``.
+
+    ``load(state)`` is the fold boundary: it packs ``state`` and, on the
+    card, writes the new pack INTO the static pack's tensors (``copy_``),
+    never making new ones, so every graph and the TMA tensor maps its
+    kernels encoded keep reading the addresses they recorded.  (A fp32 pack
+    aliases the state, which an out-of-place fold replaces; ``pack_state``
+    makes new tensors anyway.)  A rewire's new patchy table is written the
+    same way.  Neither ``load`` nor a replay synchronises with the card;
+    ``serve`` reads a batch's results back once.  Capture or replay
+    failures raise: nothing falls back to the eager forward on the card.
+    """
+
+    def __init__(self, spec: NetworkSpec):
+        self.spec = spec
+        self.pack: Optional[InferParams] = None
+        self.buckets: Dict[int, _Bucket] = {}
+
+    def load(self, state: DeepState) -> InferParams:
+        """Pack ``state`` into the pack the program serves from."""
+        new = pack_state(state, self.spec)
+        if state.device.type != "cuda":
+            self.pack = new
+        elif self.pack is None:
+            self.pack = _own_pack(new)
+        else:
+            for dst, src in zip(pack_tensors(self.pack), pack_tensors(new)):
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(
+                        f"repack changed a pack tensor from {dst.shape} "
+                        f"{dst.dtype} to {src.shape} {src.dtype}")
+                dst.copy_(src)
+        return self.pack
+
+    def capture(self, bucket: int) -> None:
+        """Capture the served batch of ``bucket`` rows (the card only; the
+        pack must be loaded).  The forward runs once on a side stream
+        first, uncounted (building the kernel library and the launchers'
+        caches); the collector is off during the capture; what the
+        capture counted is taken back and added again per replay."""
+        pack = self.pack
+        dev = pack.readout.w.device
+        x = torch.zeros((bucket, self.spec.input_geom.N),
+                        dtype=torch.float32, device=dev)
+        valid = torch.zeros((bucket,), dtype=torch.float32, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+
+        def warm_up():
+            with torch.cuda.stream(side):
+                infer_packed(pack, self.spec, x, valid)
+            torch.cuda.current_stream().wait_stream(side)
+
+        count_launches(warm_up)
+        graph = torch.cuda.CUDAGraph()
+        out: list = []
+
+        def capture():
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    out.extend(infer_packed(pack, self.spec, x, valid))
+            finally:
+                if collecting:
+                    gc.enable()
+
+        launches = count_launches(capture)
+        self.buckets[bucket] = _Bucket(graph, x, valid, out[0], out[1],
+                                       launches)
+
+    def __call__(self, x: torch.Tensor, valid: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(probs, pred) of a (bucket, N) batch on the pack's device.  On
+        the card: ``x``/``valid`` are copied into the bucket's static
+        inputs and its graph replayed; the static outputs are returned
+        (the next replay of the bucket overwrites them)."""
+        if x.device.type != "cuda":
+            return infer_packed(self.pack, self.spec, x, valid)
+        from ..kernels import ops
+        b = self.buckets[x.shape[0]]
+        b.x.copy_(x)
+        b.valid.copy_(valid)
+        b.graph.replay()
+        ops.add_launch_counts(b.launches)
+        return b.probs, b.pred
+
+    def serve(self, x: np.ndarray, valid: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+        """A padded host batch in, its (probs, pred) on the host out: on
+        the card, host -> pinned -> static input copies, the replay, the
+        outputs copied back to pinned memory, and one wait for the stream,
+        the batch's only synchronisation."""
+        dev = self.pack.readout.w.device
+        if dev.type != "cuda":
+            probs, pred = self(torch.from_numpy(x).to(dev),
+                               torch.from_numpy(valid).to(dev))
+            return probs.numpy(), pred.numpy()
+        from ..kernels import ops
+        b = self.buckets[x.shape[0]]
+        hx, hv, hp, hq = b.host
+        hx.numpy()[...] = x
+        hv.numpy()[...] = valid
+        b.x.copy_(hx, non_blocking=True)
+        b.valid.copy_(hv, non_blocking=True)
+        b.graph.replay()
+        ops.add_launch_counts(b.launches)
+        hp.copy_(b.probs, non_blocking=True)
+        hq.copy_(b.pred, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return hp.numpy().copy(), hq.numpy().copy()

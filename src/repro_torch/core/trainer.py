@@ -17,14 +17,18 @@ state of those tensors.  Between replays the host does its share of each
 step: the clock mirror ``Traces.t_host`` moves on and, every
 ``struct_every`` steps, the rewire runs eagerly and writes into the
 tensors the graph reads.  A zero-padded tail batch alone takes the masked
-step, eagerly.  Nothing here reads a value back to the host inside a loop.
+step, eagerly.  Nothing here reads a value back to the host inside an
+epoch program; ``fit`` waits for the card once a chunk, to time it.
 
 The constructor and ``fit`` take the JAX trainer's arguments in its order;
-``device`` is a keyword of the port's own.  Not ported yet: the
-data-parallel fit (``mesh=``, ``data_axis=``) and mid-fit checkpoints,
-resume and the per-chunk callback (``ckpt_dir=``, ``ckpt_every_batches=``,
-``resume=``, ``on_chunk=``); any value other than the default raises
-``NotImplementedError`` (ROADMAP.md queue A items 7 and 3).
+``device`` is a keyword of the port's own.  ``fit(ckpt_dir=...,
+ckpt_every_batches=k)`` checkpoints every k batches with a schedule cursor
+(``FitCursor``) in the manifest, and ``resume=True`` continues from it, so
+a fit interrupted by worker loss ends in the state the uninterrupted fit
+reaches, bit for bit (the generator's state rides in the checkpoint:
+``checkpoint/ckpt.py``).  Not ported yet: the data-parallel fit
+(``mesh=``, ``data_axis=``), which raises ``NotImplementedError``
+(ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager, spec_manifest
 from ..device import DeviceLike, resolve_device
+from ..distributed.fault import StepTimer
 from .bcpnn_layer import forward
 from .graphs import StepProgram
 from .network import (
@@ -63,6 +69,28 @@ def _batchify_padded(x: np.ndarray, batch: int):
     valid = (np.arange(nb * batch) < n).astype(np.float32)
     return (x.reshape(nb, batch, *x.shape[1:]),
             valid.reshape(nb, batch))
+
+
+@dataclasses.dataclass(frozen=True)
+class FitCursor:
+    """Where a fit stopped in the layerwise-greedy schedule, stored in the
+    checkpoint manifest ``extra`` next to the spec, so a resumed fit
+    continues EXACTLY where the interrupted one left off.  ``batch`` counts
+    batches of the current epoch already consumed; the cursor always names
+    the NEXT work item.  ``to_dict`` matches the JAX ``FitCursor``'s."""
+
+    phase: str = "unsupervised"   # "unsupervised" | "supervised" | "done"
+    layer: int = 0
+    epoch: int = 0
+    batch: int = 0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FitCursor":
+        return cls(phase=str(d["phase"]), layer=int(d["layer"]),
+                   epoch=int(d["epoch"]), batch=int(d["batch"]))
 
 
 def _sync(device: torch.device) -> None:
@@ -292,16 +320,25 @@ class Trainer:
         self.spec = as_spec(cfg)
         self.device = resolve_device(device)
         self.state = init_deep(self.spec, seed, self.device)
+        self.timer = None  # the last fit's StepTimer
         self._epoch_cache: Dict[tuple, Callable] = {}
 
     # -------------------------------------------------- epoch programs --
+    def _program(self, key: tuple, make: Callable) -> StepProgram:
+        """The captured step behind one greedy phase, shared by its plain
+        and masked epoch programs."""
+        if key not in self._epoch_cache:
+            self._epoch_cache[key] = make()
+        return self._epoch_cache[key]
+
     def _unsup_fn(self, layer: int, masked: bool) -> Callable:
         """Epoch program for one greedy phase, cached per (layer, masked):
         its step is captured once and replayed in every epoch."""
         key = ("unsup", layer, masked)
         if key not in self._epoch_cache:
-            program = _projection_program(self.spec, layer, frozen=False,
-                                          noise=False)
+            program = self._program(
+                ("unsup-step", layer), lambda: _projection_program(
+                    self.spec, layer, frozen=False, noise=False))
             if masked:
                 fn = lambda st, hs, v: _train_projection_epoch_masked(  # noqa: E731
                     st, self.spec, hs, v, layer, program=program)
@@ -314,7 +351,8 @@ class Trainer:
     def _sup_fn(self, masked: bool) -> Callable:
         key = ("sup", masked)
         if key not in self._epoch_cache:
-            program = _readout_program(self.spec)
+            program = self._program(("sup-step",),
+                                    lambda: _readout_program(self.spec))
             if masked:
                 fn = lambda st, xs, ys, v: _supervised_epoch_masked(  # noqa: E731
                     st, self.spec, xs, ys, v, program=program)
@@ -342,7 +380,7 @@ class Trainer:
         ckpt_dir: Optional[str] = None,
         ckpt_every_batches: int = 0,
         resume: bool = False,
-        on_chunk: Optional[Callable] = None,
+        on_chunk: Optional[Callable[[FitCursor], None]] = None,
     ) -> Dict[str, float]:
         """Layerwise unsupervised epochs + one supervised pass, through
         the epoch programs (captured steps replayed per batch on the card).
@@ -351,17 +389,24 @@ class Trainer:
         takes the masked step, which divides its stats by the genuine row
         count; every whole batch takes the plain step.  (The JAX trainer's
         scanned epoch needs one program, so it masks every batch of such a
-        fit; the numbers differ only by fp32 rounding.)  Returns the JAX
-        trainer's timing keys, the first fit's capture included;
-        ``straggler_events`` is always 0 (the per-chunk step timer belongs
-        to the unported checkpointed fit).
+        fit; the numbers differ only by fp32 rounding.)
+
+        Fault tolerance, as the JAX trainer: with ``ckpt_dir`` and
+        ``ckpt_every_batches > 0`` the fit checkpoints every k batches
+        (state, spec and schedule cursor, blocking) and ``resume=True``
+        continues from the latest such checkpoint.  ``on_chunk(cursor)``
+        fires after every chunk (after its checkpoint): raising
+        ``WorkerLost`` from it aborts the fit with the checkpoint already
+        on disk.  With ``ckpt_dir`` alone the fit writes one final
+        resumable checkpoint.  Chunks cannot change the result: a chunk
+        replays the same captured step on a slice of the same batches, and
+        only the epoch's last batch of a padded fit takes the masked step.
+        Each chunk is timed (``straggler_events``), so the host waits for
+        the card at the end of every chunk.
+
+        Returns the JAX trainer's timing keys, the first fit's capture
+        included.
         """
-        if ckpt_dir is not None or ckpt_every_batches or resume \
-                or on_chunk is not None:
-            raise NotImplementedError(
-                "Trainer.fit(ckpt_dir=, ckpt_every_batches=, resume=, "
-                "on_chunk=): mid-fit checkpoints, resume and the per-chunk "
-                "callback are not ported yet (ROADMAP.md queue A item 3)")
         dev = self.device
         xs_np, valid_np = _batchify_padded(np.asarray(x_train, np.float32),
                                            batch)
@@ -370,35 +415,118 @@ class Trainer:
         xs = torch.from_numpy(xs_np).to(dev)
         ys = torch.from_numpy(ys_np).to(dev)
         valid = torch.from_numpy(valid_np).to(dev)
+        nb = int(xs.shape[0])
+        mgr = CheckpointManager(ckpt_dir) if ckpt_dir is not None else None
+        if resume and mgr is None:
+            raise ValueError("fit(resume=True) requires ckpt_dir")
+        cursor = FitCursor()
+        if resume and mgr.latest_step() is not None:
+            step = mgr.latest_step()
+            extra = mgr.read_extra(step) or {}
+            if "cursor" not in extra:
+                raise ValueError(
+                    f"checkpoint step_{step} under {ckpt_dir} carries no "
+                    f"fit cursor — it is a final artifact, not a mid-fit "
+                    f"checkpoint (restore it with Trainer.restore)")
+            self.state = mgr.restore(step, self.state)
+            cursor = FitCursor.from_dict(extra["cursor"])
+            if log:
+                print(f"  resumed step_{step} at {cursor}")
+        timer = StepTimer()
+        self.timer = timer
 
+        def save(cur: FitCursor, every: bool = True) -> None:
+            if mgr is not None and (ckpt_every_batches > 0 or not every):
+                mgr.save(int(self.state.step), self.state, blocking=True,
+                         extra={"spec": spec_manifest(self.spec),
+                                "cursor": cur.to_dict()})
+
+        def run_epoch(plain: Callable, tail: Callable, operands: tuple,
+                      start_b: int, tag: str,
+                      cursor_at: Callable[[int], FitCursor]) -> None:
+            """One epoch from batch ``start_b``, in checkpoint-delimited
+            chunks (the whole epoch at once when not checkpointing).  The
+            chunk holding a padded fit's last batch runs ``tail`` (the
+            masked epoch program, with the validity rows as its last
+            operand); every other chunk ``plain``."""
+            b0 = start_b
+            while b0 < nb:
+                n = (nb - b0 if ckpt_every_batches <= 0
+                     else min(ckpt_every_batches, nb - b0))
+                end = b0 + n
+                timer.start()
+                if masked and end == nb:
+                    self.state = tail(self.state,
+                                      *(op[b0:end] for op in operands),
+                                      valid[b0:end])
+                else:
+                    self.state = plain(self.state,
+                                       *(op[b0:end] for op in operands))
+                _sync(dev)
+                timer.stop(int(self.state.step), tag=tag)
+                b0 = end
+                cur = cursor_at(b0)
+                save(cur)
+                if on_chunk is not None:
+                    on_chunk(cur)
+
+        depth = self.spec.depth
         t0 = time.perf_counter()
-        # ``cur`` holds the dataset's rates at the current layer's input,
-        # computed once per greedy phase (the layers below are frozen).
-        cur = xs
-        for layer in range(self.spec.depth):
-            fn = self._unsup_fn(layer, masked)
-            operands = (cur, valid) if masked else (cur,)
-            for e in range(epochs):
-                self.state = fn(self.state, *operands)
-                if log:
-                    print(f"  layer {layer + 1}/{self.spec.depth} "
-                          f"unsupervised epoch {e + 1}/{epochs} done")
-            if layer + 1 < self.spec.depth:
-                cur = _propagate_batches(self.state, self.spec, cur, layer)
+        if cursor.phase == "unsupervised":
+            # ``cur`` holds the dataset's rates at the current layer's
+            # input, computed once per greedy phase (the layers below are
+            # frozen), and recomputed up to the cursor on resume.
+            cur = xs
+            for l in range(cursor.layer):
+                cur = _propagate_batches(self.state, self.spec, cur, l)
+            for layer in range(cursor.layer, depth):
+                first = layer == cursor.layer
+                plain = self._unsup_fn(layer, False)
+                tail = self._unsup_fn(layer, True) if masked else None
+                for e in range(cursor.epoch if first else 0, epochs):
+                    start_b = (cursor.batch if first and e == cursor.epoch
+                               else 0)
+
+                    def cursor_at(b, layer=layer, e=e):
+                        if b < nb:
+                            return FitCursor("unsupervised", layer, e, b)
+                        if e + 1 < epochs:
+                            return FitCursor("unsupervised", layer, e + 1, 0)
+                        if layer + 1 < depth:
+                            return FitCursor("unsupervised", layer + 1, 0, 0)
+                        return FitCursor("supervised", depth, 0, 0)
+
+                    run_epoch(plain, tail, (cur,), start_b,
+                              f"unsup/L{layer}/e{e}", cursor_at)
+                    if log:
+                        print(f"  layer {layer + 1}/{depth} "
+                              f"unsupervised epoch {e + 1}/{epochs} done")
+                if layer + 1 < depth:
+                    cur = _propagate_batches(self.state, self.spec, cur,
+                                             layer)
+            cursor = FitCursor("supervised", depth, 0, 0)
         _sync(dev)
         t1 = time.perf_counter()
-        fn = self._sup_fn(masked)
-        operands = (xs, ys, valid) if masked else (xs, ys)
-        self.state = fn(self.state, *operands)
+        if cursor.phase == "supervised":
+            def sup_cursor_at(b):
+                if b < nb:
+                    return FitCursor("supervised", depth, 0, b)
+                return FitCursor("done", depth, 0, 0)
+
+            run_epoch(self._sup_fn(False),
+                      self._sup_fn(True) if masked else None, (xs, ys),
+                      cursor.batch, "sup/readout", sup_cursor_at)
+            cursor = FitCursor("done", depth, 0, 0)
         _sync(dev)
         t2 = time.perf_counter()
+        save(cursor, every=False)
         n_img = int(valid_np.sum())
         return {
             "unsup_s": t1 - t0,
             "sup_s": t2 - t1,
             "train_ms_per_img": 1e3 * (t1 - t0)
-            / max(1, n_img * epochs * self.spec.depth),
-            "straggler_events": 0.0,
+            / max(1, n_img * epochs * depth),
+            "straggler_events": float(len(timer.events)),
         }
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,
@@ -412,3 +540,28 @@ class Trainer:
         xt = torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
         _, pred = infer(self.state, self.spec, xt)
         return pred.cpu().numpy()
+
+    # ------------------------------------------------------ checkpoints --
+    def save(self, directory: str, step: Optional[int] = None) -> None:
+        """Blocking checkpoint of the full state, in the JAX package's
+        format.  The spec is stored alongside (manifest ``extra``), so
+        serving can rebuild the network from the checkpoint directory
+        alone."""
+        mgr = CheckpointManager(directory)
+        mgr.save(step if step is not None else int(self.state.step),
+                 self.state, blocking=True,
+                 extra={"spec": spec_manifest(self.spec)})
+
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
+        """Restore the latest (or a specific) checkpoint into this trainer:
+        a state of new tensors and a new generator (``checkpoint/ckpt.py``
+        says how the generator is set), so the captured steps are captured
+        again on their next call.  The target structure comes from the
+        current spec, so depth or geometry mismatches fail with a clear
+        error."""
+        mgr = CheckpointManager(directory)
+        step = step if step is not None else mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        self.state = mgr.restore(step, self.state)
+        return step

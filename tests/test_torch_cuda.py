@@ -1166,3 +1166,177 @@ def test_captures_survive_graphs_collected_as_garbage(gen):
             gc.set_threshold(1)
     finally:
         gc.set_threshold(*threshold)
+
+
+# ------------------------------------------ checkpoints and serving ----
+
+def _serve_spec(**over):
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    kw = dict(side=12, depth=1, hidden_hc=4, hidden_mc=8)
+    kw.update(over)
+    return deep_synth_spec(**kw)
+
+
+def _eager_served(state, spec, x, valid):
+    from repro_torch.core.network import infer_packed, pack_state
+    return infer_packed(pack_state(state, spec), spec, x, valid)
+
+
+@pytest.mark.parametrize("layout,dtype", [
+    ("dense", "fp32"), ("dense", "int8"), ("b", "fp32"), ("b", "int8"),
+    ("c", "bf16"), ("c", "int8")])
+def test_served_bucket_graph_equals_eager_after_fold_and_rewire(
+        gen, layout, dtype):
+    """A bucket's CUDA graph serves what eager ``infer_packed`` gives on
+    the same padded group, bit for bit: on the loaded state, after each of
+    three stack folds (the third crosses a rewire in the patchy layouts;
+    (b)'s moves pre-HCs, (c)'s, as at Model 1-struct, may not), and after
+    loading another seed's state, whose mask and table differ.  The static
+    pack keeps its tensors: every load is written into them."""
+    from repro_torch.core.graphs import ServeProgram, pack_tensors
+    from repro_torch.core.network import init_deep, online_learn_step
+    over = {"dense": {}, "b": dict(nact=[40], patchy_traces=True,
+                                   struct_every=2),
+            "c": dict(nact=[40], patchy_traces=True, compact=True,
+                      struct_every=2)}[layout]
+    spec = _serve_spec(**over).with_infer_dtype(dtype)
+    state = init_deep(spec, 3, "cuda")
+    program = ServeProgram(spec)
+    program.load(state)
+    for b in (1, 4, 8):
+        program.capture(b)
+    ptrs = [t.data_ptr() for t in pack_tensors(program.pack)]
+    x, labels = _small_fit_data(spec, 16)
+    xs = torch.from_numpy(x).cuda()
+    ys = torch.from_numpy(labels.astype(np.int32)).cuda()
+    mask0 = state.projs[0].mask.clone()
+    for step in range(5):
+        for b in (1, 4, 8):
+            xb = xs[:b].clone()
+            valid = (torch.arange(b, device="cuda") < max(1, b - 1)).float()
+            probs, pred = program(xb, valid)
+            want_p, want_q = _eager_served(state, spec, xb, valid)
+            assert torch.equal(probs, want_p) and torch.equal(pred, want_q)
+            hp, hq = program.serve(xb.cpu().numpy(), valid.cpu().numpy())
+            assert np.array_equal(hp, want_p.cpu().numpy())
+            assert np.array_equal(hq, want_q.cpu().numpy())
+        if step < 3:
+            state = online_learn_step(state, spec, xs, ys, learn_stack=True)
+        else:
+            if layout == "b" and step == 3:
+                assert state.projs[0].traces.t_host == 3
+                assert not torch.equal(state.projs[0].mask, mask0)
+            state = init_deep(spec, 9 + step, "cuda")
+        program.load(state)
+        assert [t.data_ptr() for t in pack_tensors(program.pack)] == ptrs
+    if layout != "dense":
+        assert not torch.equal(state.projs[0].mask, mask0)
+
+
+def test_no_sync_in_repack_or_replay(gen):
+    """``load`` (the fold-boundary repack, int8 quantization and a patchy
+    table included) and a replay run with any device synchronisation an
+    error."""
+    from repro_torch.core.graphs import ServeProgram
+    from repro_torch.core.network import init_deep, online_learn_step
+    spec = _serve_spec(nact=[40], patchy_traces=True,
+                       struct_every=1).with_infer_dtype("int8")
+    state = init_deep(spec, 0, "cuda")
+    program = ServeProgram(spec)
+    program.load(state)
+    program.capture(8)
+    x, labels = _small_fit_data(spec, 8)
+    xs = torch.from_numpy(x).cuda()
+    ys = torch.from_numpy(labels.astype(np.int32)).cuda()
+    valid = torch.ones(8, device="cuda")
+    folded = online_learn_step(state, spec, xs, ys, learn_stack=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        program.load(folded)
+        probs, _ = program(xs, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, _ = _eager_served(folded, spec, xs, valid)
+    assert torch.equal(probs, want)
+
+
+def _quarantine_run(spec, state, nan_row, fault_schedule):
+    from repro_torch.core.graphs import state_tensors
+    from repro_torch.serve import BCPNNService, FaultInjector
+    inj = FaultInjector(seed=0, schedule=fault_schedule)
+    svc = BCPNNService(state, spec, max_batch=8, online_learning=True,
+                       feedback_batch=4, feedback_eager=False,
+                       fault_injector=inj).start()
+    x, labels = _small_fit_data(spec, 12)
+    try:
+        for i in range(4):
+            svc.feedback(x[i], int(labels[i]))
+        _wait_for(lambda: svc.snapshot()["learn_steps"] == 1)
+        good = [t.clone() for t in state_tensors(svc.model_state())]
+        for i in range(4, 8):
+            row = x[i].copy()
+            if nan_row and i == 5:
+                row[7] = np.nan
+            svc.feedback(row, int(labels[i]))
+        _wait_for(lambda: svc.snapshot()["quarantined"] == 1.0)
+        for g, a in zip(good, state_tensors(svc.model_state())):
+            assert torch.equal(g, a)
+        served = svc.classify(x[9], timeout=30)
+        want_p, want_q = _eager_served(
+            svc.model_state(), spec,
+            torch.from_numpy(x[9:10]).cuda(), torch.ones(1, device="cuda"))
+        assert served.pred == int(want_q[0])
+        assert np.array_equal(served.probs, want_p[0].cpu().numpy())
+        assert svc.snapshot()["learn_steps"] == 1.0
+    finally:
+        svc.stop()
+
+
+def _wait_for(cond, timeout_s=60.0):
+    import time
+    end = time.perf_counter() + timeout_s
+    while not cond():
+        assert time.perf_counter() < end, "condition never held"
+        time.sleep(0.002)
+
+
+def test_quarantine_rolls_back_bitwise_on_the_card(gen):
+    from repro_torch.core.network import init_deep
+    spec = _serve_spec()
+    _quarantine_run(spec, init_deep(spec, 1, "cuda"), False,
+                    {"nan-state": {1}})
+
+
+def test_nan_feedback_row_is_quarantined_on_the_card(gen):
+    """A NaN in one feedback row goes through the forward and update
+    kernels of a readout fold (the tensor-core kernels keep NaN) and the
+    sentinel catches the candidate."""
+    from repro_torch.core.network import init_deep
+    spec = _serve_spec()
+    _quarantine_run(spec, init_deep(spec, 2, "cuda"), True, {})
+
+
+def test_restored_trainer_next_noisy_epoch_equals_the_uninterrupted_one(
+        gen, tmp_path):
+    """A trainer whose steps were captured restores a checkpoint (new
+    tensors, a new generator at the saved state): its next noisy epoch,
+    through a fresh capture, equals the epoch the saving trainer runs on,
+    bit for bit, generator included."""
+    from repro_torch.core import Trainer
+    from repro_torch.core.graphs import state_tensors
+    spec = _serve_spec()
+    x, labels = _small_fit_data(spec, 64)
+    a = Trainer(spec, seed=0, device="cuda")
+    a.fit(x, labels, epochs=1, batch=16)
+    a.save(str(tmp_path))
+    b = Trainer(spec, seed=5, device="cuda")
+    b.fit(x, labels, epochs=1, batch=16)  # captured on other tensors
+    assert b.restore(str(tmp_path)) == int(a.state.step)
+    xs = torch.from_numpy(x).cuda().view(4, 16, -1)
+    a.state = a._unsup_fn(0, False)(a.state, xs)
+    b.state = b._unsup_fn(0, False)(b.state, xs)
+    for u, v in zip(state_tensors(a.state), state_tensors(b.state)):
+        assert torch.equal(u, v)
+    assert torch.equal(a.state.generator.get_state(),
+                       b.state.generator.get_state())

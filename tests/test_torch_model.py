@@ -404,13 +404,42 @@ def test_trainer_takes_the_jax_argument_order():
 @pytest.mark.parametrize("kwargs", [
     {"ckpt_every_batches": 4}, {"on_chunk": lambda cursor: None},
     {"ckpt_dir": "ckpt"}, {"resume": True}])
-def test_fit_refuses_unported_checkpoint_arguments(kwargs):
+def test_fit_checkpoint_arguments_match_jax(kwargs, tmp_path):
+    """Each of ``fit``'s checkpoint arguments is accepted, or refused with
+    the JAX ``ValueError``, as ``repro.core.Trainer.fit`` does: chunks
+    without a directory write nothing, the callback sees the same cursors,
+    a directory alone gets one final checkpoint with the same cursor, and
+    ``resume`` without a directory is refused alike."""
+    jspec = j_deep_synth_spec(depth=1, hidden_hc=4, hidden_mc=8)
     spec = deep_synth_spec(depth=1, hidden_hc=4, hidden_mc=8)
-    tr = Trainer(spec, seed=0, device="cpu")
-    x = np.zeros((4, spec.projs[0].pre.N), np.float32)
-    y = np.zeros((4,), np.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        tr.fit(x, y, epochs=1, batch=4, **kwargs)
+    rng = np.random.default_rng(0)
+    x = rng.random((12, spec.projs[0].pre.N)).astype(np.float32)
+    y = rng.integers(0, spec.n_classes, size=12).astype(np.int32)
+    outcomes = []
+    for pkg, trainer in (("jax", JTrainer(jspec, seed=0)),
+                         ("port", Trainer(spec, seed=0, device="cpu"))):
+        kw = dict(kwargs)
+        seen = []
+        if "on_chunk" in kw:
+            kw["on_chunk"] = lambda cur: seen.append(cur.to_dict())
+        if "ckpt_dir" in kw:
+            kw["ckpt_dir"] = str(tmp_path / pkg)
+        try:
+            trainer.fit(x, y, epochs=1, batch=4, **kw)
+        except ValueError as e:
+            outcomes.append(("ValueError", str(e), seen))
+            continue
+        written = None
+        if "ckpt_dir" in kw:
+            from repro.checkpoint import CheckpointManager as JManager
+            mgr = JManager(kw["ckpt_dir"])
+            written = (mgr.all_steps(),
+                       mgr.read_extra(mgr.latest_step())["cursor"])
+        outcomes.append(("ok", written, seen))
+    assert outcomes[0] == outcomes[1]
+    if "resume" in kwargs:
+        assert outcomes[0][0] == "ValueError"
+        assert "requires ckpt_dir" in outcomes[0][1]
 
 
 def test_core_helpers_match_jax():

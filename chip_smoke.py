@@ -96,7 +96,26 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      to eager ``infer_packed``; the quarantine (a ``nan-state`` fault and a
      NaN feedback row through the kernels) rolling back bit for bit while
      the slot keeps serving; and ``python -m
-     repro_torch.launch.serve_bcpnn --smoke`` in a process of its own.
+     repro_torch.launch.serve_bcpnn --smoke`` in a process of its own (its
+     phase 5 the router failover).
+  9. the multi-engine router at full width (``[phase9]`` lines): three
+     engines, Model 1 fp32 and (c) int8 at replicas=2, the engine hosting
+     both killed at a seeded admitted-request index of the Model-1 stream
+     (all 2048 test rows once at a Poisson 4000/s, then the (c) stream on
+     the recovered placement); every router id resolved exactly once, the
+     failures ``WorkerDied`` on the victim's in-flight ids only, both
+     models re-placed by live captures (the router's maintenance probe)
+     while the stream runs, every served batch of every engine equal to
+     eager ``infer_packed`` on its padded group bit for bit, the launch
+     counts of each stream those of its replays' captures; p50/p99 and
+     images/s beside phase 8's single engine, the walls of the
+     re-placements and their captures, the longest blocked submit.  Then a
+     cold Model-1 readout learning online on two replicas through the
+     router (``feedback_eager=False``): ``reconcile`` (timed) finds them
+     equal bit for bit and equal to the offline replay of the same
+     feedback; a ``nan-state`` fault on one replica's next fold, and
+     ``heal`` (timed) drains, revalidates and repairs it from its peer
+     bit for bit, in tensors of its own.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
      and (c), of (b)'s unsupervised step and evaluation batch, of the
@@ -1644,10 +1663,11 @@ class Recorder:
         self.records.append((x.copy(), valid.copy(), probs, pred))
         return probs, pred
 
-    def replay_launches(self, buckets) -> dict:
-        """The launches the recorded batches' replays added."""
+    def replay_launches(self, buckets, start=0, stop=None) -> dict:
+        """The launches the recorded batches' replays added (those of
+        ``records[start:stop]``)."""
         out: dict = {}
-        for x, *_ in self.records:
+        for x, *_ in self.records[start:stop]:
             for k, c in buckets[len(x)].launches.items():
                 out[k] = out.get(k, 0) + c
         return out
@@ -1670,6 +1690,19 @@ class Recorder:
                   f"{label}: a served bucket of {len(x)} parts from eager "
                   f"infer_packed")
         return len(self.records) - start
+
+
+# run -> (p50 ms, p99 ms, images/s) of phase 8's single-engine streams, from
+# the served rows' latencies and the stream's wall, for phase 9 to print
+# beside the router's.
+SINGLE_ENGINE = {}
+
+
+def stream_figures(rep):
+    """(p50 ms, p99 ms, images/s) of an open-loop report's served rows."""
+    lat = np.asarray([r.latency_ms for r in rep.results])
+    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
+            len(rep.results) / rep.wall_s)
 
 
 def serve_stream(torch, label, state, spec, dtype, kernels, xte, yte):
@@ -1724,6 +1757,7 @@ def serve_stream(torch, label, state, spec, dtype, kernels, xte, yte):
           f"bucket {per_bucket}; stream launches {json.dumps(launches)}",
           flush=True)
     check(acc == acc6, f"{label}: served accuracy {acc} != {acc6}")
+    SINGLE_ENGINE[label] = stream_figures(rep)
     return launches, slot
 
 
@@ -1956,6 +1990,311 @@ def phase8_launcher(root):
                                f"{lines[-1:] or ['(no output)']}")
 
 
+# --------------------------------------------------------------- phase 9 --
+
+# The admitted-request index (in the Model-1 stream) at which the engine
+# hosting both models is killed: drawn from this seed, in the middle half.
+KILL_SEED = 21
+
+
+class Front:
+    """The serving front the open-loop generator drives in phase 9: the
+    router, plus a kill of ``victim`` when the ``kill_at``-th request is
+    admitted (a count, not a timer).  Records each submit's wall, the
+    engine each router id went to, each id's one resolution, and the
+    feedback rows in the order the router took them."""
+
+    def __init__(self, router, victim=None, kill_at=None):
+        self.router, self.victim, self.kill_at = router, victim, kill_at
+        self.walls, self.engine, self.outcome, self.fed = [], {}, {}, []
+        self.kill_t = None
+
+    def submit(self, x, model=None, deadline_s=None):
+        t = time.perf_counter()
+        try:
+            rid = self.router.submit(x, model=model, deadline_s=deadline_s)
+        finally:
+            self.walls.append((t, time.perf_counter() - t))
+        with self.router._requests_lock:
+            self.engine[rid] = self.router._requests[rid][0]
+        if len(self.engine) == self.kill_at:
+            self.router._engines[self.victim].kill("phase 9: engine loss")
+            self.kill_t = time.perf_counter()
+        return rid
+
+    def result(self, request_id, timeout=None):
+        check(request_id not in self.outcome,
+              f"router id {request_id} resolved twice")
+        try:
+            res = self.router.result(request_id, timeout=timeout)
+        except BaseException as e:
+            self.outcome[request_id] = e
+            raise
+        self.outcome[request_id] = res
+        return res
+
+    def feedback(self, x, label, model=None):
+        self.router.feedback(x, label, model=model)
+        self.fed.append((np.asarray(x, np.float32), int(label)))
+
+
+class Placements:
+    """Wraps every engine of a router: the wall of each placement
+    (``add_model``) and of its captures (``_warm_slot``, which also hangs
+    a ``Recorder`` on the slot's served batches before it is published)."""
+
+    def __init__(self, router):
+        self.walls, self.recorders = {}, {}
+        for eid, handle in router._engines.items():
+            svc = handle.service
+            add, warm = handle.add_model, svc._warm_slot
+
+            def timed_add(model, *a, eid=eid, add=add, svc=svc, **k):
+                t = time.perf_counter()
+                add(model, *a, **k)
+                self.walls.setdefault((eid, model), {}).update(
+                    add_s=time.perf_counter() - t,
+                    live=k.get("live", False))
+
+            def timed_warm(slot, eid=eid, warm=warm):
+                self.recorders[(eid, slot.name)] = Recorder(slot.program)
+                t = time.perf_counter()
+                warm(slot)
+                self.walls.setdefault((eid, slot.name), {}).update(
+                    capture_s=time.perf_counter() - t, t0=t,
+                    t1=time.perf_counter())
+
+            handle.add_model, svc._warm_slot = timed_add, timed_warm
+
+
+def phase9(torch, tr, fitted, data):
+    """The router at full width; returns the launches of its streams."""
+    runs = phase9_failover(torch, tr, fitted, data)
+    runs.update(phase9_online(torch, tr, data))
+    return runs
+
+
+def phase9_failover(torch, tr, fitted, data):
+    """Model 1 fp32 and (c) int8 at replicas=2 on three engines; the engine
+    hosting both killed at a seeded admitted-request index of the Model-1
+    stream; both models re-placed by live captures while the stream runs;
+    then the (c) stream on the recovered placement."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BCPNNRouter, WorkerDied, run_open_loop
+    xtr, ytr, xte, yte = data
+    spec_c = fitted["c"].spec.with_infer_dtype("int8")
+    models = (("model1_fp32", tr.state, tr.spec, ("bcpnn_fwd",
+                                                   "hc_softmax")),
+              ("struct_c_int8", fitted["c"].state, spec_c,
+               ("quant_compact_forward", "hc_softmax")))
+    router = BCPNNRouter.local(3, max_batch=64)
+    placed = Placements(router)
+    for name, state, spec, _ in models:
+        router.add_model(name, state, spec, replicas=2)
+    t = time.perf_counter()
+    router.start()
+    start_s = time.perf_counter() - t
+    hosts = {name: router.placement(name)["replicas"] for name, *_ in models}
+    check(hosts == {"model1_fp32": ("engine0", "engine1"),
+                    "struct_c_int8": ("engine2", "engine0")},
+          f"placements {hosts}")
+    victim = "engine0"
+    kill_at = int(np.random.default_rng(KILL_SEED).integers(
+        len(xte) // 4, 3 * len(xte) // 4))
+    router.start_maintenance(period_s=0.005)  # the router's own probe
+    runs, figures = {}, {}
+    for (name, state, spec, kernels), seed in zip(models, (0, 1)):
+        front = Front(router, victim, kill_at if seed == 0 else None)
+        marks = {k: len(r.records) for k, r in placed.recorders.items()}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rep = run_open_loop(front, xte, yte, n_requests=len(xte),
+                            rate_hz=SERVE_RATE_HZ, seed=seed, replace=False,
+                            model=name)
+        launches = ops.launch_counts()
+        runs[f"router_{name}"] = launches
+        want = {k: 0 for k in launches}
+        for key, r in placed.recorders.items():
+            for k, c in r.replay_launches(
+                    router._engines[key[0]].service._slot(
+                        key[1]).program.buckets,
+                    marks.get(key, 0)).items():
+                want[k] += c
+        check(launches == want, f"router {name}: the stream launched "
+                                f"{launches}, its replays' captures {want}")
+        check(all(launches[k] > 0 for k in kernels),
+              f"router {name}: none of one of {kernels} launched")
+        check(len(rep.results) + len(rep.errors) + rep.n_rejected
+              == len(xte), f"router {name}: accounting does not close")
+        check(set(front.outcome) == set(front.engine),
+              f"router {name}: {len(front.engine)} ids admitted, "
+              f"{len(front.outcome)} resolved")
+        bad = [(rid, type(e).__name__, front.engine[rid])
+               for rid, e in front.outcome.items()
+               if isinstance(e, BaseException)
+               and not (isinstance(e, WorkerDied)
+                        and front.engine[rid] == victim)]
+        check(not bad, f"router {name}: failures other than WorkerDied on "
+                       f"{victim}: {bad[:5]}")
+        check(rep.n_rejected == 0, f"router {name}: {rep.n_rejected} "
+                                   f"rejected")
+        acc = rep.accuracy()
+        figures[name] = (rep, front, acc)
+    snap = router.metrics.snapshot()
+    place = {name: router.placement(name)["replicas"] for name, *_ in models}
+    errs = router.stop()
+    check(victim in errs and snap["engine_losses"] == 1
+          and snap["replacements"] == 2,
+          f"router: the loss was not handled once ({snap}, {errs})")
+    check(place == {"model1_fp32": ("engine1", "engine2"),
+                    "struct_c_int8": ("engine2", "engine1")},
+          f"router: placements after the loss {place}")
+    rep1, front1, _ = figures["model1_fp32"]
+    lives = {k: v for k, v in placed.walls.items() if v["live"]}
+    check(set(lives) == {("engine2", "model1_fp32"),
+                         ("engine1", "struct_c_int8")},
+          f"router: live placements {sorted(lives)}")
+    after = [t for t, _ in front1.walls if t > max(
+        v["t1"] for v in lives.values())]
+    check(front1.kill_t is not None and all(
+        front1.kill_t < v["t0"] for v in lives.values()) and after,
+          "router: the re-placements were not captured while the Model-1 "
+          "stream ran")
+    for key, v in lives.items():
+        prog = router._engines[key[0]].service._slot(key[1]).program
+        check(tuple(sorted(prog.buckets)) == SERVE_BUCKETS,
+              f"router {key}: live capture of buckets {sorted(prog.buckets)}")
+    n_checked = 0
+    for (eid, model), r in sorted(placed.recorders.items()):
+        slot = router._engines[eid].service._slot(model)
+        n_checked += r.check_eager(torch, f"router {eid}/{model}", slot.pack,
+                                   slot.spec)
+    for (eid, model) in lives:
+        check(len(placed.recorders[(eid, model)].records) > 0,
+              f"router: the re-placed {model} on {eid} served nothing")
+    died = sum(isinstance(o, WorkerDied) for o in front1.outcome.values())
+    blocked = sorted(w for _, w in front1.walls)
+    for name, (rep, front, acc) in figures.items():
+        p50, p99, ips = stream_figures(rep)
+        s50, s99, sips = SINGLE_ENGINE[name]
+        print(f"[phase9] router {name}: {len(rep.results)} served / "
+              f"{len(rep.errors)} WorkerDied / {rep.n_rejected} rejected "
+              f"of {len(xte)} at {SERVE_RATE_HZ:.0f}/s offered: p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms, {ips:.1f} images/s, served "
+              f"accuracy {acc:.6f} (phase 8's single engine: p50 "
+              f"{s50:.3f} ms p99 {s99:.3f} ms, {sips:.1f} images/s); "
+              f"launches {json.dumps(runs[f'router_{name}'])}", flush=True)
+    print(f"[phase9] router failover: 3 engines, Model 1 fp32 and (c) int8 "
+          f"at replicas=2 (start {start_s:.3f} s); {victim} killed at "
+          f"admitted request {kill_at} of the Model-1 stream; {died} "
+          f"in-flight ids on it resolved WorkerDied, every id exactly "
+          f"once; recovery (loss to last re-placement) "
+          f"{snap.get('recovery_s_max', 0.0) * 1e3:.1f} ms; live "
+          f"re-placements " + ", ".join(
+              f"{m} -> {e} {v['add_s'] * 1e3:.1f} ms (captures "
+              f"{v['capture_s'] * 1e3:.1f} ms)"
+              for (e, m), v in sorted(lives.items())) +
+          f"; submits blocked: longest {blocked[-1] * 1e3:.1f} ms, "
+          f"{sum(w > 1e-3 for w in blocked)} over 1 ms; {n_checked} served "
+          f"batches on 3 engines equal eager infer_packed bit for bit",
+          flush=True)
+    return runs
+
+
+def phase9_online(torch, tr, data):
+    """A cold Model-1 readout learning online on 2 replicas through the
+    router, reconciled and held to the offline replay; then a NaN fold on
+    one replica, drained, revalidated and repaired by ``heal``."""
+    import dataclasses
+    from repro_torch.core import init_projection
+    from repro_torch.core.graphs import state_tensors
+    from repro_torch.core.network import supervised_readout_step
+    from repro_torch.device import make_generator
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (BCPNNRouter, FaultInjector,
+                                   merge_replica_states, run_open_loop,
+                                   states_bitwise_equal)
+    xtr, ytr, xte, yte = data
+    spec, state = tr.spec, tr.state
+    cold = dataclasses.replace(state, readout=init_projection(
+        spec.readout, make_generator(99, state.device)))
+    # every request carries a feedback row: the stream makes len(xte) / 64
+    # folds, and engine0's next fold is corrupted (a NaN)
+    heal_fold = len(xte) // 64
+    inj = FaultInjector(seed=KILL_SEED, schedule={"nan-state": {heal_fold}})
+    router = BCPNNRouter.local(2, max_batch=64, online_learning=True,
+                               feedback_batch=64, feedback_eager=False,
+                               fault_injectors=[inj, None])
+    router.add_model("readout", cold, spec, replicas=2, online=True)
+    router.start()
+    engines = [router._engines[e] for e in ("engine0", "engine1")]
+    front = Front(router)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rep = run_open_loop(front, xte, yte, n_requests=len(xte),
+                            rate_hz=SERVE_RATE_HZ, seed=3, feedback_frac=1.0,
+                            fb_x=xtr, fb_y=ytr, replace=False,
+                            model="readout")
+        folds = len(front.fed) // 64
+        check(folds == heal_fold, f"{len(front.fed)} feedback rows")
+        wait_for(lambda: all(h.snapshot(model="readout")["learn_steps"]
+                             == folds for h in engines), "the folds")
+        launches = ops.launch_counts()
+        t = time.perf_counter()
+        rec = router.reconcile("readout")["readout"]
+        reconcile_ms = (time.perf_counter() - t) * 1e3
+        states = [h.model_state_sync("readout") for h in engines]
+        ref = replay(cold, list(front.fed), 64, lambda st, x, y:
+                     supervised_readout_step(st, spec, x, y))
+        worst, n, same = state_identity(torch, ref, states[0])
+        merged_ok = states_bitwise_equal(merge_replica_states(states),
+                                         states[1])
+        n_fed = len(front.fed)
+        # (iii): the next fold of engine0 is corrupted
+        for i in range(64):
+            front.feedback(xtr[i], int(ytr[i]), model="readout")
+        wait_for(lambda: engines[0].quarantined("readout")
+                 and engines[1].snapshot(model="readout")["learn_steps"]
+                 == folds + 1, "the quarantine")
+        t = time.perf_counter()
+        healed = router.heal()
+        heal_ms = (time.perf_counter() - t) * 1e3
+        a, b = (h.model_state_sync("readout") for h in engines)
+        own = not ({x.data_ptr() for x in state_tensors(a)}
+                   & {x.data_ptr() for x in state_tensors(b)})
+        rec2 = router.reconcile("readout")["readout"]
+        served = [router.classify(x, timeout=60) for x in xte[:8]]
+        snap = router.metrics.snapshot()
+    finally:
+        router.stop()
+    print(f"[phase9] online readout on 2 replicas: {n_fed} "
+          f"feedback rows broadcast in {folds} folds each while serving "
+          f"{len(rep.results)} requests; reconcile {reconcile_ms:.1f} ms: "
+          f"{'consistent' if rec.get('consistent') else rec}; replicas "
+          f"{'equal' if states_bitwise_equal(*states) else 'DIFFER'} bit "
+          f"for bit, merge {'equal' if merged_ok else 'DIFFERS'}; offline "
+          f"replay max abs diff {worst:.3e} over {n} tensors; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check(rec.get("consistent") is True and states_bitwise_equal(*states)
+          and merged_ok, f"online replicas not reconciled: {rec}")
+    check(worst == 0 and same, "the replicas part from the offline replay")
+    check(len(rep.results) == len(xte) and not rep.errors,
+          "online router stream dropped requests")
+    print(f"[phase9] heal: a nan-state fault at engine0's fold "
+          f"{heal_fold + 1} quarantined it; heal {heal_ms:.1f} ms drained, "
+          f"revalidated and repaired it from engine1: "
+          f"{'bit for bit' if states_bitwise_equal(a, b) else 'WRONGLY'}, "
+          f"{'own tensors' if own else 'SHARED tensors'}; then reconcile "
+          f"{'consistent' if rec2.get('consistent') else rec2}, "
+          f"{len(served)} rows served", flush=True)
+    check(healed == {"readout": ["engine0"]} and states_bitwise_equal(a, b)
+          and own and rec2.get("consistent") is True
+          and snap["quarantine_drains"] == 1,
+          f"heal failed: {healed}, {rec2}, {snap}")
+    return {"router_online_readout": launches}
+
+
 # --------------------------------------------------------------- phase 7 --
 
 def phase7():
@@ -2158,6 +2497,7 @@ def main() -> int:
     fitted, struct_launches = phase5(torch, xtr, ytr, xte, yte)
     serve_launches = phase6(torch, tr, fitted, xte, yte)
     stream_launches, served = phase8(torch, tr, fitted, data)
+    stream_launches.update(phase9(torch, tr, fitted, data))
     phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
     phase7()
 

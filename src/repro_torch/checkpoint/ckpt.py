@@ -82,6 +82,14 @@ def key_seed(key: np.ndarray) -> int:
     return (int(k[0]) << 32) | int(k[1])
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy array of its own holding ``t``'s values now: a CUDA tensor's
+    one ``.cpu()`` copy, a CPU tensor's clone (``.numpy()`` of a CPU tensor
+    is a view of its live storage)."""
+    t = t.detach()
+    return (t.clone() if t.device.type == "cpu" else t.cpu()).numpy()
+
+
 def _flatten_with_names(state) -> Tuple[List[str], List[Any]]:
     """(names, leaves) in the JAX package's pytree order; ``key`` is the
     generator's numpy key leaf, every other leaf a tensor."""
@@ -111,13 +119,15 @@ class CheckpointManager:
     def save(self, step: int, tree, blocking: bool = False,
              extra: Optional[dict] = None) -> None:
         """Write ``tree`` (a port ``DeepState``) as ``step_<step>``.  The
-        arrays are copied to the host here (one read of the card); the
-        files are written on a thread unless ``blocking``.  ``extra``
-        (JSON-serializable) goes into the manifest, with the generator's
-        state added under ``"torch_generator"``."""
+        arrays are copied to the host here (one read of the card; a CPU
+        tensor is cloned, since the steps write states in place), so the
+        checkpoint is the state at the call; the files are written on a
+        thread unless ``blocking``.  ``extra`` (JSON-serializable) goes
+        into the manifest, with the generator's state added under
+        ``"torch_generator"``."""
         self.wait()
         names, leaves = _flatten_with_names(tree)
-        host = [a if isinstance(a, np.ndarray) else a.detach().cpu().numpy()
+        host = [a if isinstance(a, np.ndarray) else _host_array(a)
                 for a in leaves]
         gen = tree.generator
         extra = dict(extra or {})

@@ -38,6 +38,7 @@ failures raise: nothing falls back to the eager step on the card.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +49,13 @@ from .compact import build_table, cached_table
 from .network import (DeepState, InferParams, NetworkSpec, infer_packed,
                       pack_state)
 from .traces import Traces
+
+# Held around every piece of card work a serving engine does (captures,
+# replays, folds, state installs and copies).  A CUDA graph capture fails
+# when another thread synchronises or allocates on the card meanwhile, and
+# the kernels' launch counters are process-wide (a capture takes back what
+# it counted), so engines sharing the card take turns on it.
+card_lock = threading.RLock()
 
 
 def state_tensors(state: DeepState) -> List[torch.Tensor]:

@@ -27,9 +27,15 @@ Phases:
      Poisson mix — per-model fairness — with stack-projection learning
      and the struct_every rewire cold path running on the deployed
      patchy model (receptive fields keep refining in deployment);
-  5. router failover: not ported yet (ROADMAP.md queue A item 6-rest).
-     ``--router`` asks for it and raises ``NotImplementedError``;
-     ``--smoke`` implies ``--no-router`` until then, and says so.
+  5. router failover (--smoke or --router, unless --no-router): the
+     checkpoint is replicated across a 3-engine ``BCPNNRouter``, one
+     replica-hosting engine is KILLED once half the requests are
+     admitted (a count, not a timer), and the phase asserts the
+     DESIGN.md §11 ladder end to end — every admitted request resolves
+     exactly once (served or typed), the loss is detected and the
+     placement re-established on a survivor (on the card: its bucket
+     graphs captured live, under traffic), post-loss traffic still
+     serves, and reconcile() finds the replicas bit-consistent.
 
 Passing ``--ckpt DIR`` (repeatable) instead serves the given checkpoint
 directories as a multi-model deployment directly (names = dir basenames).
@@ -41,6 +47,7 @@ import dataclasses
 import math
 import os
 import tempfile
+import time
 
 import numpy as np
 
@@ -50,11 +57,9 @@ from ..core import Trainer, evaluate_padded, init_projection
 from ..data.synthetic import encode_images, make_synthetic
 from ..device import make_generator, resolve_device
 from ..serve import (
-    BCPNNService, StreamSpec, run_multi_open_loop, run_open_loop,
+    BCPNNRouter, BCPNNService, Overloaded, ServeError, StreamSpec,
+    run_multi_open_loop, run_open_loop,
 )
-
-ROUTER_NOT_PORTED = ("phase 5 (the BCPNNRouter failover) is not ported yet "
-                     "(ROADMAP.md queue A item 6-rest)")
 
 
 def _report(tag: str, snap: dict, extra: str = "") -> None:
@@ -184,11 +189,11 @@ def main(argv=None):
     ap.add_argument("--no-multi", action="store_true",
                     help="skip the multi-model + rewire phase in --smoke")
     ap.add_argument("--no-router", action="store_true",
-                    help="skip the replicated-router failover phase "
-                         "(implied by --smoke until the router is ported)")
+                    help="skip the replicated-router failover phase in "
+                         "--smoke")
     ap.add_argument("--router", action="store_true",
-                    help="run the replicated-router failover phase: not "
-                         "ported yet, raises NotImplementedError")
+                    help="run the replicated-router failover phase without "
+                         "--smoke too")
     ap.add_argument("--feedback-frac", type=float, default=0.8)
     ap.add_argument("--feedback-batch", type=int, default=16)
     ap.add_argument("--infer-dtype", choices=["fp32", "bf16", "int8"],
@@ -201,12 +206,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     args.device = str(resolve_device(args.device))
-    if args.router and not args.no_router:
-        raise NotImplementedError(ROUTER_NOT_PORTED)
-    if args.smoke and not args.no_router:
-        print(f"[serve-bcpnn] --smoke implies --no-router: "
-              f"{ROUTER_NOT_PORTED}")
-        args.no_router = True
 
     if args.ckpt:
         serve_checkpoints(args)
@@ -379,8 +378,78 @@ def main(argv=None):
             "no struct_every boundary crossed: rewire cannot have run"
         print("[serve-bcpnn] multi-model + rewire phase OK")
 
+    # ---- phase 5: router failover under an engine loss ------------------
+    if (args.smoke or args.router) and not args.no_router:
+        _router_phase(args, state, spec, xe)
+
     if args.smoke:
         print("[serve-bcpnn] smoke OK")
+
+
+def _router_phase(args, state, spec, xe) -> None:
+    """Replicated serving through the cross-engine router with a chaos
+    kill mid-stream: the deterministic end-to-end form of the DESIGN.md
+    §11 ladder (the seeded soak lives in tests/test_torch_router.py)."""
+    print("[serve-bcpnn] router phase: 3 engines, replicas=2, one engine "
+          "killed mid-stream")
+    router = BCPNNRouter.local(3, max_batch=args.max_batch,
+                               max_wait_ms=args.max_wait_ms,
+                               max_queue=args.max_queue)
+    router.add_model("m", state, spec, replicas=2)
+    router.start()
+    victim = router.placement("m")["replicas"][0]
+    n = max(64, args.requests)
+    ids, rejected, killed = [], 0, False
+    for i in range(n):
+        if not killed and len(ids) == n // 2:
+            # deterministic engine loss at an admitted-request count
+            router._engines[victim].kill("smoke: engine loss")
+            killed = True
+            # wait for the probe to notice (the submit loop is far faster
+            # than the worker's death, so without this the whole second
+            # half would land in the dead engine's queue — typed failures,
+            # but nothing left to prove post-loss serving)
+            t_end = time.perf_counter() + 30.0
+            while victim in router.placement("m")["replicas"]:
+                router.check_engines()
+                if time.perf_counter() > t_end:
+                    raise SystemExit("engine loss never detected")
+                time.sleep(0.005)
+        try:
+            ids.append(router.submit(xe[i % len(xe)], model="m",
+                                     deadline_s=10.0))
+        except Overloaded:
+            rejected += 1
+    served = failed = 0
+    for rid in ids:
+        try:
+            router.result(rid, timeout=60.0)
+            served += 1
+        except ServeError:
+            failed += 1  # typed resolution — the loss was not silent
+    rec = router.reconcile("m")["m"]
+    snap = router.metrics.snapshot()
+    place = router.placement("m")
+    errs = router.stop()
+    print(f"[serve-bcpnn] router: {served} served / {failed} failed typed "
+          f"/ {rejected} rejected of {n} offered, "
+          f"{snap['reroutes']:.0f} reroutes, "
+          f"{snap['engine_losses']:.0f} engine losses, "
+          f"{snap['replacements']:.0f} replacements, "
+          f"recovery {snap.get('recovery_s_max', 0.0)*1e3:.0f}ms, "
+          f"replicas now {place['replicas']}")
+    # every admitted request resolved exactly once, at the router
+    assert served + failed == len(ids), "router lost a request id"
+    assert snap["submitted"] == snap["completed"] + snap["failed"], \
+        f"router accounting does not close: {snap}"
+    assert snap["engine_losses"] >= 1, "the engine loss went undetected"
+    assert snap["replacements"] >= 1, "no replacement replica was placed"
+    assert victim not in place["replicas"], "dead engine still placed"
+    assert len(place["replicas"]) == 2, "placement not re-established"
+    assert served > n // 2, "post-loss traffic did not keep serving"
+    assert rec.get("consistent", False), f"replicas diverged: {rec}"
+    assert victim in errs, "stop() did not surface the killed engine"
+    print("[serve-bcpnn] router failover phase OK")
 
 
 if __name__ == "__main__":

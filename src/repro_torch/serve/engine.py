@@ -57,16 +57,19 @@ admission front into shape-bucketed microbatches:
 Thread model: ``submit``/``feedback`` may be called from any thread (they
 only enqueue host arrays); all device work — inference and learning —
 happens on the single worker thread, so no model state needs a lock and
-learning can never race an in-flight forward pass.  Every graph is
-captured in ``warmup()``, before the worker starts: a capture fails while
-another thread launches work on the card.
+learning can never race an in-flight forward pass.  The graphs are
+captured in ``warmup()``, before the worker starts, and by
+``add_model(live=True)`` on the calling thread while the worker (and
+other engines' workers) serve.  A capture fails while another thread
+synchronises or allocates on the card, so every engine does its card work
+— captures, served batches, folds, state installs — under one lock
+(``core/graphs.py::card_lock``): engines on one card take turns, and a
+live capture holds the others' batches back until it ends.
 
 On the card the folds run eagerly and out of place (never donated), so
 ``last_good`` keeps its own tensors and a rejected candidate is simply
 never installed; each committed fold rewrites the static serving pack in
 place (``ServeProgram.load``).  On the CPU the served batch runs eagerly.
-Not ported yet: ``add_model(live=True)``, the router's recovery path
-(ROADMAP.md queue A item 6-rest).
 """
 from __future__ import annotations
 
@@ -81,7 +84,7 @@ import numpy as np
 import torch
 
 from ..core.bcpnn_layer import INFER_DTYPES, validate_patchy_state
-from ..core.graphs import ServeProgram, state_tensors
+from ..core.graphs import ServeProgram, card_lock, state_tensors
 from ..core.network import (
     as_spec, online_learn_step, supervised_readout_step,
 )
@@ -342,20 +345,22 @@ class BCPNNService:
                   weight: float = 1.0, live: bool = False) -> None:
         """Register one checkpointed model.
 
-        Registration is a construction-time operation (a running service
-        raises).  ``live=True``, the router's engine-loss recovery path
-        that places a model on a running engine, is not ported yet.
+        By default registration is a construction-time operation (a
+        running service raises).  ``live=True`` is the router's
+        engine-loss recovery path: the slot is built and, on the card, its
+        bucket graphs captured on the CALLING thread (under the card lock,
+        so no engine serves meanwhile), then published to the worker
+        atomically under the admission lock — the worker's scheduler scan
+        only ever sees it fully formed, and no request pays a capture.  A
+        capture that fails raises; the slot is not published.
 
         ``weight`` is the model's provisioned share for the weighted
         fair scheduler (>0; service time is proportional to
         weight/cost, so a 2x weight buys 2x the virtual-time share)."""
-        if live:
-            raise NotImplementedError(
-                "add_model(live=True): placing a model on a running engine "
-                "is the router's recovery path, not ported yet (ROADMAP.md "
-                "queue A item 6-rest)")
-        if self._thread is not None:
-            raise RuntimeError("cannot add a model to a running service")
+        if self._thread is not None and not live:
+            raise RuntimeError("cannot add a model to a running service "
+                               "(pass live=True for an online placement, "
+                               "e.g. router engine-loss recovery)")
         if name in self._slots:
             raise ValueError(f"model {name!r} already registered")
         if not (weight > 0):
@@ -363,7 +368,8 @@ class BCPNNService:
         spec = as_spec(spec_or_cfg)
         if self.infer_dtype is not None:
             spec = spec.with_infer_dtype(self.infer_dtype)
-        _validate_state(state, spec, name)
+        with card_lock:
+            _validate_state(state, spec, name)
         # The serving forward runs over the slot's packed inference
         # weights (InferParams), not the fp32 learning state: fp32 packs
         # hold the state's values (bit-identical to infer()), bf16/int8
@@ -387,8 +393,13 @@ class BCPNNService:
             weight=float(weight), cost=_spec_cost(spec),
             last_good=state,
         )
-        slot.repack()
+        with card_lock:
+            slot.repack()
+            if live and self._thread is not None:
+                self._warm_slot(slot)  # capture off the serving path
         with self._admit_lock:
+            if self._thread is not None:
+                self._check_alive()
             # a late joiner starts at the current virtual clock so it
             # cannot claim credit for virtual time it never waited
             slot.vft = self._vclock
@@ -433,10 +444,11 @@ class BCPNNService:
         quarantine is a degradation, not a death sentence — an operator
         (or a test) calls revalidate() to resume learning from the
         last-good snapshot."""
-        for slot in self._slots.values():
-            _validate_state(slot.state, slot.spec, slot.name)
-            if slot.quarantined and _state_finite(slot.state):
-                slot.quarantined = False
+        with card_lock:
+            for slot in self._slots.values():
+                _validate_state(slot.state, slot.spec, slot.name)
+                if slot.quarantined and _state_finite(slot.state):
+                    slot.quarantined = False
 
     # --------------------------------------- single-model back-compat -----
     @property
@@ -511,15 +523,18 @@ class BCPNNService:
     def warmup(self) -> None:
         """On the card, capture every (model, bucket) graph and run the
         learn step once, so no request pays a capture or the kernel build
-        on the serving path.  Called before the worker starts: no other
-        thread may launch work on the card during a capture.  On the CPU
+        on the serving path.  Called before the worker starts.  On the CPU
         there is nothing to prepare."""
-        for slot in self._slots.values():
-            if slot.state.device.type == "cuda":
+        with card_lock:
+            for slot in self._slots.values():
                 self._warm_slot(slot)
 
     def _warm_slot(self, slot: _ModelSlot) -> None:
+        """Capture a slot's buckets and warm its learn step; the caller
+        holds the card lock (nothing to do on the CPU)."""
         ni, dev = slot.spec.input_geom.N, slot.state.device
+        if dev.type != "cuda":
+            return
         for b in self._buckets:
             if b not in slot.program.buckets:
                 slot.program.capture(b)
@@ -714,12 +729,13 @@ class BCPNNService:
         slot = self._slot(model)
 
         def install():
-            _validate_state(state, slot.spec, slot.name)
-            slot.state = state
-            slot.last_good = state
-            slot.repack()
-            if slot.quarantined and _state_finite(state):
-                slot.quarantined = False
+            with card_lock:
+                _validate_state(state, slot.spec, slot.name)
+                slot.state = state
+                slot.last_good = state
+                slot.repack()
+                if slot.quarantined and _state_finite(state):
+                    slot.quarantined = False
 
         if self._thread is None:
             install()
@@ -827,7 +843,8 @@ class BCPNNService:
                     return
                 op = self._control.popleft()
             try:
-                op.result = op.fn()
+                with card_lock:
+                    op.result = op.fn()
             except Exception as e:
                 op.error = e
             op.done.set()
@@ -1012,7 +1029,8 @@ class BCPNNService:
                 inj.check_group([r.id for r in group])
                 inj.raise_if("infer-raise")
             x, valid = pad_group([r.x for r in group], bucket)
-            probs, pred = slot.program.serve(x, valid)
+            with card_lock:
+                probs, pred = slot.program.serve(x, valid)
         finally:
             # even a failing batch is a timed step: injected or genuine
             # stragglers surface as events attributed to this model
@@ -1065,39 +1083,41 @@ class BCPNNService:
                          for _ in range(min(len(slot.feedback),
                                             self.feedback_batch))]
             self._fb_cursor = (j + 1) % n
-            inj = self.fault_injector
-            try:
-                if inj is not None:
-                    inj.raise_if("fold-raise")
-                x, y = cycle_batch(items, self.feedback_batch)
-                dev = slot.state.device
-                cand = slot.learn_fn(slot.state,
-                                     torch.from_numpy(x).to(dev),
-                                     torch.from_numpy(y).to(dev))
-                if inj is not None and inj.maybe("nan-state") is not None:
-                    cand = FaultInjector.corrupt_state(cand)
-            except Exception:
-                # survived: this batch's labels are lost, serving and
-                # later folds continue on the unchanged state
-                slot.metrics.record_crash()
-                slot.metrics.record_feedback_dropped(len(items))
+            with card_lock:
+                inj = self.fault_injector
+                try:
+                    if inj is not None:
+                        inj.raise_if("fold-raise")
+                    x, y = cycle_batch(items, self.feedback_batch)
+                    dev = slot.state.device
+                    cand = slot.learn_fn(slot.state,
+                                         torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(y).to(dev))
+                    if inj is not None and \
+                            inj.maybe("nan-state") is not None:
+                        cand = FaultInjector.corrupt_state(cand)
+                except Exception:
+                    # survived: this batch's labels are lost, serving and
+                    # later folds continue on the unchanged state
+                    slot.metrics.record_crash()
+                    slot.metrics.record_feedback_dropped(len(items))
+                    return
+                if not _state_finite(cand):
+                    # Quarantine: the candidate is never installed, so the
+                    # slot keeps serving from ``last_good`` unchanged — the
+                    # explicit restore makes the rollback contract literal
+                    # (and bitwise-checkable).
+                    slot.metrics.record_quarantine()
+                    slot.metrics.record_feedback_dropped(len(items))
+                    slot.state = slot.last_good
+                    slot.quarantined = True
+                    return
+                slot.state = cand
+                slot.last_good = cand
+                # THE fold boundary: the fold (and any struct_every rewire
+                # inside it) just replaced the fp32 state, so the packed
+                # serving weights are re-derived here — stale int8 scales
+                # or bf16 casts never outlive a fold.
+                slot.repack()
+                slot.metrics.record_learn(len(items))
                 return
-            if not _state_finite(cand):
-                # Quarantine: the candidate is never installed, so the
-                # slot keeps serving from ``last_good`` unchanged — the
-                # explicit restore makes the rollback contract literal
-                # (and bitwise-checkable).
-                slot.metrics.record_quarantine()
-                slot.metrics.record_feedback_dropped(len(items))
-                slot.state = slot.last_good
-                slot.quarantined = True
-                return
-            slot.state = cand
-            slot.last_good = cand
-            # THE fold boundary: the fold (and any struct_every rewire
-            # inside it) just replaced the fp32 state, so the packed
-            # serving weights are re-derived here — stale int8 scales or
-            # bf16 casts never outlive a fold.
-            slot.repack()
-            slot.metrics.record_learn(len(items))
-            return

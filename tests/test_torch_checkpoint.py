@@ -11,6 +11,7 @@ bitwise (same package, same generator).
 import importlib.util
 import json
 import os
+import threading
 
 import jax
 import numpy as np
@@ -232,6 +233,41 @@ def test_keep_last_garbage_collection_and_threaded_save(tmp_path):
     assert CheckpointManager(str(tmp_path / "empty")).resume_point() is None
     restored = mgr.restore(4, init_deep(tspec, 1, "cpu"))
     _assert_states_equal(restored, state)
+
+
+def test_threaded_save_of_a_cpu_state_is_the_state_at_the_call(
+        tmp_path, monkeypatch):
+    """The writer thread is held back while a donated step writes the
+    saved CPU state in place; the checkpoint still holds the state at the
+    call (the JAX ``save`` reads immutable arrays)."""
+    from repro_torch.core.network import unsupervised_layer_step
+    _, tspec = _specs()
+    state = init_deep(tspec, 0, "cpu")
+    at_call = [t.clone() for t in state_tensors(state)]
+    release, savez = threading.Event(), np.savez
+
+    def held_savez(*args, **kwargs):
+        assert release.wait(30.0), "writer never released"
+        savez(*args, **kwargs)
+
+    monkeypatch.setattr(np, "savez", held_savez)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(0, state, blocking=False)
+    x, _ = _data(tspec, 8)
+    stepped = unsupervised_layer_step(state, tspec, torch.from_numpy(x), 0,
+                                      donate=True)
+    assert stepped.projs[0].traces.pij is state.projs[0].traces.pij
+    assert not torch.equal(state.projs[0].traces.pij,
+                           at_call[2])  # written in place
+    release.set()
+    mgr.wait()
+    monkeypatch.setattr(np, "savez", savez)
+    saved = np.load(tmp_path / "step_0" / "arrays.npz")
+    np.testing.assert_array_equal(saved["projs/0/traces/pij"],
+                                  at_call[2].numpy())
+    restored = mgr.restore(0, init_deep(tspec, 1, "cpu"))
+    for t, u in zip(state_tensors(restored), at_call):
+        assert torch.equal(t, u)
 
 
 def test_restore_writes_nothing_of_the_target(tmp_path):

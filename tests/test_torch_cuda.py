@@ -1340,3 +1340,160 @@ def test_restored_trainer_next_noisy_epoch_equals_the_uninterrupted_one(
         assert torch.equal(u, v)
     assert torch.equal(a.state.generator.get_state(),
                        b.state.generator.get_state())
+
+
+# ------------------------------------------------------------- the router --
+
+class _Groups:
+    """Wraps a ``ServeProgram.serve``: every served padded group and its
+    results."""
+
+    def __init__(self, program):
+        self.serve, self.records = program.serve, []
+        program.serve = self
+
+    def __call__(self, x, valid):
+        probs, pred = self.serve(x, valid)
+        self.records.append((x.copy(), valid.copy(), probs, pred))
+        return probs, pred
+
+    def check_eager(self, pack, spec):
+        from repro_torch.core.network import infer_packed
+        for x, valid, probs, pred in self.records:
+            p, q = infer_packed(pack, spec, torch.from_numpy(x).cuda(),
+                                torch.from_numpy(valid).cuda())
+            assert np.array_equal(p.cpu().numpy(), probs)
+            assert np.array_equal(q.cpu().numpy(), pred)
+        return len(self.records)
+
+
+def test_live_add_model_captures_while_two_engines_serve(gen):
+    """``add_model(live=True)`` on a running engine while two other
+    engines' workers serve on the card from client threads: the capture
+    succeeds, each bucket's graph counts the launches a capture on a quiet
+    card counts (no other thread's work taken into it), every row the new
+    slot serves equals eager ``infer_packed`` on its padded group, and the
+    busy engines serve on, bit for bit, after it."""
+    import threading
+    from repro_torch.core.graphs import ServeProgram
+    from repro_torch.core.network import init_deep
+    from repro_torch.serve import BCPNNService
+    spec = _serve_spec()
+    x, _ = _small_fit_data(spec, 64)
+    busy = [BCPNNService(init_deep(spec, s, "cuda"), spec,
+                         max_batch=8).start() for s in (5, 6)]
+    groups = [_Groups(svc._slot(None).program) for svc in busy]
+    late = BCPNNService(max_batch=8).start()
+    stop, errors = threading.Event(), []
+
+    def client(svc):
+        try:
+            while not stop.is_set():
+                ids = [svc.submit(x[i]) for i in range(16)]
+                for rid in ids:
+                    svc.result(rid, timeout=60)
+        except BaseException as e:  # reported by the test below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(svc,))
+               for svc in busy]
+    for t in threads:
+        t.start()
+    try:
+        _wait_for(lambda: all(len(g.records) >= 5 for g in groups))
+        before = [len(g.records) for g in groups]
+        state = init_deep(spec, 4, "cuda")
+        late.add_model("m", state, spec, live=True)
+        slot = late._slot("m")
+        new = _Groups(slot.program)
+        _wait_for(lambda: all(len(g.records) >= n + 5
+                              for g, n in zip(groups, before)))
+        ids = [late.submit(x[i], model="m") for i in range(40)]
+        for rid in ids:
+            late.result(rid, timeout=60)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60)
+        for svc in busy + [late]:
+            svc.stop()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert sorted(slot.program.buckets) == [1, 2, 4, 8]
+    quiet = ServeProgram(spec)
+    quiet.load(state)
+    for b, bucket in slot.program.buckets.items():
+        quiet.capture(b)
+        assert bucket.launches == quiet.buckets[b].launches
+    assert new.check_eager(slot.pack, spec) > 0
+    for svc, g in zip(busy, groups):
+        assert g.check_eager(svc._slot(None).pack, spec) >= 10
+
+
+def test_three_engines_on_one_card_serve_the_same_rows(gen):
+    """One state placed on three engines of one card (replicas=3, each a
+    copy of its own): the same row served by each engine gives the same
+    probabilities bit for bit, equal to eager ``infer_packed``."""
+    from repro_torch.core.network import init_deep, infer_packed, pack_state
+    from repro_torch.serve import BCPNNRouter
+    spec = _serve_spec()
+    state = init_deep(spec, 7, "cuda")
+    r = BCPNNRouter.local(3, max_batch=8)
+    r.add_model("m", state, spec, replicas=3)
+    r.start()
+    x, _ = _small_fit_data(spec, 8)
+    try:
+        got = {e: [h.result(h.submit(row, "m"), timeout=60).probs
+                   for row in x] for e, h in r._engines.items()}
+    finally:
+        r.stop()
+    for e, rows in got.items():
+        assert r._engines[e].model_state_sync("m").readout.w.data_ptr() \
+            != state.readout.w.data_ptr()
+        for i, p in enumerate(rows):
+            p1, _ = infer_packed(pack_state(state, spec), spec,
+                                 torch.from_numpy(x[i:i + 1]).cuda(),
+                                 torch.ones(1, device="cuda"))
+            assert np.array_equal(p, p1[0].cpu().numpy()), (e, i)
+            assert np.array_equal(p, got["engine0"][i])
+
+
+def test_recovery_from_the_checkpoint_lands_on_the_card(gen):
+    """A model on one engine, lost with no live peer, is re-placed from the
+    router's host checkpoint onto the card its placement serves on: its
+    tensors and generator are the card's, at the saved values and
+    position, its buckets captured live, and it serves as eager
+    ``infer_packed``."""
+    from repro_torch.core.network import init_deep, infer_packed, pack_state
+    from repro_torch.serve import BCPNNRouter, states_bitwise_equal
+    spec = _serve_spec()
+    state = init_deep(spec, 8, "cuda")
+    torch.rand(5, generator=state.generator, device="cuda")  # off the seed
+    r = BCPNNRouter.local(2, max_batch=8)
+    assert r.add_model("m", state, spec) == ("engine0",)
+    ckpt, _ = r._checkpoints["m"]
+    assert ckpt.device.type == "cpu"
+    assert ckpt.generator.device.type == "cuda"
+    r.start()
+    x, _ = _small_fit_data(spec, 4)
+    try:
+        r._engines["engine0"].kill("test")
+        _wait_for(lambda: r.placement("m")["replicas"] == ("engine1",)
+                  or bool(r.check_engines()))
+        assert r.placement("m")["replicas"] == ("engine1",)
+        handle = r._engines["engine1"]
+        got = handle.model_state_sync("m")
+        served = [r.classify(row, timeout=60) for row in x]
+        program = handle.service._slot("m").program
+    finally:
+        r.stop()
+    assert got.device.type == "cuda" and got.generator.device.type == "cuda"
+    assert torch.equal(got.generator.get_state(),
+                       state.generator.get_state())
+    assert states_bitwise_equal(got, state)
+    assert sorted(program.buckets) == [1, 2, 4, 8]
+    for i, res in enumerate(served):
+        p, q = infer_packed(pack_state(state, spec), spec,
+                            torch.from_numpy(x[i:i + 1]).cuda(),
+                            torch.ones(1, device="cuda"))
+        assert np.array_equal(res.probs, p[0].cpu().numpy())
+        assert res.pred == int(q[0])

@@ -281,28 +281,31 @@ def test_multi_model_routing_names_and_registration():
         svc.state
     with pytest.raises(ValueError, match="already registered"):
         svc.add_model("a", state_a, spec_a)
-    with pytest.raises(NotImplementedError, match="6-rest"):
-        svc.add_model("c", state_a, spec_a, live=True)
     svc.start()
     try:
         with pytest.raises(ValueError, match="pass model="):
             svc.submit(xa[0])
         with pytest.raises(KeyError, match="unknown model"):
             svc.feedback(xa[0], 0, model="nope")
-        with pytest.raises(RuntimeError, match="running"):
+        with pytest.raises(RuntimeError, match="live=True"):
             svc.add_model("late", state_a, spec_a)
         ids_a = [svc.submit(x, model="a") for x in xa]
+        svc.add_model("c", state_b, spec_b, live=True)  # while serving
         ids_b = [svc.submit(x, model="b") for x in xb]
+        ids_c = [svc.submit(x, model="c") for x in xb]
         got_a = [svc.result(i, timeout=30) for i in ids_a]
         got_b = [svc.result(i, timeout=30) for i in ids_b]
+        got_c = [svc.result(i, timeout=30) for i in ids_c]
     finally:
         svc.stop()
-    assert svc.models() == ("a", "b")
+    assert svc.models() == ("a", "b", "c")
     _, ra = infer(state_a, spec_a, torch.from_numpy(xa))
     _, rb = infer(state_b, spec_b, torch.from_numpy(xb))
     assert [r.model for r in got_a] == ["a"] * 4
     assert [r.pred for r in got_a] == ra.tolist()
     assert [r.pred for r in got_b] == rb.tolist()
+    assert [r.model for r in got_c] == ["c"] * 4
+    assert [r.pred for r in got_c] == rb.tolist()
     snap = svc.snapshot()
     assert snap["per_model"]["a"]["completed"] == 4
     assert svc.snapshot(model="b")["submitted"] == 4
@@ -796,16 +799,20 @@ def test_load_models_serves_each_checkpoint(tmp_path):
 
 
 def test_launcher_smoke_on_the_cpu(tmp_path, capsys):
-    """``serve_bcpnn --smoke --device cpu`` in-process: phases 1-4 with
-    their assertions, the router refused by name."""
+    """``serve_bcpnn --smoke --device cpu`` in-process: phases 1-5 with
+    their assertions, the router failover (phase 5) included; ``--router``
+    runs phase 5 without ``--smoke``, ``--no-router`` skips it."""
     ckpt = str(tmp_path / "ckpt")
     serve_bcpnn.main(["--smoke", "--device", "cpu", "--ckpt-dir", ckpt])
     out = capsys.readouterr().out
-    assert "implies --no-router" in out and "6-rest" in out
     assert "multi-model + rewire phase OK" in out
+    assert "router failover phase OK" in out
+    assert "1 engine losses, 1 replacements" in out
     assert out.rstrip().endswith("smoke OK")
     serve_bcpnn.main(["--device", "cpu", "--ckpt-dir", ckpt, "--no-online",
                       "--requests", "16"])
-    assert "restored step" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="6-rest"):
-        serve_bcpnn.main(["--smoke", "--router", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "restored step" in out and "router" not in out
+    serve_bcpnn.main(["--device", "cpu", "--ckpt-dir", ckpt, "--no-online",
+                      "--requests", "16", "--router"])
+    assert "router failover phase OK" in capsys.readouterr().out

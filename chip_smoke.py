@@ -116,6 +116,25 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      feedback; a ``nan-state`` fault on one replica's next fold, and
      ``heal`` (timed) drains, revalidates and repairs it from its peer
      bit for bit, in tensors of its own.
+  10. the data-parallel fit (``[phase10]`` lines): while four rank
+     processes start on the card (gloo), the DP step's products column
+     block by column block against the whole product; then, timed alone on
+     the card, on the first 8296 training rows (one unsupervised epoch and
+     the readout pass, plain backend): Model 1 DP on 2 and on 4 ranks, (c)
+     DP on 2 ranks across a rewire, and a Model-1 DP fit on 2 ranks killed
+     by ``WorkerLost`` after its 2nd chunk of 16 batches and resumed on one
+     rank over an NCCL group of one.  The 2-rank fits and the resume equal
+     the single-device fits on the card bit for bit (every tensor, mask,
+     table, clock and the generator's state); the 4-rank fit, whose
+     1024-column support blocks cuBLAS sums in another order (ROADMAP.md
+     queue C), is held by single DP steps from one state at 1e-4; every
+     DP-fitted state evaluated through the kernels at the single-device
+     state's accuracy; walls, images/s, and a DP step's collectives
+     against the rest (processes sharing one card: the protocol, not
+     scaling).  Its last check, ``python -m repro_torch.launch.train_dp
+     --smoke --device cuda`` in a process of its own (log
+     ``chiprun_out/train_dp_smoke.log``), runs beside phase 7's pytest
+     process; its lines follow phase 7's.
   4. (run last) where a step's time goes, over 20 steps each of the
      unsupervised step, the readout step and the evaluation batch, dense
      and (c), of (b)'s unsupervised step and evaluation batch, of the
@@ -2295,6 +2314,414 @@ def phase9_online(torch, tr, data):
     return {"router_online_readout": launches}
 
 
+# -------------------------------------------------------------- phase 10 --
+
+# The data-parallel fits' data: the first 8296 rows of phase 2's training
+# set, 64 whole batches of 128 and a 104-row tail; one unsupervised epoch
+# and the readout pass, 130 steps.
+DP_ROWS = 8296
+# The killed fit checkpoints every 16 batches and dies after its 2nd chunk.
+DP_CKPT_EVERY = 16
+DP_KILL_CHUNK = 2
+
+
+def dp_cfgs():
+    """Model 1 and Model 1-struct (c) on the plain backend: the DP programs
+    compute in plain torch whatever the backend (as the JAX ones do), so
+    the single-device references take it too."""
+    import dataclasses
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST
+    return {"model1": dataclasses.replace(MODEL1_MNIST, backend="torch"),
+            "c": dataclasses.replace(struct_cfg("c"), backend="torch")}
+
+
+def digest(snap) -> str:
+    """A hash of a ``train_dp.snapshot`` tree (every array's bytes, the
+    clocks and the generator's state), to hold the ranks to each other."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(k.encode())
+                walk(x[k])
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+        elif isinstance(x, np.ndarray):
+            h.update(str(x.dtype).encode() + str(x.shape).encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    walk(snap)
+    return h.hexdigest()
+
+
+def snapshot_diff(a, b) -> float:
+    """Largest absolute difference between two snapshots' arrays."""
+    worst = 0.0
+
+    def walk(x, y):
+        nonlocal worst
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        elif isinstance(x, list):
+            for u, v in zip(x, y):
+                walk(u, v)
+        elif isinstance(x, np.ndarray) and x.dtype.kind == "f":
+            worst = max(worst, float(np.abs(x.astype(np.float64)
+                                            - y.astype(np.float64)).max()))
+
+    walk(a["state"], b["state"])
+    return worst
+
+
+def _phase10_rank(rank, device, root):
+    """A rank of phase 10's group of four (gloo, all on one card).  After
+    an untimed warm-up step it waits for ``root/go`` (the parent writes it
+    once the launcher's processes are gone, so the timed fits have the card
+    and the host to themselves), then: Model 1's and (c)'s DP fits and the
+    Model-1 fit killed after its 2nd chunk on ranks 0 and 1 (a group of
+    their own); Model 1's DP fit on all four; one unsupervised and one
+    readout DP step on all four, each from the killed fit's checkpoint;
+    Model 1's resume from a copy of those checkpoints on rank 0 alone, over
+    a group of one on NCCL.  Rank 0 returns the snapshots, every rank their
+    digests."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import Trainer, init_deep
+    from repro_torch.core.network import as_spec
+    from repro_torch.distributed import (
+        WorkerLost, elastic_mesh, make_data_parallel_supervised_step,
+        make_data_parallel_unsupervised_step, rank_devices)
+    from repro_torch.launch.train_dp import snapshot
+    z = np.load(os.path.join(root, "data.npz"))
+    x, y = z["x"], z["y"]
+    cfgs = dp_cfgs()
+    spec = as_spec(cfgs["model1"])
+    kill_dir = os.path.join(root, "kill")
+    devs = rank_devices(4)
+    mesh4 = elastic_mesh((4,), ("data",))
+    pair = dist.new_group([0, 1])
+    alone = dist.new_group([0], backend="nccl")
+    mesh2 = elastic_mesh((4,), ("data",), devices=devs[:2]).with_group(pair)
+    mesh1 = elastic_mesh((4,), ("data",), devices=devs[:1]).with_group(alone)
+    bl = 128 // 4
+    x0 = torch.from_numpy(x[rank * bl:(rank + 1) * bl]).to(device)
+    y0 = torch.from_numpy(y[rank * bl:(rank + 1) * bl]).to(device)
+    unsup4 = make_data_parallel_unsupervised_step(spec, mesh4)
+    unsup4(init_deep(spec, 0, device), x0)  # warm-up
+    while rank == 0 and not os.path.exists(os.path.join(root, "go")):
+        time.sleep(0.1)
+    dist.barrier()
+    out = {}
+
+    def keep(tag, snap, **extra):
+        out[tag] = {"digest": digest(snap), **extra}
+        if rank == 0:
+            out[tag]["snapshot"] = snap
+
+    def fit(tag, cfg, mesh, seed=0, **kw):
+        tr = Trainer(cfg, seed, mesh, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.fit(x, y, epochs=1, batch=128, **kw)
+        keep(tag, snapshot(tr.state), stats=stats,
+             wall=time.perf_counter() - t0)
+
+    if rank < 2:
+        fit("model1_2", cfgs["model1"], mesh2)
+        fit("c_2", cfgs["c"], mesh2)
+        seen = []
+
+        def boom(cur):
+            seen.append(cur)
+            if len(seen) == DP_KILL_CHUNK:
+                raise WorkerLost(f"killed at {cur}")
+
+        try:
+            Trainer(cfgs["model1"], 0, mesh2, device=device).fit(
+                x, y, epochs=1, batch=128, ckpt_dir=kill_dir,
+                ckpt_every_batches=DP_CKPT_EVERY, on_chunk=boom)
+        except WorkerLost:
+            out["killed_at"] = seen[-1].to_dict()
+    dist.barrier()
+    fit("model1_4", cfgs["model1"], mesh4)
+    mgr = CheckpointManager(kill_dir)
+    st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, device))
+    keep("step_unsup_4", snapshot(unsup4(st, x0)))
+    st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, device))
+    keep("step_sup_4", snapshot(
+        make_data_parallel_supervised_step(spec, mesh4)(st, x0, y0)))
+    if rank == 0:  # on a copy: the parent's single steps read kill_dir
+        import shutil
+        resume_dir = shutil.copytree(kill_dir, os.path.join(root, "resume"))
+        fit("resumed_1", cfgs["model1"], mesh1, seed=1, ckpt_dir=resume_dir,
+            ckpt_every_batches=DP_CKPT_EVERY, resume=True)
+    return out
+
+
+def phase10_reference(torch, cfgs, x, y):
+    """The single-device fits of phase 10's configurations on the card:
+    each state's snapshot, the fit's stats and wall."""
+    from repro_torch.core import Trainer
+    from repro_torch.launch.train_dp import snapshot
+    ref = {}
+    for name, cfg in cfgs.items():
+        tr = Trainer(cfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = tr.fit(x, y, epochs=1, batch=128)
+        ref[name] = {"snapshot": snapshot(tr.state), "stats": stats,
+                     "wall": time.perf_counter() - t0, "spec": tr.spec}
+    return ref
+
+
+def phase10_single_steps(torch, spec, kill_dir, x, y):
+    """The single-device unsupervised and readout steps from the killed
+    fit's checkpoint, each from the restored state."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import init_deep
+    from repro_torch.core.network import (supervised_readout_step,
+                                          unsupervised_layer_step)
+    from repro_torch.launch.train_dp import snapshot
+    mgr = CheckpointManager(kill_dir)
+    x0 = torch.from_numpy(x[:128]).cuda()
+    y0 = torch.from_numpy(y[:128]).cuda()
+    out = {}
+    for name, step in (
+            ("step_unsup", lambda st: unsupervised_layer_step(st, spec, x0,
+                                                              0)),
+            ("step_sup", lambda st: supervised_readout_step(st, spec, x0,
+                                                            y0))):
+        st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, "cuda"))
+        out[name] = snapshot(step(st))
+    return out
+
+
+def kernel_accuracy(torch, snap, spec, xte, yte):
+    """Test accuracy of a snapshot's state through the kernels
+    (``spec.with_backend("cuda")``) and the launches of that evaluation."""
+    from repro_torch.convert import state_from_numpy
+    from repro_torch.core import evaluate_padded
+    from repro_torch.kernels import ops
+    state = state_from_numpy(snap["state"], spec, device="cuda")
+    before = ops.launch_counts()
+    acc = evaluate_padded(state, spec.with_backend("cuda"), xte, yte)
+    after = ops.launch_counts()
+    ops.set_launch_counts(before)
+    return acc, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def column_blocks(torch):
+    """The DP step's products at Model 1's and Model 1-struct's shapes,
+    column blocks of n ranks against the same columns of the whole
+    product: (elements that differ, max abs difference) per product."""
+    from repro_torch.core.compact import compact_co_stats, compact_support
+    from repro_torch.core.hypercolumns import LayerGeom, hc_softmax
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    out = {}
+
+    def cmp(name, full, parts, dim):
+        d = (torch.cat(parts, dim=dim) - full).abs()
+        out[name] = (int((d != 0).sum()), float(d.max()))
+
+    ni, hj, mj = 1568, 32, 128
+    w = torch.randn((ni, hj * mj), generator=g, device="cuda")
+    for b in (128, 104):
+        x = torch.rand((b, ni), generator=g, device="cuda")
+        y = torch.rand((b, hj * mj), generator=g, device="cuda")
+        s, co = x @ w, x.T @ y
+        for n in (2, 4):
+            k = hj * mj // n
+            blk = [slice(i * k, (i + 1) * k) for i in range(n)]
+            cmp(f"x@w B={b} n={n}", s, [x @ w[:, c] for c in blk], 1)
+            cmp(f"xT@y B={b} n={n}", co, [x.T @ y[:, c] for c in blk], 1)
+            cmp(f"hc_softmax B={b} n={n}", hc_softmax(s, LayerGeom(hj, mj)),
+                [hc_softmax(s[:, c].contiguous(), LayerGeom(hj // n, mj))
+                 for c in blk], 1)
+    nact, mi = 128, 2
+    x = torch.rand((128, ni), generator=g, device="cuda")
+    y = torch.rand((128, hj * mj), generator=g, device="cuda")
+    table = torch.stack([torch.sort(torch.randperm(
+        ni // mi, generator=g, device="cuda")[:nact]).values
+        for _ in range(hj)]).to(torch.int32)
+    w_c = torch.randn((hj, nact * mi, mj), generator=g, device="cuda")
+    bias = torch.randn((hj * mj,), generator=g, device="cuda")
+    s = compact_support(x, w_c, bias, table, mi)
+    co = compact_co_stats(x, y, table, mi, mj)
+    for n in (2, 4):
+        l = hj // n
+        hs = [slice(i * l, (i + 1) * l) for i in range(n)]
+        cmp(f"compact support n={n}", s, [compact_support(
+            x, w_c[h], bias[h.start * mj:h.stop * mj], table[h], mi)
+            for h in hs], 1)
+        cmp(f"compact co n={n}", co, [compact_co_stats(
+            x, y[:, h.start * mj:h.stop * mj].contiguous(), table[h], mi,
+            mj) for h in hs], 0)
+    return out
+
+
+def phase10(torch, data):
+    """The data-parallel fit on the card: four rank processes sharing it
+    over gloo (``_phase10_rank``) against single-device fits in this
+    process; the ranks start up while this process checks the column
+    blocks and fits its references, and their timed work waits for those
+    to end.  Processes sharing one card measure the protocol, not scaling.
+    (The launcher's smoke, ``launcher_start``, runs beside phase 7.)"""
+    import shutil
+    import tempfile
+    from repro_torch.distributed import RankGroup
+    xtr, ytr, xte, yte = data
+    x, y = xtr[:DP_ROWS], ytr[:DP_ROWS]
+    root = Path(tempfile.mkdtemp(prefix="phase10_", dir=ROOT / "build"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t = time.perf_counter()
+    group = None
+    try:
+        np.savez(root / "data.npz", x=x, y=y)
+        group = RankGroup(_phase10_rank, 4, backend="gloo", device="cuda",
+                          args=(str(root),), timeout_s=600)
+        blocks = column_blocks(torch)
+        print("[phase10] column blocks against the whole product "
+              "(differing elements, max abs diff): " + "; ".join(
+                  f"{k} {c} {d:.3e}" for k, (c, d) in blocks.items())
+              + f" ({smi})", flush=True)
+        check(all(c == 0 for k, (c, _) in blocks.items()
+                  if not k.startswith("x@w") or k.endswith("n=2")),
+              f"a product the DP contract relies on is not "
+              f"column-invariant: {blocks}")
+        cfgs = dp_cfgs()
+        ref = phase10_reference(torch, cfgs, x, y)
+        (root / "go").touch()
+        ranks = group.join()
+        ref.update(phase10_single_steps(torch, ref["model1"]["spec"],
+                                        str(root / "kill"), x, y))
+        killed = ranks[0].get("killed_at")
+        check(killed == {"phase": "unsupervised", "layer": 0, "epoch": 0,
+                         "batch": DP_KILL_CHUNK * DP_CKPT_EVERY},
+              f"phase 10: the kill came at {killed}, not mid unsupervised "
+              f"epoch")
+        print(f"[phase10] group of 4 ranks on one card (gloo; NCCL for the "
+              f"resume on one) done in {time.perf_counter() - t:.1f} s, "
+              f"process start-up included ({smi})", flush=True)
+        for tag in ranks[0]:
+            if isinstance(ranks[0][tag], dict) and "digest" in ranks[0][tag]:
+                holders = [r for r in ranks if tag in r]
+                check(all(r[tag]["digest"] == holders[0][tag]["digest"]
+                          for r in holders),
+                      f"phase 10 {tag}: the ranks' states differ")
+        phase10_report(torch, ranks[0], ref, xte, yte, smi)
+    finally:
+        if group is not None:
+            group.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def launcher_start():
+    """Phase 10's last check, started before phase 7 to run beside its
+    pytest process (neither is timed): ``python -m
+    repro_torch.launch.train_dp --smoke --device cuda`` at its defaults, its
+    log kept."""
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    log = ROOT / "chiprun_out" / "train_dp_smoke.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train_dp", "--smoke",
+             "--device", "cuda"], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def launcher_finish(started):
+    proc, log, t = started
+    rc = proc.wait(timeout=600)
+    lines = log.read_text().strip().splitlines()
+    for line in lines:
+        if line.startswith("[train-dp]"):
+            print(f"[phase10] {line}", flush=True)
+    print(f"[phase10] train_dp --smoke: rc {rc} in "
+          f"{time.perf_counter() - t:.1f} s, beside phase 7 (log "
+          f"{log.relative_to(ROOT)})", flush=True)
+    check(rc == 0, f"train_dp --smoke failed: "
+                   f"{lines[-1:] or ['(no output)']}")
+
+
+def phase10_report(torch, got, ref, xte, yte, smi):
+    """Each DP state against its single-device reference, the kernel-path
+    accuracies, the walls and the collectives' share."""
+    from repro_torch.launch.train_dp import snapshots_equal
+    n_img = DP_ROWS
+    steps = 2 * -(-n_img // 128)
+    for tag, name, ranks in (("model1_2", "model1", 2), ("c_2", "c", 2),
+                             ("model1_4", "model1", 4),
+                             ("resumed_1", "model1", 1)):
+        snap, want = got[tag]["snapshot"], ref[name]["snapshot"]
+        same = snapshots_equal(snap, want)
+        worst = snapshot_diff(snap, want)
+        spec = ref[name]["spec"]
+        acc, launches = kernel_accuracy(torch, snap, spec, xte, yte)
+        acc_ref, _ = kernel_accuracy(torch, want, spec, xte, yte)
+        stats, wall = got[tag]["stats"], got[tag]["wall"]
+        rs = ref[name]["stats"]
+        if tag == "resumed_1":
+            print(f"[phase10] Model 1 killed on 2 ranks at {got['killed_at']}"
+                  f", resumed on 1 over NCCL: state "
+                  f"{'EQUAL' if same else 'differs'} to the uninterrupted "
+                  f"single-device fit bit for bit (max abs diff "
+                  f"{worst:.3e}); kernel-path test accuracy {acc:.6f} "
+                  f"(single-device {acc_ref:.6f}); the resumed part "
+                  f"{wall:.3f} s ({smi})", flush=True)
+            check(same and acc == acc_ref,
+                  f"phase 10: the resumed fit parts from the uninterrupted "
+                  f"one (max abs diff {worst:.3e})")
+            continue
+        label = {"model1_2": "Model 1, 2 ranks", "c_2": "(c), 2 ranks",
+                 "model1_4": "Model 1, 4 ranks"}[tag]
+        print(f"[phase10] {label}: state {'EQUAL' if same else 'DIFFERS'} "
+              f"to the single-device fit bit for bit (every array, mask, "
+              f"table, clock, generator; max abs diff {worst:.3e}); kernel-"
+              f"path test accuracy {acc:.6f} (single-device {acc_ref:.6f}; "
+              f"launches {json.dumps(launches)}); fit {wall:.3f} s, unsup_s "
+              f"{stats['unsup_s']:.4f} ({n_img / stats['unsup_s']:.0f} "
+              f"images/s) sup_s {stats['sup_s']:.4f}, collectives "
+              f"{stats['comm_s']:.3f} s: per step {1e3 * wall / steps:.2f} "
+              f"ms, {1e3 * stats['comm_s'] / steps:.2f} in collectives, "
+              f"{1e3 * (wall - stats['comm_s']) / steps:.2f} else "
+              f"(single-device graphed: fit {ref[name]['wall']:.3f} s, "
+              f"unsup_s {rs['unsup_s']:.4f} ({n_img / rs['unsup_s']:.0f} "
+              f"images/s) sup_s {rs['sup_s']:.4f}; {smi})", flush=True)
+        check(acc == acc_ref, f"phase 10 {label}: accuracy {acc} against "
+                              f"the single-device {acc_ref}")
+        if ranks == 2:
+            check(same, f"phase 10 {label}: the DP fit parts from the "
+                        f"single-device fit (max abs diff {worst:.3e})")
+    # cuBLAS sums x @ w[:, blk] at 1024 of 4096 columns in another order
+    # than the whole product (ROADMAP.md queue C): on four ranks single DP
+    # steps from one state are held to single steps at PERF.md §2's 1e-4.
+    for tag, name in (("step_unsup_4", "step_unsup"),
+                      ("step_sup_4", "step_sup")):
+        worst = snapshot_diff(got[tag]["snapshot"], ref[name])
+        gen = np.array_equal(got[tag]["snapshot"]["generator"],
+                             ref[name]["generator"])
+        print(f"[phase10] Model 1, 4 ranks: one {name[5:]} DP step from the "
+              f"killed fit's checkpoint against the single-device step "
+              f"from it: max abs diff {worst:.3e}, held to 1e-4 (the 4-way "
+              f"support block is not column-invariant under cuBLAS), "
+              f"generator {'equal' if gen else 'DIFFERS'}", flush=True)
+        check(worst <= 1e-4 and gen, f"phase 10 {tag}: {worst:.3e} > 1e-4")
+
+
 # --------------------------------------------------------------- phase 7 --
 
 def phase7():
@@ -2498,8 +2925,15 @@ def main() -> int:
     serve_launches = phase6(torch, tr, fitted, xte, yte)
     stream_launches, served = phase8(torch, tr, fitted, data)
     stream_launches.update(phase9(torch, tr, fitted, data))
+    phase10(torch, data)
     phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
-    phase7()
+    launcher = launcher_start()
+    try:
+        phase7()
+        launcher_finish(launcher)
+    finally:
+        launcher[0].kill()  # nothing left running, whatever failed
+        launcher[0].wait()
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);

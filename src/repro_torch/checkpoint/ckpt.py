@@ -205,16 +205,30 @@ class CheckpointManager:
     def restore(self, step: int, target, shardings: Any = None):
         """A new ``DeepState`` shaped like ``target`` (a port
         ``DeepState``), on its device, from ``step_<step>``; the generator
-        follows the module's rule.  ``target`` is not written."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...): sharded restore "
-                "belongs to the data-parallel fit, which is not ported yet "
-                "(ROADMAP.md queue A item 7)")
+        follows the module's rule.  ``target`` is not written.
+
+        ``shardings`` (optional) places each leaf on a mesh, which is what
+        restarting on another mesh takes: one ``NamedSharding`` (or None)
+        per leaf, as a sequence in the leaves' order or as the dict of
+        ``distributed.projection_shardings`` keyed by leaf name.  A leaf
+        split over a mesh axis longer than 1 becomes a ``DTensor`` of this
+        rank's block; every other leaf goes to the target's device
+        (``distributed.sharding.place``)."""
+        from ..distributed.sharding import place
         extra = self.read_extra(step) or {}
         path = os.path.join(self.dir, f"step_{step}")
         arrays = np.load(os.path.join(path, "arrays.npz"))
         names, leaves = _flatten_with_names(target)
+        shard_leaves = [None] * len(leaves)
+        if shardings is not None:
+            by_name = isinstance(shardings, dict)
+            if len(shardings) != len(leaves) or (
+                    by_name and set(shardings) != set(names)):
+                raise ValueError(
+                    f"shardings tree has {len(shardings)} leaves for "
+                    f"{len(leaves)} target leaves")
+            shard_leaves = ([shardings[n] for n in names] if by_name
+                            else list(shardings))
         missing = sorted(set(names) - set(arrays.files))
         surplus = sorted(set(arrays.files) - set(names))
         if missing or surplus:
@@ -242,7 +256,7 @@ class CheckpointManager:
         dev = target.device
         host = {name: arrays[name] for name in names}
         out: Dict[str, Any] = {}
-        for name, ref in zip(names, leaves):
+        for name, ref, shd in zip(names, leaves, shard_leaves):
             a = host[name]
             if tuple(a.shape) != tuple(ref.shape):
                 hint = ""
@@ -256,8 +270,8 @@ class CheckpointManager:
                     f"checkpoint leaf {name!r} has shape {tuple(a.shape)}, "
                     f"target expects {tuple(ref.shape)}{hint}")
             if name != "key":
-                out[name] = torch.from_numpy(np.array(a)).to(
-                    device=dev, dtype=ref.dtype)
+                out[name] = place(torch.from_numpy(np.array(a)).to(
+                    device=dev, dtype=ref.dtype), shd)
         return _unflatten(target, out, host,
                           _generator(extra, host["key"], dev))
 

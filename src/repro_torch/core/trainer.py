@@ -26,9 +26,20 @@ ckpt_every_batches=k)`` checkpoints every k batches with a schedule cursor
 (``FitCursor``) in the manifest, and ``resume=True`` continues from it, so
 a fit interrupted by worker loss ends in the state the uninterrupted fit
 reaches, bit for bit (the generator's state rides in the checkpoint:
-``checkpoint/ckpt.py``).  Not ported yet: the data-parallel fit
-(``mesh=``, ``data_axis=``), which raises ``NotImplementedError``
-(ROADMAP.md queue A item 7).
+``checkpoint/ckpt.py``).
+
+The data-parallel fit (``Trainer(cfg, seed, mesh, data_axis)``): each rank
+process runs the same ``fit`` on the same data, with the state replicated;
+every epoch is the mesh's data-parallel program
+(``distributed/data_parallel.py``), fed this rank's rows of each batch,
+and ends in the single-device fit's state bit for bit, whatever the
+number of ranks, where the products are column-invariant (ROADMAP.md
+queue C names where cuBLAS is not).
+Those programs run eagerly (a gloo collective cannot run inside a
+captured graph) and in plain torch whatever the backend says, as in JAX.
+The rank first on the data axis writes the checkpoints and every rank
+waits for the write before ``on_chunk``; a fit resumes on a mesh of any
+size, 1 included, which is what makes worker-loss recovery exact.
 """
 from __future__ import annotations
 
@@ -308,20 +319,37 @@ class Trainer:
     projection.  The state lives on ``device`` (keyword only): the card
     unless the caller passes ``device="cpu"``; with no card visible and no
     explicit CPU it raises.
+
+    ``mesh`` (optional ``distributed.Mesh`` with a ``data_axis`` axis,
+    built in each rank process) turns every epoch into the data-parallel
+    program: batches shard over rows, learning gathers disjoint-support
+    trace partials, and the state is bit for bit what the single-device
+    fit produces.  Checkpointing and cursor resume work in both modes and
+    across mesh sizes.
     """
 
     def __init__(self, cfg, seed: int = 0, mesh=None,
                  data_axis: str = "data", *, device: DeviceLike = None):
-        if mesh is not None or data_axis != "data":
-            raise NotImplementedError(
-                "Trainer(mesh=..., data_axis=...): the data-parallel fit is "
-                "not ported yet (ROADMAP.md queue A item 7)")
         self.cfg = cfg
         self.spec = as_spec(cfg)
         self.device = resolve_device(device)
         self.state = init_deep(self.spec, seed, self.device)
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.timer = None  # the last fit's StepTimer
         self._epoch_cache: Dict[tuple, Callable] = {}
+        if mesh is not None:
+            # Fail at construction, not mid-fit: every projection the DP
+            # programs touch needs whole post-HCs per shard.
+            from ..distributed.data_parallel import _check_geometry
+            _check_geometry(self.spec, self.spec.depth - 1,
+                            mesh.shape[data_axis])
+
+    def reset(self, seed: int = 0) -> None:
+        """Re-initialize the network state (a fresh generator from
+        ``seed``) while keeping the epoch programs: a captured step is
+        captured again for the new state at its next call."""
+        self.state = init_deep(self.spec, seed, self.device)
 
     # -------------------------------------------------- epoch programs --
     def _program(self, key: tuple, make: Callable) -> StepProgram:
@@ -335,6 +363,12 @@ class Trainer:
         """Epoch program for one greedy phase, cached per (layer, masked):
         its step is captured once and replayed in every epoch."""
         key = ("unsup", layer, masked)
+        if key not in self._epoch_cache and self.mesh is not None:
+            from ..distributed.data_parallel import (
+                make_data_parallel_projection_epoch)
+            self._epoch_cache[key] = make_data_parallel_projection_epoch(
+                self.spec, self.mesh, layer=layer, axis=self.data_axis,
+                masked=masked)
         if key not in self._epoch_cache:
             program = self._program(
                 ("unsup-step", layer), lambda: _projection_program(
@@ -350,6 +384,11 @@ class Trainer:
 
     def _sup_fn(self, masked: bool) -> Callable:
         key = ("sup", masked)
+        if key not in self._epoch_cache and self.mesh is not None:
+            from ..distributed.data_parallel import (
+                make_data_parallel_supervised_epoch)
+            self._epoch_cache[key] = make_data_parallel_supervised_epoch(
+                self.spec, self.mesh, axis=self.data_axis, masked=masked)
         if key not in self._epoch_cache:
             program = self._program(("sup-step",),
                                     lambda: _readout_program(self.spec))
@@ -404,8 +443,14 @@ class Trainer:
         Each chunk is timed (``straggler_events``), so the host waits for
         the card at the end of every chunk.
 
+        With a mesh every rank calls ``fit`` with the same data; the epochs
+        take this rank's rows of each batch (``batch`` must divide by the
+        data axis), only the first rank on the axis writes checkpoints, and
+        every rank waits for each write before ``on_chunk``.
+
         Returns the JAX trainer's timing keys, the first fit's capture
-        included.
+        included; with a mesh also ``comm_s``, the host time of the fit's
+        collectives (``group.DataAxis.gather``).
         """
         dev = self.device
         xs_np, valid_np = _batchify_padded(np.asarray(x_train, np.float32),
@@ -416,6 +461,23 @@ class Trainer:
         ys = torch.from_numpy(ys_np).to(dev)
         valid = torch.from_numpy(valid_np).to(dev)
         nb = int(xs.shape[0])
+        ax = None
+        if self.mesh is not None:
+            n_shards = int(self.mesh.shape[self.data_axis])
+            if batch % n_shards:
+                raise ValueError(
+                    f"batch={batch} rows cannot shard over the "
+                    f"{n_shards}-way '{self.data_axis}' mesh axis")
+            ax = self.mesh.axis(self.data_axis)
+            comm0 = ax.comm_s
+            bl = batch // n_shards
+            rows = slice(ax.index * bl, (ax.index + 1) * bl)
+
+        def local(t: torch.Tensor) -> torch.Tensor:
+            """This rank's rows of every batch (all of them without a
+            mesh)."""
+            return t if ax is None else t[:, rows]
+
         mgr = CheckpointManager(ckpt_dir) if ckpt_dir is not None else None
         if resume and mgr is None:
             raise ValueError("fit(resume=True) requires ckpt_dir")
@@ -436,10 +498,14 @@ class Trainer:
         self.timer = timer
 
         def save(cur: FitCursor, every: bool = True) -> None:
-            if mgr is not None and (ckpt_every_batches > 0 or not every):
+            if mgr is None or (ckpt_every_batches <= 0 and every):
+                return
+            if ax is None or ax.index == 0:
                 mgr.save(int(self.state.step), self.state, blocking=True,
                          extra={"spec": spec_manifest(self.spec),
                                 "cursor": cur.to_dict()})
+            if ax is not None:
+                ax.barrier()
 
         def run_epoch(plain: Callable, tail: Callable, operands: tuple,
                       start_b: int, tag: str,
@@ -496,7 +562,7 @@ class Trainer:
                             return FitCursor("unsupervised", layer + 1, 0, 0)
                         return FitCursor("supervised", depth, 0, 0)
 
-                    run_epoch(plain, tail, (cur,), start_b,
+                    run_epoch(plain, tail, (local(cur),), start_b,
                               f"unsup/L{layer}/e{e}", cursor_at)
                     if log:
                         print(f"  layer {layer + 1}/{depth} "
@@ -514,20 +580,24 @@ class Trainer:
                 return FitCursor("done", depth, 0, 0)
 
             run_epoch(self._sup_fn(False),
-                      self._sup_fn(True) if masked else None, (xs, ys),
+                      self._sup_fn(True) if masked else None,
+                      (local(xs), local(ys)),
                       cursor.batch, "sup/readout", sup_cursor_at)
             cursor = FitCursor("done", depth, 0, 0)
         _sync(dev)
         t2 = time.perf_counter()
         save(cursor, every=False)
         n_img = int(valid_np.sum())
-        return {
+        stats = {
             "unsup_s": t1 - t0,
             "sup_s": t2 - t1,
             "train_ms_per_img": 1e3 * (t1 - t0)
             / max(1, n_img * epochs * depth),
             "straggler_events": float(len(timer.events)),
         }
+        if ax is not None:
+            stats["comm_s"] = ax.comm_s - comm0
+        return stats
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,
                  batch: int = 128) -> float:

@@ -288,7 +288,8 @@ def test_restore_mismatch_errors_and_hints(tmp_path):
     """The JAX manager's refusals: another depth names the missing and
     extra leaves; a table leaf on one side only names the dense vs compact
     layout and the migration; a trace of another rank names the 2-D vs
-    3-D layout; a sharded restore names the unported item."""
+    3-D layout; a shardings tree of another leaf count is refused with the
+    JAX error."""
     _, dense = _specs()
     mgr = CheckpointManager(str(tmp_path / "d"))
     mgr.save(0, init_deep(dense, 0, "cpu"), blocking=True)
@@ -316,7 +317,11 @@ def test_restore_mismatch_errors_and_hints(tmp_path):
              **arrays)
     with pytest.raises(ValueError, match="2-D vs 3-D"):
         bad.restore(0, state_c)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    # a shardings tree of another leaf count: the JAX error
+    n_leaves = len(np.load(os.path.join(str(tmp_path / "d"), "step_0",
+                                        "arrays.npz")).files)
+    with pytest.raises(ValueError, match=f"shardings tree has 1 leaves for "
+                                         f"{n_leaves} target leaves"):
         mgr.restore(0, init_deep(dense, 0, "cpu"), shardings=[None])
 
 

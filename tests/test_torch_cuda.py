@@ -1497,3 +1497,91 @@ def test_recovery_from_the_checkpoint_lands_on_the_card(gen):
                             torch.ones(1, device="cuda"))
         assert np.array_equal(res.probs, p[0].cpu().numpy())
         assert res.pred == int(q[0])
+
+
+# ------------------------------------------ the data-parallel products --
+
+def _block_diff(full, parts, dim):
+    d = (torch.cat(parts, dim=dim) - full).abs()
+    return int((d != 0).sum()), float(d.max())
+
+
+@pytest.mark.parametrize("b", [128, 104])  # a whole batch, a tail's rows
+@pytest.mark.parametrize("n", [2, 4])
+def test_cublas_column_blocks_at_model1_shapes(gen, b, n):
+    """The DP step's dense products at Model 1's shapes, n ranks' column
+    blocks against the same columns of the whole product: the
+    co-activation xᵀy and the HC softmax are column-invariant at 2 and 4
+    blocks, the support x @ w at 2.  At 4 blocks (1024 columns) cuBLAS sums
+    the support in another order (ROADMAP.md queue C), within 1e-4."""
+    from repro_torch.core.hypercolumns import LayerGeom, hc_softmax
+    ni, hj, mj = 1568, 32, 128
+    x, w, y = _rand(gen, b, ni), _randn(gen, ni, hj * mj), _rand(gen, b,
+                                                                hj * mj)
+    k = hj * mj // n
+    blk = [slice(i * k, (i + 1) * k) for i in range(n)]
+    s = x @ w
+    co = x.T @ y
+    assert _block_diff(co, [x.T @ y[:, c] for c in blk], 1)[0] == 0
+    assert _block_diff(hc_softmax(s, LayerGeom(hj, mj)), [
+        hc_softmax(s[:, c].contiguous(), LayerGeom(hj // n, mj))
+        for c in blk], 1)[0] == 0
+    count, worst = _block_diff(s, [x @ w[:, c] for c in blk], 1)
+    if n == 2:
+        assert count == 0
+    else:
+        assert worst <= 1e-4, (count, worst)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_compact_column_blocks_at_model1_struct_shapes(gen, n):
+    """The compact support and co-activation at Model 1-struct's shapes
+    (nact 128, K = 256): n ranks' post-HC blocks equal the whole's."""
+    from repro_torch.core.compact import compact_co_stats, compact_support
+    hi, mi, hj, mj, nact = 784, 2, 32, 128, 128
+    x, y = _rand(gen, 128, hi * mi), _rand(gen, 128, hj * mj)
+    table = torch.stack([torch.sort(torch.randperm(
+        hi, generator=gen, device="cuda")[:nact]).values
+        for _ in range(hj)]).to(torch.int32)
+    w_c, bias = _randn(gen, hj, nact * mi, mj), _randn(gen, hj * mj)
+    l = hj // n
+    hs = [slice(i * l, (i + 1) * l) for i in range(n)]
+    s = compact_support(x, w_c, bias, table, mi)
+    co = compact_co_stats(x, y, table, mi, mj)
+    assert _block_diff(s, [compact_support(
+        x, w_c[h], bias[h.start * mj:h.stop * mj], table[h], mi)
+        for h in hs], 1)[0] == 0
+    assert _block_diff(co, [compact_co_stats(
+        x, y[:, h.start * mj:h.stop * mj].contiguous(), table[h], mi, mj)
+        for h in hs], 0)[0] == 0
+
+
+def test_dp_steps_on_the_card_equal_the_single_device_steps(gen):
+    """Two rank processes sharing the card over gloo: Model 1's DP
+    unsupervised and readout steps from seed 0's state equal the
+    single-device steps bit for bit, generator included."""
+    import dataclasses
+
+    import torch_dp_ranks as R
+    from repro_torch.configs.bcpnn_models import MODEL1_MNIST
+    from repro_torch.core import init_deep
+    from repro_torch.core.network import (as_spec, supervised_readout_step,
+                                          unsupervised_layer_step)
+    from repro_torch.distributed import run_group
+    from repro_torch.launch.train_dp import snapshots_equal
+    spec = as_spec(dataclasses.replace(MODEL1_MNIST, backend="torch"))
+    rng = np.random.default_rng(0)
+    xs = rng.random((2, 128, spec.input_geom.N), dtype=np.float32)
+    ys = rng.integers(0, spec.n_classes, (2, 128)).astype(np.int32)
+    ranks = run_group(R.run, 2, backend="gloo", device="cuda", args=(
+        [("unsup_steps", dict(spec=spec, xs=xs)),
+         ("sup_steps", dict(spec=spec, xs=xs, ys=ys))],), timeout_s=300)
+    st, st_sup = init_deep(spec, 0, "cuda"), init_deep(spec, 0, "cuda")
+    for i in range(2):
+        x = torch.from_numpy(xs[i]).cuda()
+        st = unsupervised_layer_step(st, spec, x, 0)
+        st_sup = supervised_readout_step(st_sup, spec, x,
+                                         torch.from_numpy(ys[i]).cuda())
+        for r in ranks:
+            assert snapshots_equal(r[0][i], R.tree(st)), (r, i)
+            assert snapshots_equal(r[1][i], R.tree(st_sup)), (r, i)

@@ -390,12 +390,14 @@ def test_trainer_takes_the_jax_argument_order():
         assert got[:len(want)] == want, (port.__qualname__, got, want)
     params = inspect.signature(Trainer.__init__).parameters
     assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
-    # a mesh in the JAX position reaches the named refusal, not
-    # torch.device
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Trainer(spec, 0, object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Trainer(spec, 0, None, "batch", device="cpu")
+    # a 1-rank CPU mesh in the JAX position is the trainer's mesh, not
+    # torch.device; a data axis of another name is taken as JAX takes it
+    from repro_torch.distributed import elastic_mesh
+    mesh = elastic_mesh((1,), ("batch",))
+    tr = Trainer(spec, 0, mesh, "batch", device="cpu")
+    assert tr.mesh is mesh and tr.data_axis == "batch"
+    assert tr.device == torch.device("cpu")
+    assert Trainer(spec, 0, None, "batch", device="cpu").mesh is None
     with pytest.raises(TypeError):
         Trainer(spec, 0, None, "data", "cpu")  # device is keyword only
     assert Trainer(spec, 3, device="cpu").device.type == "cpu"

@@ -149,6 +149,25 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      then device-busy time per step from
      ``torch.profiler``, the idle share of the untraced wall time, and the
      kernels that take the most device time.
+  11. (after phase 4) the LM zoo's serving path and the BCPNN head
+     (``[phase11]`` lines; the ten architectures at smoke size, card
+     against CPU, are phase 7's ``test_decode_steps_on_card_match_cpu``):
+     qwen1.5-0.5b at its published width and depth in bf16: the
+     serve launcher's defaults (batch 4, prompt 32 from ``TokenStream``,
+     16 greedy tokens, decode steps under ``set_sync_debug_mode("error")``)
+     with prefill ms, decode ms a token and tokens/s, decode logits against
+     forward's (``QWEN_REL_TOL`` of the largest logit), one 8 x 2048
+     prefill (four query chunks of 512); the BCPNN head (16 x 64 hidden, 10
+     classes) on the trunk's mean-pooled features of 128-row batches: one
+     unsupervised step with injected noise, one supervised step and a
+     prediction, kernels against plain on the card at 1e-4, dense and at
+     nact_hi 256, each call's launches as predicted (``HEAD_LAUNCHES``),
+     and each call's eager wall.  ``python -m repro_torch.launch.serve
+     --arch qwen1.5-0.5b --batch 4 --prompt-len 32 --gen 16`` and ``python
+     -m repro_torch.examples.bcpnn_head_on_lm --device cuda`` (its > 0.7
+     gate through the kernels) run in processes of their own beside phase
+     7 (logs ``chiprun_out/serve_qwen.log``,
+     ``chiprun_out/bcpnn_head_on_lm.log``); their lines follow phase 7's.
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
      process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
      (each run under its own name); any failure fails the run.
@@ -330,8 +349,12 @@ def kernel_cases(torch, gen):
                     + (f"{loads} loads a lane" if loads else "three passes"))
         return note
 
+    # "head": the BCPNN head on qwen1.5-0.5b's pooled features (phase 11:
+    # 2048 input units, 16 x 64 hidden, 10 classes).
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
-                           ("ragged", 37, 3, 10), ("narrow", 128, 64, 2)):
+                           ("ragged", 37, 3, 10), ("narrow", 128, 64, 2),
+                           ("head", 128, 16, 64),
+                           ("head-readout", 128, 1, 10)):
         s = randn(b, h * m) * 4
         lib = (lambda s=s, b=b, h=h, m=m:
                torch.softmax(s.view(b, h, m), dim=-1))
@@ -342,7 +365,8 @@ def kernel_cases(torch, gen):
             close_abs(2e-6), note=softmax_note(s, m))
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
                                  ("readout", 128, 4096, 1, 10),
-                                 ("ragged", 37, 1000, 3, 10)):
+                                 ("ragged", 37, 1000, 3, 10),
+                                 ("head", 128, 2048, 16, 64)):
         x, w, bias = rand(b, ni), randn(ni, hj * mj) * 0.1, randn(hj * mj)
         nj = hj * mj
         add("bcpnn_fwd", label,
@@ -362,7 +386,9 @@ def kernel_cases(torch, gen):
             ("hidden-a1", 128, None, 784, 2, 32, 128, 1.0),
             ("readout", 128, None, 32, 128, 1, 10, 2e-3),
             ("tail", 128, 104, 784, 2, 32, 128, 2e-3),
-            ("ragged", 37, None, 500, 2, 3, 10, 2e-3)):
+            ("ragged", 37, None, 500, 2, 3, 10, 2e-3),
+            ("head", 128, None, 1024, 2, 16, 64, 1e-2),
+            ("head-readout", 128, None, 16, 64, 1, 10, 1e-2)):
         ni, nj = hi * mi, hj * mj
         pij = rand(ni, nj) * 0.01 + 1e-5
         lpi = torch.log(rand(ni) * 0.5 + 1e-4)
@@ -2632,15 +2658,8 @@ def launcher_start():
     pytest process (neither is timed): ``python -m
     repro_torch.launch.train_dp --smoke --device cuda`` at its defaults, its
     log kept."""
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    log = ROOT / "chiprun_out" / "train_dp_smoke.log"
-    with open(log, "w") as f:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train_dp", "--smoke",
-             "--device", "cuda"], cwd=ROOT,
-            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, stdout=f,
-            stderr=subprocess.STDOUT)
-    return proc, log, time.perf_counter()
+    return start_module(["repro_torch.launch.train_dp", "--smoke", "--device",
+                         "cuda"], "train_dp_smoke.log")
 
 
 def launcher_finish(started):
@@ -2720,6 +2739,326 @@ def phase10_report(torch, got, ref, xte, yte, smi):
               f"support block is not column-invariant under cuBLAS), "
               f"generator {'equal' if gen else 'DIFFERS'}", flush=True)
         check(worst <= 1e-4 and gen, f"phase 10 {tag}: {worst:.3e} > 1e-4")
+
+
+# -------------------------------------------------------------- phase 11 --
+
+# qwen1.5-0.5b in bf16: decode logits against forward's at the same
+# position, as a share of the largest |logit| of forward (1.3 % on the
+# H100, PERF.md §6): the two paths round their bf16 products in other
+# shapes (one row against the whole sequence) through 24 layers.
+QWEN_REL_TOL = 0.05
+HEAD_TOL = 1e-4
+# Predicted kernel launches of one head call (core/head.py over
+# core/network.py on the "cuda" backend): the noisy support is a plain
+# matmul, its normalize hc_softmax, the learn one dense update (masked by
+# the HC mask at nact_hi < feature_dim); the supervised step's hidden rates
+# one forward (patchy at nact_hi < feature_dim) and the readout's learn an
+# update; the prediction one forward and the readout's hc_softmax.
+HEAD_LAUNCHES = {
+    "unsupervised": {"hc_softmax": 1, "bcpnn_update": 1},
+    "supervised": {"fwd": 1, "bcpnn_update": 1},
+    "predict": {"fwd": 1, "hc_softmax": 1},
+}
+
+
+def phase11(torch):
+    """The LM zoo's serving path at full width and the BCPNN head on its
+    trunk; returns the head's launches per run (``head_qwen``,
+    ``head_qwen_nact256``).  The ten smoke architectures, card against CPU,
+    are phase 7's (``test_decode_steps_on_card_match_cpu``)."""
+    cfg, params = phase11_qwen(torch)
+    return phase11_head(torch, cfg, params)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase11_qwen(torch):
+    """qwen1.5-0.5b at its published width and depth in bf16 on the card:
+    the launcher's defaults (batch 4, prompt 32 from TokenStream, 16 greedy
+    tokens; decode steps under ``set_sync_debug_mode("error")``), decode
+    logits against forward's at the same positions, and one prefill of
+    8 x 2048 (four query chunks of 512)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import lm
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.dtype == "bfloat16", f"qwen1.5-0.5b's dtype is {cfg.dtype}")
+    params, init_ms = _timed(torch, lambda: lm.init_params(cfg, 0, "cuda"))
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[phase11] qwen1.5-0.5b: {len(params.layers)} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.vocab_padded}, "
+          f"{n_params / 1e9:.3f} G parameters ({n_bytes / 1e9:.3f} GB "
+          f"bf16), seeded init on the card in {init_ms:.1f} ms", flush=True)
+    batch, prompt_len, gen = 4, 32, 16
+    seq_len = prompt_len + gen
+    prompts = torch.from_numpy(TokenStream(cfg.vocab, seed=0).batch(
+        0, batch, prompt_len)).cuda()
+
+    def serve():
+        logits, cache = lm.prefill(params, cfg, prompts, seq_len)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens = torch.argmax(logits, -1)
+        out, steps = [tokens], []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(gen - 1):
+                logits, cache = lm.decode_step(params, cfg, cache, tokens)
+                tokens = torch.argmax(logits, -1)
+                out.append(tokens)
+                steps.append(logits)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, steps, (time.perf_counter() - t) * 1e3
+
+    with torch.no_grad():
+        serve()  # first use: cuBLAS handles and workspaces
+        (_, _), prefill_ms = _timed(
+            torch, lambda: lm.prefill(params, cfg, prompts, seq_len))
+        out, steps, decode_ms = serve()
+        gen_toks = torch.stack(out, 1)
+        check(bool(torch.isfinite(torch.stack(steps)).all()),
+              "phase 11 qwen: non-finite decode logits")
+        seq = torch.cat([prompts, gen_toks[:, :-1]], 1)
+        ref = lm.logits_for(params, cfg, lm.forward(params, cfg, seq))
+        worst, agree = 0.0, 0
+        for i, lo in enumerate(steps):
+            r = ref[:, prompt_len + i].float()
+            worst = max(worst, (lo.float() - r).abs().max().item())
+            agree += int((lo.argmax(-1) == r.argmax(-1)).sum())
+        scale = ref.float().abs().max().item()
+        n_steps = gen - 1
+        print(f"[phase11] qwen1.5-0.5b bf16, batch {batch}, prompt "
+              f"{prompt_len}, {gen} greedy tokens: prefill {prefill_ms:.2f} "
+              f"ms, decode {decode_ms / n_steps:.3f} ms a token "
+              f"({n_steps * batch / (decode_ms / 1e3):.1f} tok/s over "
+              f"{n_steps} steps, no host sync in a step); decode against "
+              f"forward max abs err {worst:.4e} ({worst / scale:.4f} of "
+              f"max |logit| {scale:.4f}), argmax equal in {agree} of "
+              f"{n_steps * batch}; sample {gen_toks[0, :12].tolist()}",
+              flush=True)
+        check(worst <= QWEN_REL_TOL * scale,
+              f"phase 11 qwen: decode against forward {worst:.4e} > "
+              f"{QWEN_REL_TOL} x {scale:.4f}")
+        long = torch.from_numpy(TokenStream(cfg.vocab, seed=1).batch(
+            0, 8, 2048)).cuda()
+        lm.prefill(params, cfg, long[:1, :512], 512)  # first use at length
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()  # the earlier phases' tensors too
+        torch.cuda.reset_peak_memory_stats()
+        (lo, cache), long_ms = _timed(
+            torch, lambda: lm.prefill(params, cfg, long, 2048))
+        check(bool(torch.isfinite(lo).all()), "phase 11: 8x2048 prefill "
+                                              "logits not finite")
+        check(int(cache.pos) == 2048 and cache.layers[0]["k"].shape ==
+              (8, 2048, cfg.n_kv_heads, cfg.head_dim),
+              "phase 11: 8x2048 prefill cache shape")
+        del cache
+        print(f"[phase11] qwen1.5-0.5b bf16 prefill 8x2048 (4 query chunks "
+              f"of 512): {long_ms:.2f} ms ({8 * 2048 / (long_ms / 1e3):.0f} "
+              f"tokens/s), peak memory in the call "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: the "
+              f"call's own "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} "
+              f"GiB over the {held / 2**30:.2f} GiB held before it",
+              flush=True)
+    return cfg, params
+
+
+def phase11_head(torch, cfg, params):
+    """The BCPNN head on the qwen trunk's mean-pooled final hidden states
+    (128-row TokenStream batches: feature_dim 1024), with the head config's
+    defaults (16 x 64 hidden, 10 classes): one unsupervised step (injected
+    noise), one supervised step and a prediction from one state, through
+    the kernels ("cuda") and the plain versions ("torch"), dense and with
+    nact_hi 256, each call from one state on both paths (the kernel path's
+    result of the call before, copied for the plain one: a chain of calls
+    on each path would hold each call to the paths' earlier differences,
+    which the readout's log-odds of joint traces near 1e-7 amplify); the
+    supervised step's hidden rates against fp64; the predicted launches
+    of each call; then each call's eager wall time."""
+    import dataclasses
+    from repro_torch import convert
+    from repro_torch.core import head
+    from repro_torch.core.graphs import state_tensors
+    from repro_torch.core.network import (infer, supervised_step,
+                                          unsupervised_step)
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    with torch.no_grad():
+        toks = torch.from_numpy(TokenStream(cfg.vocab, seed=2).batch(
+            0, 128, 32)).cuda()
+        feats = lm.forward(params, cfg, toks).mean(dim=1)
+    check(feats.shape == (128, cfg.d_model) and feats.dtype ==
+          torch.bfloat16, f"phase 11: pooled features {feats.shape} "
+                          f"{feats.dtype}")
+    labels = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 10, 128)).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    runs = {}
+    for nact in (0, 256):
+        hcfg = head.BCPNNHeadConfig(feature_dim=cfg.d_model, nact_hi=nact)
+        net = hcfg.network_config()
+        plain = dataclasses.replace(net, backend="torch")
+        noise = torch.randn((128, hcfg.hidden_hc * hcfg.hidden_mc),
+                            generator=gen, device="cuda")
+        st = head.init_head(hcfg, 5, "cuda")
+        rates = head.encode_features(feats, hcfg.encode_gain).float()
+        fwd = "patchy_forward" if nact else "bcpnn_fwd"
+        calls = {
+            "unsupervised": (
+                lambda s: head.head_unsupervised(s, hcfg, feats, noise=noise),
+                lambda s: unsupervised_step(s, plain, rates, noise=noise)),
+            "supervised": (
+                lambda s: head.head_supervised(s, hcfg, feats, labels),
+                lambda s: supervised_step(s, plain, rates, labels)),
+            "predict": (lambda s: head.head_predict(s, hcfg, feats),
+                        lambda s: infer(s, plain, rates)),
+        }
+        run = {k: 0 for k in ops.launch_counts()}
+        label = f"head_qwen{'_nact256' if nact else ''}"
+        for name, (kern, ref_fn) in calls.items():
+            st_p = convert.state_from_numpy(convert.state_to_numpy(st), plain,
+                                            "cuda")
+            if name == "supervised":
+                _head_hidden_rates(torch, st, st_p, net, plain, rates, label)
+            ops.reset_launch_counts()
+            got = kern(st)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            want = ref_fn(st_p)
+            predicted = {fwd if k == "fwd" else k: v
+                         for k, v in HEAD_LAUNCHES[name].items()}
+            check(counts == predicted, f"phase 11 {label} {name}: launches "
+                                       f"{counts}, predicted {predicted}")
+            for k, v in counts.items():
+                run[k] += v
+            if name == "predict":
+                (pk, yk), (pp, yp) = got, want
+                err = (pk - pp).abs().max().item()
+                same = (yk == yp).float().mean().item()
+                check(err <= HEAD_TOL and same >= 0.999,
+                      f"phase 11 {label} predict: probs {err:.3e}, "
+                      f"predictions equal in {same:.4f}")
+                extra = f", predictions equal in {same:.4f} of rows"
+            else:
+                err = max((a.double() - b.double()).abs().max().item()
+                          for a, b in zip(state_tensors(got),
+                                          state_tensors(want)))
+                check(err <= HEAD_TOL, f"phase 11 {label} {name}: state "
+                                       f"{err:.3e} > {HEAD_TOL}")
+                extra = ""
+                if name == "supervised":
+                    extra = _head_readout_gap(torch, got, want)
+                st = got
+            print(f"[phase11] {label} {name}: kernel vs plain max abs err "
+                  f"{err:.3e}{extra}; launches {counts} (as predicted)",
+                  flush=True)
+        runs[label] = run
+        walls = {}
+        for name, (kern, _) in calls.items():
+            for _ in range(3):
+                kern(st)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                kern(st)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t) * 1e6 / 20
+        print(f"[phase11] {label} eager walls (us a call, 20 calls): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+              + "; not graphed: core/graphs.py's StepProgram takes donated "
+              "steps, the head's calls return new states", flush=True)
+    return runs
+
+
+def _head_hidden_rates(torch, st, st_p, net, plain, rates, label):
+    """The supervised step's hidden rates from one state, kernel and plain
+    path, each against an fp64 forward (phase 3's rule: the kernel no
+    further from fp64 than max(1e-5, twice the plain path))."""
+    from repro_torch.core.network import as_spec, stack_rates
+    spec = as_spec(net)
+    proj, pspec = st.projs[0], spec.projs[0]
+    s64 = proj.b.double() + rates.double() @ proj.w.double()  # w is masked
+    r64 = torch.softmax(s64.view(len(rates), pspec.post.H, pspec.post.M) *
+                        pspec.gain, dim=-1).view(len(rates), -1)
+    hk = stack_rates(st, spec, rates)
+    hp = stack_rates(st_p, as_spec(plain), rates)
+    err_k = (hk.double() - r64).abs().max().item()
+    err_p = (hp.double() - r64).abs().max().item()
+    print(f"[phase11] {label} supervised step's hidden rates ({len(rates)} "
+          f"rows, supports {s64.min().item():.1f} to "
+          f"{s64.max().item():.1f}), max abs err vs fp64: kernel "
+          f"{err_k:.3e}, plain {err_p:.3e}; kernel vs plain "
+          f"{(hk - hp).abs().max().item():.3e}", flush=True)
+    check(err_k <= max(1e-5, 2 * err_p),
+          f"phase 11 {label}: kernel hidden rates {err_k:.3e} from fp64, "
+          f"plain {err_p:.3e}")
+
+
+def _head_readout_gap(torch, got, want):
+    """Where the supervised step's two states part most in the readout's
+    w: its joint trace there (w = log pij - log pi - log pj, so a
+    difference d in pij moves w by about d / pij)."""
+    dw = (got.readout.w.double() - want.readout.w.double()).abs()
+    i = int(dw.argmax())
+    pij_k = got.readout.traces.pij.reshape(-1)[i].item()
+    pij_p = want.readout.traces.pij.reshape(-1)[i].item()
+    return (f" (readout w {dw.reshape(-1)[i].item():.3e} apart where pij is "
+            f"{pij_k:.6e} against {pij_p:.6e}: d / pij = "
+            f"{abs(pij_k - pij_p) / max(pij_p, 1e-30):.3e}; readout pij from "
+            f"{got.readout.traces.pij.min().item():.3e})")
+
+
+def phase11_start():
+    """Phase 11's subprocesses, started before phase 7 to run beside its
+    pytest process: the serve launcher at full width (``python -m
+    repro_torch.launch.serve --arch qwen1.5-0.5b --batch 4 --prompt-len 32
+    --gen 16``) and the head example on the card, their logs kept."""
+    return [start_module(args, f"{log}.log") for args, log in (
+        (["repro_torch.launch.serve", "--arch", "qwen1.5-0.5b", "--batch",
+          "4", "--prompt-len", "32", "--gen", "16"], "serve_qwen"),
+        (["repro_torch.examples.bcpnn_head_on_lm", "--device", "cuda"],
+         "bcpnn_head_on_lm"))]
+
+
+def phase11_finish(started):
+    for (proc, log, t), prefix in zip(started, ("[serve]", "[bcpnn-head]")):
+        rc = proc.wait(timeout=600)
+        lines = log.read_text().strip().splitlines()
+        for line in lines:
+            if line.startswith(prefix):
+                print(f"[phase11] {line}", flush=True)
+        print(f"[phase11] {' '.join(proc.args[2:])}: rc {rc} in "
+              f"{time.perf_counter() - t:.1f} s, beside phase 7 (log "
+              f"{log.relative_to(ROOT)})", flush=True)
+        check(rc == 0, f"{' '.join(proc.args[2:])} failed: "
+                       f"{lines[-1:] or ['(no output)']}")
+
+
+def start_module(args, log_name):
+    """``python -m <args>`` from the repo root, its output in
+    ``chiprun_out/<log_name>``: (process, log, start time)."""
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    log = ROOT / "chiprun_out" / log_name
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -2927,13 +3266,17 @@ def main() -> int:
     stream_launches.update(phase9(torch, tr, fitted, data))
     phase10(torch, data)
     phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
-    launcher = launcher_start()
+    head_launches = phase11(torch)
+    started = [launcher_start()]
     try:
+        started += phase11_start()
         phase7()
-        launcher_finish(launcher)
+        launcher_finish(started[0])
+        phase11_finish(started[1:])
     finally:
-        launcher[0].kill()  # nothing left running, whatever failed
-        launcher[0].wait()
+        for proc, _, _ in started:  # nothing left running, whatever failed
+            proc.kill()
+            proc.wait()
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);
@@ -2941,7 +3284,7 @@ def main() -> int:
     # the state that runs them; every run's counts are under "runs".
     runs = {"model1": launches, **{f"struct_{v}": c
                                    for v, c in struct_launches.items()},
-            **serve_launches, **stream_launches}
+            **serve_launches, **stream_launches, **head_launches}
     main_run = {"patchy_forward": "struct_b", "patchy_update": "struct_b",
                 "compact_forward": "struct_c", "compact_update": "struct_c",
                 "quant_fwd": "model1_int8",

@@ -20,18 +20,27 @@ with ``w``/``b`` in the serving dtype (float32; bfloat16 as the
 ``ml_dtypes`` arrays JAX hands to numpy; int8 codes with float32 ``b``),
 ``scale`` (Hj,) float32 for int8 packs and ``table`` (Hj, nact) int32 for
 patchy ones, else None.
+
+LM zoo parameters and decode caches cross in the JAX layout (numpy leaves,
+as ``jax.tree.map(np.asarray, tree)`` gives them): the scanned
+``blocks/pos{i}_{c}`` leaves carry a leading axis of ``n_blocks`` repeats
+when there is more than one, ``tail/tail{i}_{c}`` leaves none.  The port
+holds one module (one cache) a layer in execution order, so the
+conversion unstacks and restacks; a round trip is bitwise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.bcpnn_layer import InferPack, Projection, ProjSpec, is_patchy
 from .core.network import DeepState, InferParams, NetworkSpec, as_spec
 from .core.traces import Traces
 from .device import DeviceLike, make_generator, resolve_device
+from .models.lm import LM, LMCache
 
 
 def _projection_from_numpy(d: Dict[str, Any], dev: torch.device) -> Projection:
@@ -115,7 +124,13 @@ _PACK_DTYPES = {"fp32": "float32", "bf16": "bfloat16", "int8": "int8"}
 
 
 def _pack_tensor(a, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``.  On the CPU it shares a writeable array's memory,
+    as ``torch.from_numpy`` does; a read-only one (JAX hands those out, and
+    a decode cache is written in place) is copied.  Toward the card,
+    ``.to`` makes the copy."""
     a = np.ascontiguousarray(a)
+    if dev.type == "cpu" and not a.flags.writeable:
+        a = a.copy()
     if a.dtype.name == "bfloat16":  # numpy has no bfloat16: move the bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
     return torch.from_numpy(a).to(dev)
@@ -164,3 +179,167 @@ def params_from_numpy(tree: Dict[str, Any], spec_or_cfg,
                                                     spec.projs))),
         readout=_pack_from_numpy(tree["readout"], spec.readout, dev,
                                  "readout"))
+
+
+# ---------------------------------------------------------------- LM zoo --
+
+def _layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
+    """(group, key, repeat index or None) of each decoder layer of the JAX
+    tree, in the port's execution order."""
+    n_blocks, n_tail = cfg.pattern_blocks
+    pattern = cfg.layer_pattern
+    if n_blocks == 0 or (n_blocks > 1 and not cfg.scan_layers):
+        raise ValueError(f"{cfg.name}: the JAX tree of {n_blocks} pattern "
+                         f"repeats with scan_layers={cfg.scan_layers} does "
+                         f"not hold one block a layer")
+    stacked = n_blocks > 1
+    slots = [("blocks", f"pos{i}_{c}", r if stacked else None)
+             for r in range(n_blocks) for i, c in enumerate(pattern)]
+    slots += [("tail", f"tail{i}_{pattern[i % len(pattern)]}", None)
+              for i in range(n_tail)]
+    return slots
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy (decode writes its cache in place), bf16 as
+    ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: move the bits
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _take(tree: Dict[str, Any], r: Optional[int]) -> Dict[str, Any]:
+    """Repeat ``r`` of a stacked subtree (the subtree itself for None)."""
+    if r is None:
+        return tree
+    return {k: _take(v, r) if isinstance(v, dict) else np.asarray(v)[r]
+            for k, v in tree.items()}
+
+
+def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+_PER_LAYER = ("layers", "encoder")  # LM children converted on their own
+
+
+def _module_tree(module: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX subtree of ``module``'s parameters and children, leaving out
+    the per-layer lists and the encoder."""
+    tree: Dict[str, Any] = {n: _to_numpy(p) for n, p in
+                            module.named_parameters(recurse=False)}
+    for n, child in module.named_children():
+        if n not in _PER_LAYER:
+            tree[n] = _module_tree(child)
+    return tree
+
+
+@torch.no_grad()
+def _load_module(module: torch.nn.Module, tree: Dict[str, Any],
+                 where: str) -> None:
+    """Copy a JAX subtree into ``module``'s parameters, key for key (the
+    per-layer lists and the encoder aside); every parameter must be in it,
+    at its shape and dtype."""
+    own = dict(module.named_parameters(recurse=False))
+    children = {n: c for n, c in module.named_children()
+                if n not in _PER_LAYER}
+    tree = {k: v for k, v in tree.items() if k not in ("blocks", "tail")
+            and k not in _PER_LAYER}
+    if set(tree) != set(own) | set(children):
+        raise ValueError(f"{where}: the tree holds {sorted(tree)}, the port "
+                         f"module {sorted(set(own) | set(children))}")
+    for key, val in tree.items():
+        if key in children:
+            _load_module(children[key], val, f"{where}/{key}")
+            continue
+        t = _pack_tensor(val, own[key].device)
+        if t.shape != own[key].shape or t.dtype != own[key].dtype:
+            raise ValueError(f"{where}/{key} is {tuple(t.shape)} {t.dtype}, "
+                             f"the port wants {tuple(own[key].shape)} "
+                             f"{own[key].dtype}")
+        own[key].copy_(t)
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device: DeviceLike = None) -> LM:
+    """The port's ``models.lm.LM`` on ``device`` from a JAX
+    ``lm.init_params`` tree of numpy leaves (checked key by key, shape and
+    dtype)."""
+    dev = resolve_device(device)
+    params = LM(cfg, dev)
+    _load_module(params, tree, "params")
+    for layer, (group, key, r) in zip(params.layers, _layer_slots(cfg)):
+        _load_module(layer, _take(tree[group][key], r), f"{group}/{key}")
+    if hasattr(params, "encoder") != ("encoder" in tree):
+        raise ValueError(f"{cfg.name}: encoder in the tree "
+                         f"{'encoder' in tree}, in the port "
+                         f"{hasattr(params, 'encoder')}")
+    if hasattr(params, "encoder"):
+        enc = tree["encoder"]
+        _load_module(params.encoder, enc, "encoder")
+        names = sorted(enc["layers"])
+        if len(names) != len(params.encoder.layers):
+            raise ValueError(f"encoder: {len(names)} layers in the tree, "
+                             f"{len(params.encoder.layers)} in the port")
+        for layer, name in zip(params.encoder.layers, names):
+            _load_module(layer, enc["layers"][name], f"encoder/{name}")
+    return params
+
+
+def lm_params_to_numpy(params: LM, cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX ``lm.init_params`` tree of a port ``LM``, numpy leaves (bf16
+    as ``ml_dtypes.bfloat16``)."""
+    tree = _module_tree(params)
+    tree.update(_group_layers(
+        [_module_tree(layer) for layer in params.layers], cfg))
+    if hasattr(params, "encoder"):
+        enc = _module_tree(params.encoder)
+        enc["layers"] = {f"enc{i}": _module_tree(layer)
+                         for i, layer in enumerate(params.encoder.layers)}
+        tree["encoder"] = enc
+    return tree
+
+
+def _group_layers(per_layer: List[Dict[str, Any]],
+                  cfg: ModelConfig) -> Dict[str, Any]:
+    """Per-layer subtrees (execution order) -> JAX ``blocks`` and ``tail``
+    groups, the scanned ones stacked along a leading repeat axis."""
+    out: Dict[str, Any] = {"blocks": {}, "tail": {}}
+    pending: Dict[str, List[Dict[str, Any]]] = {}
+    for sub, (group, key, r) in zip(per_layer, _layer_slots(cfg)):
+        if r is None:
+            out[group][key] = sub
+        else:
+            pending.setdefault(key, []).append(sub)
+    for key, subs in pending.items():
+        out["blocks"][key] = _stack(subs)
+    return out
+
+
+def lm_cache_to_numpy(cache: LMCache, cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX decode-cache tree (``lm.init_cache``/``prefill`` layout) of
+    a port ``LMCache``: ``blocks``, ``tail``, ``pos`` (0-d int32) and, for
+    enc-dec models, ``enc_out``."""
+    tree = _group_layers([{k: _to_numpy(v) for k, v in c.items()}
+                          for c in cache.layers], cfg)
+    tree["pos"] = _to_numpy(cache.pos)
+    if cache.enc_out is not None:
+        tree["enc_out"] = _to_numpy(cache.enc_out)
+    return tree
+
+
+def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                        device: DeviceLike = None) -> LMCache:
+    """A port ``LMCache`` on ``device`` from a JAX decode-cache tree."""
+    dev = resolve_device(device)
+    layers = [{k: _pack_tensor(np.asarray(v), dev)
+               for k, v in _take(tree[group][key], r).items()}
+              for group, key, r in _layer_slots(cfg)]
+    enc = tree.get("enc_out")
+    return LMCache(layers=layers,
+                   pos=_pack_tensor(np.asarray(tree["pos"], np.int32), dev),
+                   enc_out=None if enc is None else _pack_tensor(enc, dev))

@@ -1,6 +1,7 @@
 """BCPNN core — the port's counterpart of ``repro.core`` for the names
 ported so far (dense, patchy and compact layouts, single device; the
-epoch programs as captured steps on the card, ``graphs.py``)."""
+epoch programs as captured steps on the card, ``graphs.py``; the head on
+an LM trunk, ``head.py``)."""
 from .hypercolumns import LayerGeom, encode_scalar_hcs, hc_hardmax, hc_softmax
 from .traces import (Traces, init_traces, mutual_information, update_traces,
                      weights_from_traces)
@@ -32,6 +33,8 @@ from .network import (
     unsupervised_layer_step,
     unsupervised_step,
 )
+from .head import (BCPNNHeadConfig, encode_features, head_predict,
+                   head_supervised, head_unsupervised, init_head)
 from .trainer import (Trainer, eval_batches, evaluate_padded,
                       supervised_epoch, unsupervised_epoch,
                       unsupervised_layer_epoch)
@@ -52,6 +55,8 @@ __all__ = [
     "online_learn_step", "spec_from_dict", "spec_to_dict", "stack_rates",
     "supervised_readout_step", "supervised_step", "train_projection_step",
     "unsupervised_layer_step", "unsupervised_step",
+    "BCPNNHeadConfig", "encode_features", "head_predict", "head_supervised",
+    "head_unsupervised", "init_head",
     "Trainer", "eval_batches", "evaluate_padded", "supervised_epoch",
     "unsupervised_epoch", "unsupervised_layer_epoch",
 ]

@@ -8,8 +8,11 @@ one thread-block cluster per (128-row batch tile, post-HC) splits the
 contraction between its blocks; in each, staging warps bring 16-deep
 slices of x and w in by TMA, split them once into TF32 hi and lo halves
 laid out as the tensor cores read them, and two warpgroups multiply them
-with ``wgmma`` in 3xTF32 (lo·hi + hi·lo + hi·hi in fp32; fp32 accuracy,
-no single TF32 pass; ``ref.split_tf32_mm`` models it).  The cluster sums
+with ``wgmma`` in 3xTF32 (lo·hi + hi·lo + hi·hi; fp32 accuracy, no
+single TF32 pass; ``ref.split_tf32_mm`` models it), each slice's products
+in a fresh tensor-core accumulator added into the sum in fp32 (the tensor
+cores' own accumulator truncates at the running sum's magnitude, which
+biases long contractions of large supports).  The cluster sums
 its partial supports in distributed shared memory and the HC softmax is
 the epilogue.
 

@@ -931,15 +931,24 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
 //    and waits on it only before it exits.  Wider HCs keep the rows of
 //    each column chunk in a shared support buffer and normalise them once
 //    every chunk is in.
-//  * The product runs on the tensor cores in 3xTF32: wgmma m64nBNk8 with
-//    fp32 accumulators (lo*hi, hi*lo, hi*hi; lo*lo, ~2^-22 relative,
-//    dropped), both operands read by the tensor cores from shared memory,
-//    so no fragment passes through registers; ref.split_tf32_mm models it
-//    on the CPU.  No single TF32 pass.  A bf16 weight is exact in TF32
-//    (w_lo = 0): its tiles hold w once and take two products.  Two
-//    warpgroups of tensor-core warps each own 64 rows of the tile and keep
-//    one slice's products in flight while the next slice's barrier is
-//    passed.
+//  * The product runs on the tensor cores in 3xTF32: wgmma m64nCNk8
+//    (lo*hi, hi*lo, hi*hi; lo*lo, ~2^-22 relative, dropped), both
+//    operands read by the tensor cores from shared memory, so no fragment
+//    passes through registers; ref.split_tf32_mm models it on the CPU.  No
+//    single TF32 pass.  A bf16 weight is exact in TF32 (w_lo = 0): its
+//    tiles hold w once and take two products.  Two warpgroups of
+//    tensor-core warps each own 64 rows of the tile.
+//  * The promotion.  The tensor cores' fp32 accumulator does not round to
+//    nearest: each wgmma truncates at the magnitude of the running sum,
+//    so a sum carried through a block's whole contraction drifts toward
+//    zero in proportion to its size (a gain-like shrink of the supports,
+//    which log-odds weights make thousands deep).  Each slice's products
+//    therefore go to a fresh accumulator of CN = min(BN, 64) columns
+//    (scale_d = 0 on the slice's first product), which the tensor-core
+//    warps wait for and add into the block's partial support in fp32,
+//    round to nearest; the split buffer is released after the add.  Its
+//    cost (a wait a slice, two of them at 128 columns) and what it buys
+//    against fp64 are measured in PERF.md (PR 23).
 //  * Operands are split once, when a slice is staged, not in every
 //    fragment load: two warpgroups of staging warps split each raw slice
 //    (x: 128 x 16, w: 16 x BN) into hi and lo (split_tf32: hi rounded as
@@ -974,7 +983,8 @@ cudaError_t launch_trace_any(const float* pij, const float* log_pi, const float*
 //
 // Variants of this body timed on the H100 at Model 1's hidden layer were
 // slower: four staging warps in place of eight, cp.async in place of TMA
-// for 16-byte-aligned rows, and the split through cvt.rna.tf32.f32.
+// for 16-byte-aligned rows, the split through cvt.rna.tf32.f32, and the
+// promotion through 32-column accumulators (four waits a slice at 128).
 
 constexpr int kTcRows = 128;      // batch rows per block (BM)
 constexpr int kTcK = 16;          // contraction slice per stage
@@ -1216,6 +1226,10 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     }
   };
 
+  // A slice's products go to a fresh tensor-core accumulator of CN columns
+  // (one or two a tile), which is then added into acc in fp32 (the
+  // promotion, above).
+  constexpr int CN = BN < 64 ? BN : 64, NAC = CN / 2;
   for (int c0 = 0; c0 < Mj; c0 += BN, done += slices) {
     float acc[NA];
 #pragma unroll
@@ -1226,30 +1240,37 @@ bcpnn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tmx,
       if (c0 == 0 && one_chunk) {  // the bias, while the first slice arrives
         for (int c = threadIdx.x; c < Mj; c += kTcMma) sbias[c] = to_f32(bias[col0 + c]);
       }
+      float sl[NAC];  // a slice's products on columns cn CN .. cn CN + CN - 1
+#pragma unroll
+      for (int i = 0; i < NAC; ++i) sl[i] = 0.f;
       for (int s = 0; s < slices; ++s) {
         barrier_sync(kBarFull + (s & 1), kTcThreads);
         const float* sx = split(s);
-        wgmma_fence();
-        fence_operands<NA>(acc);
 #pragma unroll
-        for (int kk = 0; kk < BK / 8; ++kk) {
-          const float* xh = sx + kk * 2 * F::kA8 + wg * 64 * 8;
-          const float* wh = sx + (BK / 8) * 2 * F::kA8 + kk * (F::kSplitW ? 2 : 1) * F::kB8;
-          const uint64_t dxh = wgmma_desc(xh), dxl = wgmma_desc(xh + F::kA8);
-          const uint64_t dwh = wgmma_desc(wh);
-          wgmma_tf32<BN>(acc, dxl, dwh, 1);
-          if constexpr (F::kSplitW) wgmma_tf32<BN>(acc, dxh, wgmma_desc(wh + F::kB8), 1);
-          wgmma_tf32<BN>(acc, dxh, dwh, 1);
+        for (int cn = 0; cn < BN / CN; ++cn) {
+          wgmma_fence();
+          fence_operands<NAC>(sl);
+#pragma unroll
+          for (int kk = 0; kk < BK / 8; ++kk) {
+            const float* xh = sx + kk * 2 * F::kA8 + wg * 64 * 8;
+            // columns cn CN on: CN / 8 row groups of 64 words in
+            const float* wh = sx + (BK / 8) * 2 * F::kA8 +
+                              kk * (F::kSplitW ? 2 : 1) * F::kB8 + cn * CN * 8;
+            const uint64_t dxh = wgmma_desc(xh), dxl = wgmma_desc(xh + F::kA8);
+            const uint64_t dwh = wgmma_desc(wh);
+            wgmma_tf32<CN>(sl, dxl, dwh, kk > 0);  // the slice's first product overwrites
+            if constexpr (F::kSplitW) wgmma_tf32<CN>(sl, dxh, wgmma_desc(wh + F::kB8), 1);
+            wgmma_tf32<CN>(sl, dxh, dwh, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands<NAC>(sl);
+#pragma unroll
+          for (int i = 0; i < NAC; ++i) acc[cn * NAC + i] += sl[i];
         }
-        wgmma_commit();
-        fence_operands<NA>(acc);
-        // slice s - 1's products are done: its split buffer is free
-        wgmma_wait<1>();
-        if (s > 0) barrier_arrive(kBarEmpty + ((s - 1) & 1), kTcThreads);
+        // slice s's products are done: its split buffer is free
+        barrier_arrive(kBarEmpty + (s & 1), kTcThreads);
       }
-      wgmma_wait<0>();
-      fence_operands<NA>(acc);
-      if (slices > 0) barrier_arrive(kBarEmpty + ((slices - 1) & 1), kTcThreads);
     } else {
       // ---- staging warpgroups: copy, split, lay out K-major --------------
       const int st = threadIdx.x - kTcMma;

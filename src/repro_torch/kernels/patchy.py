@@ -14,7 +14,8 @@ Replace the Pallas TPU kernels of ``repro/kernels/patchy.py``:
     pieces, while the compact layout's (Hj, K, Mj) w comes by TMA, one box
     a slice.  They split each slice once into TF32 hi and lo halves, and
     two warpgroups multiply them with ``wgmma`` in 3xTF32 (fp32 accuracy;
-    ``ref.split_tf32_mm`` models it).  The cluster sums its partial
+    ``ref.split_tf32_mm`` models it), each slice's products added into
+    the block's sum in fp32 (``bcpnn_fwd``).  The cluster sums its partial
     supports in distributed shared memory, in rank order, and the HC
     softmax is the epilogue, in registers.  The JAX wrappers gather x into
     an (Hj, B, K) array first; here it never exists.

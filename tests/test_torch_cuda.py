@@ -1585,3 +1585,231 @@ def test_dp_steps_on_the_card_equal_the_single_device_steps(gen):
         for r in ranks:
             assert snapshots_equal(r[0][i], R.tree(st)), (r, i)
             assert snapshots_equal(r[1][i], R.tree(st_sup)), (r, i)
+
+
+# ------------------------------------------------------ the head's shapes --
+# The BCPNN head on an LM trunk (core/head.py): input Ni = 2 x d_model
+# (256 at the example's smoke trunk, 2048 at qwen1.5-0.5b), hidden 16 HCs
+# of 16 (the example) or 64 (the default) minicolumns, readouts of 4 and
+# 10 classes; served one row at a time, or in batches of 64 and 128.
+HEAD_BATCHES = [1, 64, 128]
+HEAD_LAYERS = [(256, 16, 16), (2048, 16, 64)]      # (Ni, Hj, Mj)
+HEAD_READOUTS = [(16, 16, 4), (16, 64, 10)]        # (Hi, Mi, classes)
+
+
+@pytest.mark.parametrize("b", HEAD_BATCHES)
+@pytest.mark.parametrize("ni,hj,mj", HEAD_LAYERS)
+def test_bcpnn_fwd_kernel_at_head_shapes(gen, b, ni, hj, mj):
+    x = _rand(gen, b, ni)
+    w = _randn(gen, ni, hj * mj) * 0.1
+    bias = _randn(gen, hj * mj)
+    got = ops.bcpnn_fwd(x, w, bias, hj, mj)
+    want = ref.ref_bcpnn_fwd(x, w, bias, hj, mj)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+# The dense forward against an fp64 forward, with the plain (cuBLAS) path
+# as the yardstick.  "rand": phase 1's draws at the head's and Model 1's
+# hidden shapes, where both paths sit ~1e-6 from fp64 over 128 x 1024 or
+# more rates and the kernel may be no further than twice the plain path.
+# "logodds": operands as a fitted or head state gives them (complementary
+# input rates, weights of -5.7 to 1.2, log-prior biases near -8: supports
+# of thousands over a long contraction), held to chip_smoke.py phase 3's
+# rule, max(1e-5, twice the plain path).  A tensor-core accumulator that
+# carries a block's whole contraction truncates at the magnitude of the
+# running sum: it sat 4-5x the plain path's distance on "rand" and broke
+# the rule on "logodds" at a readout shape; the kernel now adds each
+# slice's products into its sum in fp32.
+@pytest.mark.parametrize("family,hi,hj,mj", [
+    ("rand", 1024, 16, 64), ("rand", 784, 32, 128),
+    ("logodds", 1024, 16, 64), ("logodds", 784, 32, 128),
+    ("logodds", 512, 1, 10), ("logodds", 128, 1, 4)])
+def test_bcpnn_fwd_kernel_against_fp64(gen, family, hi, hj, mj):
+    if family == "rand":
+        x = _rand(gen, 128, 2 * hi)
+        w = _randn(gen, 2 * hi, hj * mj) * 0.1
+        bias = _randn(gen, hj * mj) * 0.1
+    else:
+        p = torch.sigmoid(4 * _randn(gen, 128, hi))
+        x = torch.stack([p, 1 - p], -1).reshape(128, 2 * hi).contiguous()
+        w = _rand(gen, 2 * hi, hj * mj) * 6.9 - 5.7
+        bias = _rand(gen, hj * mj) * 2 - 9
+    s64 = bias.double() + x.double() @ w.double()
+    r64 = torch.softmax(s64.view(128, hj, mj), -1).view(128, -1)
+    err_k = (ops.bcpnn_fwd(x, w, bias, hj, mj).double() - r64).abs().max()
+    err_p = (ref.ref_bcpnn_fwd(x, w, bias, hj, mj).double() - r64).abs().max()
+    limit = 2 * err_p.item()
+    if family == "logodds":
+        limit = max(1e-5, limit)
+    assert err_k.item() <= limit, (err_k.item(), err_p.item())
+
+
+@pytest.mark.parametrize("b", HEAD_BATCHES)
+@pytest.mark.parametrize("hi,mi,hj,mj", [(ni // 2, 2, hj, mj)
+                                         for ni, hj, mj in HEAD_LAYERS]
+                         + [(hi, mi, 1, c) for hi, mi, c in HEAD_READOUTS])
+def test_bcpnn_update_kernel_at_head_shapes(gen, b, hi, mi, hj, mj):
+    ni, nj = hi * mi, hj * mj
+    pij = _rand(gen, ni, nj) * 0.01 + 1e-5
+    lpi = torch.log(_rand(gen, ni) * 0.5 + 1e-4)
+    lpj = torch.log(_rand(gen, nj) * 0.5 + 1e-4)
+    x, y = _rand(gen, b, ni), _rand(gen, b, nj)
+    mask = (_rand(gen, hi, hj) > 0.3).float()
+    a = torch.tensor(5e-2, device="cuda")
+    gp, gw = ops.bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    wp, ww = ref.ref_bcpnn_update(pij, lpi, lpj, x, y, mask, a)
+    assert bool(((gp - wp).abs() <= 1e-9 + 1e-5 * wp.abs()).all())
+    assert (gw - ww).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b", HEAD_BATCHES)
+@pytest.mark.parametrize("h,m", [(16, 16), (16, 64), (1, 4), (1, 10)])
+def test_hc_softmax_kernel_at_head_shapes(gen, b, h, m):
+    s = _randn(gen, b, h * m) * 4
+    got = ops.hc_softmax(s, h, m)
+    want = ref.ref_hc_softmax(s, h, m)
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.parametrize("nact", [0, 64])
+def test_head_steps_on_card_match_cpu_plain(gen, nact):
+    """The head's three calls, each from one state (the card's result of
+    the call before, copied to the CPU) and the same features, on the card
+    through the kernels and on the CPU through the plain versions: states
+    within 1e-4, probabilities within 1e-5, predictions equal."""
+    from repro_torch import convert
+    from repro_torch.core import head
+    cfg = head.BCPNNHeadConfig(feature_dim=128, nact_hi=nact)
+    st_cpu = head.init_head(cfg, 0, "cpu")
+    st_gpu = convert.state_from_numpy(convert.state_to_numpy(st_cpu),
+                                      cfg.network_config(), "cuda")
+    f = torch.randn((64, 128), generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 10, (64,), generator=torch.Generator().manual_seed(2))
+    noise = torch.randn((64, 16 * 64),
+                        generator=torch.Generator().manual_seed(3))
+    def on_cpu(st):
+        return convert.state_from_numpy(convert.state_to_numpy(st),
+                                        cfg.network_config(), "cpu")
+
+    def assert_states_close(a, b):
+        for x, z in zip(_state_leaves(convert.state_to_numpy(a)),
+                        _state_leaves(convert.state_to_numpy(b))):
+            np.testing.assert_allclose(x, z, rtol=0, atol=1e-4)
+
+    ops.reset_launch_counts()
+    st_gpu = head.head_unsupervised(st_gpu, cfg, f.cuda(), noise=noise.cuda())
+    assert_states_close(st_gpu, head.head_unsupervised(st_cpu, cfg, f,
+                                                       noise=noise))
+    st_cpu = on_cpu(st_gpu)
+    st_gpu = head.head_supervised(st_gpu, cfg, f.cuda(), y.cuda())
+    assert_states_close(st_gpu, head.head_supervised(st_cpu, cfg, f, y))
+    st_cpu = on_cpu(st_gpu)
+    probs_gpu, pred_gpu = head.head_predict(st_gpu, cfg, f.cuda())
+    fwd = "patchy_forward" if nact else "bcpnn_fwd"
+    counts = ops.launch_counts()
+    assert (counts["hc_softmax"], counts["bcpnn_update"], counts[fwd]) == \
+        (2, 2, 2), counts
+    probs_cpu, pred_cpu = head.head_predict(st_cpu, cfg, f)
+    assert (probs_gpu.cpu() - probs_cpu).abs().max().item() <= 1e-5
+    assert torch.equal(pred_gpu.cpu(), pred_cpu)
+
+
+def _state_leaves(tree):
+    """The float array leaves of a ``convert.state_to_numpy`` tree, in order."""
+    out = []
+    for p in tree["projs"] + [tree["readout"]]:
+        out += [p["traces"][k] for k in ("pi", "pj", "pij")]
+        out += [p[k] for k in ("w", "b", "mask")]
+    return out
+
+
+# -------------------------------------------------------------- the LM zoo --
+
+ZOO_ARCHS = ["falcon-mamba-7b", "gemma2-2b", "internvl2-26b",
+             "mistral-nemo-12b", "moonshot-v1-16b-a3b", "qwen1.5-0.5b",
+             "qwen3-32b", "qwen3-moe-30b-a3b", "recurrentgemma-2b",
+             "whisper-tiny"]
+
+
+def _zoo(arch):
+    """A smoke architecture in fp32: its config, the seeded CPU parameters
+    and a copy on the card, prompts (2 x 12 of 18) and extra inputs."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import lm
+    cfg = smoke(get_config(arch))
+    params = lm.init_params(cfg, 0, "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 18)))
+    extra = {}
+    if cfg.vision_patches:
+        extra["patches"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.vision_patches, cfg.d_model)).astype(np.float32))
+    if cfg.enc_layers:
+        extra["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return cfg, params, copy.deepcopy(params).to("cuda"), toks, extra
+
+
+def _cache_leaves(cache):
+    return [t for c in cache.layers for t in c.values()] + [cache.pos]
+
+
+def _assert_leaves_close(got, want, what):
+    for a, b in zip(_cache_leaves(got), _cache_leaves(want)):
+        if a.is_floating_point():
+            assert (a.cpu() - b).abs().max().item() <= 1e-4, what
+        else:
+            assert torch.equal(a.cpu(), b), what
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_decode_steps_on_card_match_cpu(gen, arch):
+    """forward's hidden states, prefill (logits and every cache leaf) and
+    six decode steps on the card against the CPU, fp32, within 1e-4
+    (cuBLAS sums in another order), integer leaves and ``pos`` equal;
+    gemma2 and recurrentgemma decode past their ring's wrap.  Decode
+    against forward on the card within the reference's 2e-3
+    (tests/test_archs_smoke.py)."""
+    from repro_torch.models import lm
+    cfg, params, params_gpu, toks, extra = _zoo(arch)
+    ex_gpu = {k: v.cuda() for k, v in extra.items()}
+    hid_c = lm.forward(params, cfg, toks, **extra)
+    hid_g = lm.forward(params_gpu, cfg, toks.cuda(), **ex_gpu)
+    assert (hid_g.cpu() - hid_c).abs().max().item() <= 1e-4, arch
+    fwd_g = lm.logits_for(params_gpu, cfg, hid_g)
+    lo_c, c_c = lm.prefill(params, cfg, toks[:, :12], 18, **extra)
+    lo_g, c_g = lm.prefill(params_gpu, cfg, toks[:, :12].cuda(), 18,
+                           **ex_gpu)
+    assert (lo_g.cpu() - lo_c).abs().max().item() <= 1e-4
+    _assert_leaves_close(c_g, c_c, (arch, "prefill"))
+    for i in range(6):
+        lo_c, c_c = lm.decode_step(params, cfg, c_c, toks[:, 12 + i])
+        lo_g, c_g = lm.decode_step(params_gpu, cfg, c_g,
+                                   toks[:, 12 + i].cuda())
+        assert (lo_g.cpu() - lo_c).abs().max().item() <= 1e-4, (arch, i)
+        assert (lo_g - fwd_g[:, 12 + i]).abs().max().item() <= 2e-3, \
+            (arch, i)
+    _assert_leaves_close(c_g, c_c, (arch, "decode"))
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_decode_step_on_card_needs_no_host_sync(gen, arch):
+    """A decode step reads nothing back from the card: the cache slot, the
+    validity mask and the MoE dispatch are computed on the device."""
+    from repro_torch.models import lm
+    cfg, _, params, toks, extra = _zoo(arch)
+    ex_gpu = {k: v.cuda() for k, v in extra.items()}
+    _, cache = lm.prefill(params, cfg, toks[:, :12].cuda(), 18, **ex_gpu)
+    tokens = toks[:, 12].cuda()
+    lm.decode_step(params, cfg, cache, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            logits, cache = lm.decode_step(params, cfg, cache, tokens)
+            tokens = torch.argmax(logits, -1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(cache.pos) == 16

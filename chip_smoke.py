@@ -197,6 +197,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
 PEAK_INT8_OPS_S = 1979e12
+PEAK_BF16_FLOP_S = 989e12
 TIMED_LAUNCHES = 20
 TIMED_REPLAYS = 10
 
@@ -2594,6 +2595,42 @@ def column_blocks(torch):
     return out
 
 
+def column_block_times(torch, smi):
+    """ROADMAP.md queue C item 2: Model 1's support product ``x @ w``
+    (x 128 or 104 x 1568, w 1568 x 4096) as one sgemm, against the same
+    product made of fixed 1024-column blocks (the 4-rank DP step's calls),
+    in the single-device step's place; device time of each (CUDA-graph
+    replay), the blocked product against the 4 ranks' blocks bit for bit,
+    and the difference as a share of the replayed unsupervised step's
+    180.5 us busy (PERF.md section 5)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    ni, nj, blk = 1568, 4096, 1024
+    w = torch.randn((ni, nj), generator=g, device="cuda")
+    cols = [slice(i, i + blk) for i in range(0, nj, blk)]
+    out = []
+    for b in (128, 104):
+        x = torch.rand((b, ni), generator=g, device="cuda")
+        whole_ms = device_ms(lambda: x @ w)
+        blocked_ms = device_ms(lambda: torch.cat([x @ w[:, c] for c in cols],
+                                                 1))
+        parts_ms = device_ms(lambda: [x @ w[:, c] for c in cols])
+        same = torch.equal(torch.cat([x @ w[:, c] for c in cols], 1),
+                           torch.cat([x @ w[:, c].contiguous()
+                                      for c in cols], 1))
+        d_us = (blocked_ms - whole_ms) * 1e3
+        out.append(d_us)
+        print(f"[phase4] queue C 2, B={b}: x @ w as one sgemm "
+              f"{whole_ms * 1e3:.2f} us; as 4 fixed 1024-column blocks "
+              f"{parts_ms * 1e3:.2f} us, with their concatenation "
+              f"{blocked_ms * 1e3:.2f} us (the rank's contiguous blocks "
+              f"{'equal' if same else 'DIFFER'} bit for bit): "
+              f"{d_us:+.2f} us, {d_us / 180.5 * 100:+.2f} % of the 180.5 us "
+              f"replayed Model-1 unsupervised step (adopt at <= +2 %; "
+              f"{smi})", flush=True)
+    return out
+
+
 def phase10(torch, data):
     """The data-parallel fit on the card: four rank processes sharing it
     over gloo (``_phase10_rank``) against single-device fits in this
@@ -3061,6 +3098,273 @@ def start_module(args, log_name):
     return proc, log, time.perf_counter()
 
 
+# -------------------------------------------------------------- phase 12 --
+
+# The JAX train driver's defaults (``repro/launch/train.py``): batch 8,
+# sequence 256, lr 3e-4; 30 steps, warmup max(1, steps // 20).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 30, 8, 256, 3e-4
+COMPRESS_STEPS = 5
+PROFILED_STEPS = 3
+# the resume: 4 steps, a checkpoint every 2, killed after step 2's
+RESUME_ARGS = ["--arch", "qwen1.5-0.5b", "--steps", "4", "--ckpt-every",
+               "2", "--device", "cuda"]
+
+
+def phase12(torch, smi):
+    """qwen1.5-0.5b trained at its published width and depth on the card
+    (bf16, remat, lmhead chunk 512, tied embeddings) with the JAX driver's
+    defaults, through ``launch.steps.make_train_step`` and the driver's
+    batches: the median step, tokens/s, the peak of allocated memory, the
+    model FLOPs a step against the card's dense bf16 peak (for
+    information), the first and last windows of the loss (the windowed
+    decrease asserted); where a step's device time goes
+    (``torch.profiler``); two gradient passes from one state compared leaf
+    by leaf, and the embedding's two backwards (``index_add_``, what
+    ``index_select``'s backward runs, and ``F.embedding``'s) repeated on
+    the same rows; then ``--compress-grads``' step for a few steps.  The
+    driver's kill and resume runs beside phase 7 (``phase12_resume``)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_leaf_groups
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import lm
+    from repro_torch.optim import (AdamWConfig, init_error_state,
+                                   init_opt_state)
+    cfg = get_config("qwen1.5-0.5b")
+    check((cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab, cfg.tie_embeddings,
+           cfg.dtype, cfg.remat, cfg.lmhead_chunk) ==
+          (24, 1024, 2816, 151936, True, "bfloat16", True, 512),
+          f"phase 12: qwen1.5-0.5b is not the published config: {cfg}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, 0, "cuda", train=True)
+    groups = lm_leaf_groups(params)
+    n_params = sum(p.numel() for p in params.parameters())
+    opt = init_opt_state(groups)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(1, TRAIN_STEPS // 20))
+    step = make_train_step(cfg, opt_cfg)
+    make_batch = make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+
+    def batch_of(i):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(i).items()}
+
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_of(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, opt = step(params, opt, batch)
+        losses.append(float(loss))  # the step's one sync
+        walls.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"phase 12: non-finite loss {losses}")
+    w = max(1, len(losses) // 4)
+    head, tail = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    med = statistics.median(walls[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops6 = 6 * n_params * tokens
+    print(f"[phase12] qwen1.5-0.5b train, {len(params.layers)} layers, "
+          f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab} "
+          f"(padded {cfg.vocab_padded}), tied, bf16, remat, lmhead chunk "
+          f"{cfg.lmhead_chunk}: {n_params / 1e9:.4f} G parameters; batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, lr {TRAIN_LR}, {TRAIN_STEPS} "
+          f"steps: median step {med * 1e3:.2f} ms (steps 2-{TRAIN_STEPS}; "
+          f"first {walls[0] * 1e3:.1f} ms), {tokens / med:.0f} tokens/s; "
+          f"peak allocated {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f}"
+          f" GiB over the {held / 2**30:.2f} GiB held before); model FLOPs a "
+          f"step 6N {flops6 / 1e12:.3f} T, 8N with remat "
+          f"{flops6 * 4 / 3 / 1e12:.3f} T: {flops6 * 4 / 3 / med / 1e12:.1f} "
+          f"TFLOP/s, {flops6 * 4 / 3 / med / PEAK_BF16_FLOP_S:.3f} of the "
+          f"dense bf16 peak of {PEAK_BF16_FLOP_S / 1e12:.0f} (information "
+          f"only; {smi})", flush=True)
+    print(f"[phase12] loss: first {w} steps mean {head:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in losses[:w])}), last {w} mean "
+          f"{tail:.4f} ({', '.join(f'{x:.4f}' for x in losses[-w:])})",
+          flush=True)
+    check(tail < head, f"phase 12: the loss did not decrease ({head:.4f} "
+                       f"-> {tail:.4f})")
+
+    batch = batch_of(TRAIN_STEPS)
+    for _ in range(2):
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            float(step(params, opt, batch)[0])
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / PROFILED_STEPS
+    # the aten operators that launched the device time, by their own share
+    ops = sorted((e for e in events if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    print(f"[phase12] a train step traced ({PROFILED_STEPS} steps): device "
+          f"busy {busy / 1e3:.2f} ms a step, idle share "
+          f"{max(0.0, 1 - busy / 1e3 / (med * 1e3)):.3f} of the untraced "
+          f"median {med * 1e3:.2f} ms, "
+          f"{sum(e.count for e in kernels) / PROFILED_STEPS:.0f} kernels a "
+          f"step; top operators by device time a step: " + "; ".join(
+              f"{e.key} {e.self_device_time_total / PROFILED_STEPS / 1e3:.2f}"
+              f" ms ({e.count // PROFILED_STEPS} calls)" for e in ops),
+          flush=True)
+
+    phase12_determinism(torch, F, params, cfg, batch)
+
+    opt["err"] = init_error_state(groups)
+    cstep = make_train_step(cfg, opt_cfg, compress=True)
+    closses, cwalls = [], []
+    for i in range(COMPRESS_STEPS):
+        batch = batch_of(TRAIN_STEPS + 1 + i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, opt = cstep(params, opt, batch)
+        closses.append(float(loss))
+        cwalls.append(time.perf_counter() - t)
+    check(all(np.isfinite(closses)), f"phase 12: compressed steps' losses "
+                                     f"{closses}")
+    print(f"[phase12] --compress-grads (int8, one scale a JAX leaf, error "
+          f"feedback): {COMPRESS_STEPS} steps from the trained state, "
+          f"losses {', '.join(f'{x:.4f}' for x in closses)}, median step "
+          f"{statistics.median(cwalls[1:]) * 1e3:.2f} ms ({smi})", flush=True)
+    del params, opt, groups, step, cstep, batch
+    torch.cuda.empty_cache()
+
+
+def phase12_determinism(torch, F, params, cfg, batch):
+    """Two gradient passes from one state on one batch, leaf by leaf; and
+    the embedding's backward rows summed twice by ``index_add_`` (the
+    backward of ``index_select``: atomics) and by ``F.embedding``'s
+    backward, on the batch's tokens, against each other."""
+    from repro_torch.convert import lm_leaf_groups
+    from repro_torch.models import lm
+    groups = lm_leaf_groups(params)
+    flat = [t for g in groups.values() for t in g]
+    names = [k for k, g in groups.items() for _ in g]
+    runs = []
+    for _ in range(2):
+        loss = lm.lm_loss(params, cfg, batch["tokens"])
+        runs.append(torch.autograd.grad(loss, flat))
+    differ = sorted({n for n, a, b in zip(names, *runs)
+                     if not torch.equal(a, b)})
+    toks = batch["tokens"].reshape(-1)
+    rows = torch.randn((toks.numel(), cfg.d_model), device="cuda",
+                       dtype=params.tok_embed.dtype)
+    table = params.tok_embed.detach()
+
+    def index_add():
+        return torch.zeros_like(table).index_add_(0, toks.long(), rows)
+
+    def embedding():
+        t = table.clone().requires_grad_(True)
+        F.embedding(toks, t).backward(rows)
+        return t.grad
+
+    ia = [index_add() for _ in range(3)]
+    em = [embedding() for _ in range(3)]
+    ia_same = all(torch.equal(ia[0], x) for x in ia[1:])
+    em_same = all(torch.equal(em[0], x) for x in em[1:])
+    print(f"[phase12] two gradient passes from one state: "
+          f"{len(flat) - sum(not torch.equal(a, b) for a, b in zip(*runs))}"
+          f" of {len(flat)} tensors equal bit for bit"
+          f"{'; differ: ' + ', '.join(differ) if differ else ''}; the "
+          f"embedding backward of {toks.numel()} rows ({int(toks.unique().numel())}"
+          f" distinct tokens) repeated 3 times: index_add_ (index_select's "
+          f"backward) {'equal' if ia_same else 'DIFFERS'}, F.embedding's "
+          f"{'equal' if em_same else 'DIFFERS'}", flush=True)
+    check(not differ and em_same, f"phase 12: a train step's gradients are "
+                                  f"not repeatable: {differ}")
+
+
+def phase12_resume():
+    """The driver at full width, killed after a checkpoint and restarted,
+    against an uninterrupted run (``RESUME_ARGS``), on a thread beside
+    phase 7: the uninterrupted and the killed run start together; the
+    killed one gets SIGKILL once its step-2 checkpoint is on disk, and its
+    restart resumes from it.  The final checkpoints are compared leaf by
+    leaf.  Returns (thread, result dict)."""
+    import shutil
+    import tempfile
+    import threading
+    root = Path(tempfile.mkdtemp(prefix="phase12_", dir=ROOT / "build"))
+    result = {"procs": []}
+
+    def launch(name, log):
+        started = start_module(["repro_torch.launch.train", *RESUME_ARGS,
+                                "--ckpt-dir", str(root / name)], log)
+        result["procs"].append(started[0])
+        return started
+
+    def run():
+        t = time.perf_counter()
+        try:
+            whole = launch("whole", "train_qwen_whole.log")
+            killed = launch("killed", "train_qwen_killed.log")
+            while not (root / "killed" / "step_2").exists():
+                if killed[0].poll() is not None:
+                    raise RuntimeError("the run to kill ended first")
+                time.sleep(0.05)
+            killed[0].kill()
+            killed[0].wait()
+            result["killed_at"] = sorted(
+                p.name for p in (root / "killed").iterdir())
+            resumed = launch("killed", "train_qwen_resumed.log")
+            result["rc"] = (whole[0].wait(timeout=900),
+                            resumed[0].wait(timeout=900))
+            result["logs"] = [whole[1], killed[1], resumed[1]]
+            a = np.load(root / "whole" / "step_4" / "arrays.npz")
+            b = np.load(root / "killed" / "step_4" / "arrays.npz")
+            differ, worst = [], 0.0
+            for name in a.files:
+                x, y = a[name], b[name]
+                if x.tobytes() != y.tobytes():
+                    differ.append(name)
+                    worst = max(worst, float(np.abs(
+                        x.astype(np.float64) - y).max()))
+            result.update(leaves=len(a.files), differ=differ, worst=worst,
+                          same_names=sorted(a.files) == sorted(b.files))
+        except Exception as e:  # reported by phase12_resume_finish
+            result["error"] = repr(e)
+        finally:
+            result["s"] = time.perf_counter() - t
+            shutil.rmtree(root, ignore_errors=True)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, result
+
+
+def phase12_resume_finish(started):
+    thread, result = started
+    thread.join(timeout=1200)
+    check(not thread.is_alive(), "phase 12 resume: still running")
+    for log in result.get("logs", []):
+        for line in log.read_text().strip().splitlines():
+            if line.startswith("[train]"):
+                print(f"[phase12] {log.stem}: {line}", flush=True)
+    check("error" not in result, f"phase 12 resume: {result.get('error')}")
+    print(f"[phase12] the driver killed after its step-2 checkpoint "
+          f"(directory at the kill: {result['killed_at']}) and restarted, "
+          f"against the uninterrupted 4 steps: {result['leaves']} leaves, "
+          f"{len(result['differ'])} differ (max abs {result['worst']:.3e})"
+          f"{': ' + ', '.join(result['differ'][:8]) if result['differ'] else ''}"
+          f"; rc {result['rc']}; {result['s']:.1f} s beside phase 7",
+          flush=True)
+    check(result["rc"] == (0, 0) and result["same_names"],
+          f"phase 12 resume: rc {result['rc']}")
+    check(result["killed_at"] == ["step_2"] or result["killed_at"] == [
+        ".tmp_step_4", "step_2"], f"phase 12: the kill came at "
+                                  f"{result['killed_at']}")
+    check(not result["differ"], f"phase 12: the resumed run parts from the "
+                                f"uninterrupted one in {result['differ']}")
+
+
 # --------------------------------------------------------------- phase 7 --
 
 def phase7():
@@ -3266,17 +3570,31 @@ def main() -> int:
     stream_launches.update(phase9(torch, tr, fitted, data))
     phase10(torch, data)
     phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    column_block_times(torch, smi)
     head_launches = phase11(torch)
+    phase12(torch, smi)
     started = [launcher_start()]
+    resume = None
     try:
+        resume = phase12_resume()
         started += phase11_start()
         phase7()
         launcher_finish(started[0])
         phase11_finish(started[1:])
+        phase12_resume_finish(resume)
     finally:
         for proc, _, _ in started:  # nothing left running, whatever failed
             proc.kill()
             proc.wait()
+        if resume is not None:
+            for proc in list(resume[1]["procs"]):
+                proc.kill()
+                proc.wait()
+            resume[0].join(timeout=60)
 
     # "launches": the dense kernels' from the Model-1 fit of phase 2, the
     # patchy kernels' from the struct fit that runs them (compact: (c);

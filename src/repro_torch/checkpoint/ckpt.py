@@ -30,6 +30,18 @@ stream resumes exactly where it stopped; a JAX checkpoint, or a port
 checkpoint saved on the other device type, re-seeds the generator with
 ``seed = (key[0] << 32) | key[1]``.  ``restore`` returns a state of new
 tensors and a new generator, never writing the target's.
+
+An LM train state, ``{"params": LM, "opt": optimizer state}`` (the
+``optim.init_opt_state`` of ``convert.lm_leaf_groups(params)``, with
+``"err"`` when gradients are compressed), is written under the JAX train
+driver's leaf names: ``params/<JAX tree path>``, ``opt/mu/<path>``,
+``opt/nu/<path>``, ``opt/err/<path>``, ``opt/step``, each leaf in the JAX
+layout (the repeats of a scanned leaf stacked).  bf16 leaves are written
+as float32, as the JAX manager writes them (npz has no bf16), so nothing
+of this path needs ``ml_dtypes``; a restore casts each array to its
+target's dtype.  A train state restores in place: the target's tensors
+take the checkpoint's values, every leaf checked before any is written,
+and the target is returned.
 """
 from __future__ import annotations
 
@@ -108,6 +120,46 @@ def _flatten_with_names(state) -> Tuple[List[str], List[Any]]:
     return names, leaves
 
 
+def _is_train_state(tree) -> bool:
+    return isinstance(tree, dict) and "params" in tree
+
+
+def _train_groups(tree) -> Dict[str, List[torch.Tensor]]:
+    """``{leaf name: [tensor, ...]}`` of a train state, one tensor a repeat
+    of a stacked leaf, in the JAX package's pytree order."""
+    from ..convert import lm_leaf_groups
+    out = {f"params/{k}": g
+           for k, g in lm_leaf_groups(tree["params"]).items()}
+    opt = tree.get("opt") or {}
+    for key in sorted(opt):
+        if key == "step":
+            out["opt/step"] = [opt["step"]]
+        else:
+            out.update({f"opt/{key}/{k}": g for k, g in opt[key].items()})
+    return out
+
+
+def _check_unsplit(shardings) -> None:
+    """A train state restores onto this rank whole: a leaf that a sharding
+    splits over a mesh axis longer than 1 raises."""
+    from ..distributed.sharding import NamedSharding, _axis_size
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, NamedSharding):
+            split = [ax for ax in node.spec
+                     if ax is not None and _axis_size(node.mesh, ax) > 1]
+            if split:
+                raise NotImplementedError(
+                    f"restoring an LM leaf split over {split} of "
+                    f"{node.mesh!r}: LM tensors split across ranks are "
+                    f"ROADMAP.md queue A item 10b-rest")
+
+    walk(shardings)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3):
         self.dir = directory
@@ -118,22 +170,29 @@ class CheckpointManager:
     # ------------------------------------------------------------ save --
     def save(self, step: int, tree, blocking: bool = False,
              extra: Optional[dict] = None) -> None:
-        """Write ``tree`` (a port ``DeepState``) as ``step_<step>``.  The
-        arrays are copied to the host here (one read of the card; a CPU
-        tensor is cloned, since the steps write states in place), so the
-        checkpoint is the state at the call; the files are written on a
-        thread unless ``blocking``.  ``extra`` (JSON-serializable) goes
-        into the manifest, with the generator's state added under
+        """Write ``tree`` (a port ``DeepState``, or an LM train state
+        ``{"params", "opt"}``) as ``step_<step>``.  The arrays are copied to
+        the host here (one read of the card; a CPU tensor is cloned, since
+        the steps write states in place), so the checkpoint is the state at
+        the call; the files are written on a thread unless ``blocking``.
+        ``extra`` (JSON-serializable) goes into the manifest, with a
+        ``DeepState``'s generator state added under
         ``"torch_generator"``."""
         self.wait()
-        names, leaves = _flatten_with_names(tree)
-        host = [a if isinstance(a, np.ndarray) else _host_array(a)
-                for a in leaves]
-        gen = tree.generator
-        extra = dict(extra or {})
-        extra["torch_generator"] = {
-            "device": gen.device.type,
-            "state": gen.get_state().tolist()}
+        if _is_train_state(tree):
+            from ..convert import stack_leaf  # bf16 widened to float32
+            groups = _train_groups(tree)
+            names = list(groups)
+            host = [stack_leaf(g) for g in groups.values()]
+        else:
+            names, leaves = _flatten_with_names(tree)
+            host = [a if isinstance(a, np.ndarray) else _host_array(a)
+                    for a in leaves]
+            gen = tree.generator
+            extra = dict(extra or {})
+            extra["torch_generator"] = {
+                "device": gen.device.type,
+                "state": gen.get_state().tolist()}
 
         def write():
             tmp = os.path.join(self.dir, f".tmp_step_{step}")
@@ -145,8 +204,9 @@ class CheckpointManager:
                 "step": step,
                 "leaves": {n: {"shape": list(a.shape), "dtype": str(a.dtype)}
                            for n, a in zip(names, host)},
-                "extra": extra,
             }
+            if extra is not None:
+                manifest["extra"] = extra
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
             if os.path.exists(final):
@@ -214,6 +274,8 @@ class CheckpointManager:
         split over a mesh axis longer than 1 becomes a ``DTensor`` of this
         rank's block; every other leaf goes to the target's device
         (``distributed.sharding.place``)."""
+        if _is_train_state(target):
+            return self._restore_train(step, target, shardings)
         from ..distributed.sharding import place
         extra = self.read_extra(step) or {}
         path = os.path.join(self.dir, f"step_{step}")
@@ -274,6 +336,40 @@ class CheckpointManager:
                     device=dev, dtype=ref.dtype), shd)
         return _unflatten(target, out, host,
                           _generator(extra, host["key"], dev))
+
+    @torch.no_grad()
+    def _restore_train(self, step: int, target, shardings: Any = None):
+        """An LM train state restored in place (a checkpoint of either
+        package); ``shardings`` (optional, nested dicts of
+        ``NamedSharding`` or None) must not split a leaf across ranks."""
+        if shardings is not None:
+            _check_unsplit(shardings)
+        self.wait()
+        arrays = np.load(os.path.join(self.dir, f"step_{step}",
+                                      "arrays.npz"))
+        from ..convert import leaf_spec
+        groups = _train_groups(target)
+        names = set(groups)
+        missing = sorted(names - set(arrays.files))
+        surplus = sorted(set(arrays.files) - names)
+        if missing or surplus:
+            raise ValueError(
+                f"checkpoint step_{step} does not match the train state: "
+                f"missing leaves {missing[:5]}, extra leaves {surplus[:5]}")
+        host = {}
+        for name, group in groups.items():
+            a = arrays[name]
+            want = leaf_spec(group).shape
+            if tuple(a.shape) != want:
+                raise ValueError(f"checkpoint leaf {name!r} has shape "
+                                 f"{tuple(a.shape)}, target expects {want}")
+            host[name] = a
+        for name, group in groups.items():
+            a = host[name]
+            parts = [a] if len(group) == 1 else list(a)
+            for t, part in zip(group, parts):
+                t.copy_(torch.from_numpy(np.array(part)).to(t.dtype))
+        return target
 
 
 def _generator(extra: dict, key: np.ndarray,

@@ -27,10 +27,18 @@ as ``jax.tree.map(np.asarray, tree)`` gives them): the scanned
 when there is more than one, ``tail/tail{i}_{c}`` leaves none.  The port
 holds one module (one cache) a layer in execution order, so the
 conversion unstacks and restacks; a round trip is bitwise.
+
+Training state is grouped by JAX leaf: ``lm_leaf_groups`` maps each JAX
+tree path ("blocks/pos0_g/attn/wq", in the JAX package's flatten order) to
+the port tensors that hold it, one a repeat for a stacked leaf.  The
+optimizer's moments and the compression error are such groups of fp32
+tensors; ``opt_state_{to,from}_numpy`` and ``error_state_{to,from}_numpy``
+carry them in the JAX layout (moments stacked as the parameters are,
+``step`` int32), bitwise both ways.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -200,12 +208,17 @@ def _layer_slots(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
     return slots
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A copy (decode writes its cache in place), bf16 as
-    ``ml_dtypes.bfloat16``."""
+def _to_numpy(t: torch.Tensor, bf16_as: str = "ml_dtypes") -> np.ndarray:
+    """A copy (decode writes its cache in place).  bf16 goes out as
+    ``ml_dtypes.bfloat16`` (the arrays JAX hands to numpy; ``ml_dtypes``
+    is imported only here, for a caller that asks for them) or, with
+    ``bf16_as="float32"``, widened to float32 exactly, as the checkpoint
+    format writes it."""
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:  # numpy has no bfloat16: move the bits
-        import ml_dtypes
+    if t.dtype == torch.bfloat16:
+        if bf16_as == "float32":
+            return t.float().numpy()
+        import ml_dtypes  # numpy has no bfloat16: move the bits
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
     return t.numpy().copy()
 
@@ -218,24 +231,7 @@ def _take(tree: Dict[str, Any], r: Optional[int]) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
-def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else np.stack([t[k] for t in trees])
-            for k, v in trees[0].items()}
-
-
 _PER_LAYER = ("layers", "encoder")  # LM children converted on their own
-
-
-def _module_tree(module: torch.nn.Module) -> Dict[str, Any]:
-    """The JAX subtree of ``module``'s parameters and children, leaving out
-    the per-layer lists and the encoder."""
-    tree: Dict[str, Any] = {n: _to_numpy(p) for n, p in
-                            module.named_parameters(recurse=False)}
-    for n, child in module.named_children():
-        if n not in _PER_LAYER:
-            tree[n] = _module_tree(child)
-    return tree
 
 
 @torch.no_grad()
@@ -265,12 +261,12 @@ def _load_module(module: torch.nn.Module, tree: Dict[str, Any],
 
 
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                         device: DeviceLike = None) -> LM:
+                         device: DeviceLike = None, train: bool = False) -> LM:
     """The port's ``models.lm.LM`` on ``device`` from a JAX
     ``lm.init_params`` tree of numpy leaves (checked key by key, shape and
-    dtype)."""
+    dtype); its parameters require gradients when built to ``train``."""
     dev = resolve_device(device)
-    params = LM(cfg, dev)
+    params = LM(cfg, dev, train=train)
     _load_module(params, tree, "params")
     for layer, (group, key, r) in zip(params.layers, _layer_slots(cfg)):
         _load_module(layer, _take(tree[group][key], r), f"{group}/{key}")
@@ -290,46 +286,22 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     return params
 
 
-def lm_params_to_numpy(params: LM, cfg: ModelConfig) -> Dict[str, Any]:
+def lm_params_to_numpy(params: LM, cfg: ModelConfig,
+                       bf16_as: str = "ml_dtypes") -> Dict[str, Any]:
     """The JAX ``lm.init_params`` tree of a port ``LM``, numpy leaves (bf16
-    as ``ml_dtypes.bfloat16``)."""
-    tree = _module_tree(params)
-    tree.update(_group_layers(
-        [_module_tree(layer) for layer in params.layers], cfg))
-    if hasattr(params, "encoder"):
-        enc = _module_tree(params.encoder)
-        enc["layers"] = {f"enc{i}": _module_tree(layer)
-                         for i, layer in enumerate(params.encoder.layers)}
-        tree["encoder"] = enc
-    return tree
-
-
-def _group_layers(per_layer: List[Dict[str, Any]],
-                  cfg: ModelConfig) -> Dict[str, Any]:
-    """Per-layer subtrees (execution order) -> JAX ``blocks`` and ``tail``
-    groups, the scanned ones stacked along a leading repeat axis."""
-    out: Dict[str, Any] = {"blocks": {}, "tail": {}}
-    pending: Dict[str, List[Dict[str, Any]]] = {}
-    for sub, (group, key, r) in zip(per_layer, _layer_slots(cfg)):
-        if r is None:
-            out[group][key] = sub
-        else:
-            pending.setdefault(key, []).append(sub)
-    for key, subs in pending.items():
-        out["blocks"][key] = _stack(subs)
-    return out
+    as ``ml_dtypes.bfloat16``, or as float32 with ``bf16_as="float32"``,
+    which needs no ``ml_dtypes``)."""
+    return _layered(_nest({path: stack_leaf(group, bf16_as)
+                           for path, group in lm_leaf_groups(params).items()}))
 
 
 def lm_cache_to_numpy(cache: LMCache, cfg: ModelConfig) -> Dict[str, Any]:
     """The JAX decode-cache tree (``lm.init_cache``/``prefill`` layout) of
     a port ``LMCache``: ``blocks``, ``tail``, ``pos`` (0-d int32) and, for
     enc-dec models, ``enc_out``."""
-    tree = _group_layers([{k: _to_numpy(v) for k, v in c.items()}
-                          for c in cache.layers], cfg)
-    tree["pos"] = _to_numpy(cache.pos)
-    if cache.enc_out is not None:
-        tree["enc_out"] = _to_numpy(cache.enc_out)
-    return tree
+    return _layered(_nest({path: stack_leaf(g, "ml_dtypes")
+                           for path, g in lm_cache_groups(cache,
+                                                          cfg).items()}))
 
 
 def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
@@ -343,3 +315,176 @@ def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     return LMCache(layers=layers,
                    pos=_pack_tensor(np.asarray(tree["pos"], np.int32), dev),
                    enc_out=None if enc is None else _pack_tensor(enc, dev))
+
+
+# ------------------------------------------------------- training state --
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and torch dtype (``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+Groups = Dict[str, List[torch.Tensor]]
+
+
+def _path_order(groups: Dict[str, Any]) -> Dict[str, Any]:
+    """``groups`` in the JAX package's flatten order (dict keys sorted at
+    every level)."""
+    return dict(sorted(groups.items(), key=lambda kv: kv[0].split("/")))
+
+
+def lm_leaf_groups(params: LM) -> Groups:
+    """``{JAX tree path: [tensor, ...]}`` of every parameter of ``params``,
+    in the JAX flatten order: one tensor for a leaf the JAX tree holds
+    unstacked, one a repeat (in repeat order) for a leaf stacked over the
+    scanned repeats.  The JAX leaf's rank is the tensor's plus one exactly
+    when its group holds more than one tensor."""
+    groups: Groups = {}
+
+    def add(prefix: str, module: torch.nn.Module) -> None:
+        for n, p in module.named_parameters(recurse=False):
+            groups.setdefault(prefix + n, []).append(p)
+        for n, child in module.named_children():
+            if n not in _PER_LAYER:
+                add(f"{prefix}{n}/", child)
+
+    add("", params)
+    for layer, (group, key, _) in zip(params.layers,
+                                      _layer_slots(params.cfg)):
+        add(f"{group}/{key}/", layer)
+    if hasattr(params, "encoder"):
+        add("encoder/", params.encoder)
+        # JAX applies the encoder layers in sorted-name order (enc0, enc1,
+        # enc10, ...), as lm_params_from_numpy loads them
+        names = sorted(f"enc{i}" for i in range(len(params.encoder.layers)))
+        for name, layer in zip(names, params.encoder.layers):
+            add(f"encoder/layers/{name}/", layer)
+    return _path_order(groups)
+
+
+def leaf_spec(group: List[torch.Tensor]) -> ShapeDtype:
+    """The shape and dtype of the JAX leaf a group holds."""
+    shape = tuple(group[0].shape)
+    if len(group) > 1:
+        shape = (len(group),) + shape
+    return ShapeDtype(shape, group[0].dtype)
+
+
+def lm_leaf_specs(params: LM) -> Dict[str, ShapeDtype]:
+    """``{JAX tree path: ShapeDtype}`` of every parameter leaf of
+    ``params`` in the JAX layout (works on the ``meta`` device)."""
+    return {path: leaf_spec(g)
+            for path, g in lm_leaf_groups(params).items()}
+
+
+def lm_cache_groups(cache: LMCache, cfg: ModelConfig) -> Groups:
+    """``{JAX tree path: [tensor, ...]}`` of a decode cache, grouped as
+    ``lm_leaf_groups`` groups parameters (``pos`` and ``enc_out``
+    included)."""
+    groups: Groups = {}
+    for c, (group, key, _) in zip(cache.layers, _layer_slots(cfg)):
+        for name, t in c.items():
+            groups.setdefault(f"{group}/{key}/{name}", []).append(t)
+    groups["pos"] = [cache.pos]
+    if cache.enc_out is not None:
+        groups["enc_out"] = [cache.enc_out]
+    return _path_order(groups)
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """A nested dict from ``{"a/b/c": leaf}``."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *outer, last = path.split("/")
+        node = tree
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def _layered(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """``tree`` with the JAX tree's ``blocks`` and ``tail`` groups, empty
+    where no layer is in one."""
+    tree.setdefault("blocks", {})
+    tree.setdefault("tail", {})
+    return tree
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def stack_leaf(group: List[torch.Tensor],
+               bf16_as: str = "float32") -> np.ndarray:
+    """The JAX-layout numpy array of a group, a copy (bf16 per
+    ``_to_numpy``'s ``bf16_as``)."""
+    if len(group) == 1:
+        return _to_numpy(group[0], bf16_as)
+    return np.stack([_to_numpy(t, bf16_as) for t in group])
+
+
+def groups_to_numpy(groups: Groups) -> Dict[str, Any]:
+    """The nested JAX-layout tree of fp32 (or integer) groups."""
+    return _nest({path: stack_leaf(g, "float32")
+                  for path, g in groups.items()})
+
+
+def groups_from_numpy(tree: Dict[str, Any], like: Groups,
+                      dtype: torch.dtype = torch.float32) -> Groups:
+    """Groups shaped as ``like`` (on its tensors' devices) from a nested
+    JAX-layout tree, every leaf checked against the layout and cast to
+    ``dtype`` (the moments and the error are fp32)."""
+    flat = _flat(tree)
+    if set(flat) != set(like):
+        raise ValueError(f"the tree's leaves {sorted(set(flat) ^ set(like))}"
+                         f" are on one side only")
+    out: Groups = {}
+    for path, group in like.items():
+        a = np.asarray(flat[path])
+        want = leaf_spec(group).shape
+        if tuple(a.shape) != want:
+            raise ValueError(f"{path} has shape {tuple(a.shape)}, the port "
+                             f"wants {want}")
+        parts = [a] if len(group) == 1 else list(a)
+        out[path] = [_pack_tensor(part, t.device).to(dtype).clone()
+                     for part, t in zip(parts, group)]
+    return out
+
+
+def opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX ``optim.init_opt_state`` tree of a port optimizer state:
+    ``mu``, ``nu`` (fp32, stacked as the parameters) and ``step`` (0-d
+    int32)."""
+    return {"mu": groups_to_numpy(state["mu"]),
+            "nu": groups_to_numpy(state["nu"]),
+            "step": state["step"].detach().cpu().numpy().astype(np.int32)}
+
+
+def opt_state_from_numpy(tree: Dict[str, Any], params: LM) -> Dict[str, Any]:
+    """A port optimizer state for ``params`` (on its device) from a JAX
+    optimizer-state tree."""
+    groups = lm_leaf_groups(params)
+    dev = next(iter(groups.values()))[0].device
+    return {"mu": groups_from_numpy(tree["mu"], groups),
+            "nu": groups_from_numpy(tree["nu"], groups),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def error_state_to_numpy(err: Groups) -> Dict[str, Any]:
+    """The JAX ``optim.init_error_state`` tree of a port error state."""
+    return groups_to_numpy(err)
+
+
+def error_state_from_numpy(tree: Dict[str, Any], params: LM) -> Groups:
+    """A port compression-error state for ``params`` from a JAX tree."""
+    return groups_from_numpy(tree, lm_leaf_groups(params))

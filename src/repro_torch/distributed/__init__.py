@@ -4,7 +4,7 @@
 from .sharding import (DEFAULT_RULES, Mesh, NamedSharding, P, PartitionSpec,
                        RankDevice, current_mesh, data_shards, make_rules,
                        named_sharding, projection_shardings, rank_devices,
-                       set_context, sharding_context, spec_for)
+                       set_context, shard, sharding_context, spec_for)
 from .data_parallel import (make_data_parallel_projection_epoch,
                             make_data_parallel_supervised_epoch,
                             make_data_parallel_supervised_step,
@@ -17,7 +17,7 @@ __all__ = [
     "DEFAULT_RULES", "Mesh", "NamedSharding", "P", "PartitionSpec",
     "RankDevice", "current_mesh", "data_shards", "make_rules",
     "named_sharding", "projection_shardings", "rank_devices", "set_context",
-    "sharding_context", "spec_for",
+    "shard", "sharding_context", "spec_for",
     "make_data_parallel_projection_epoch",
     "make_data_parallel_supervised_epoch",
     "make_data_parallel_supervised_step",

@@ -14,9 +14,11 @@ to mesh axes.  ``spec_for``, ``named_sharding`` and ``projection_shardings``
 build the port's ``PartitionSpec`` / ``NamedSharding`` records, which
 ``checkpoint/ckpt.py`` reads to place restored leaves: a leaf split over a
 mesh axis longer than 1 becomes a ``torch.distributed.tensor.DTensor``
-(``place``).  Nothing of the BCPNN path splits a model axis; the JAX
-``shard`` constraint on LM tensors waits for the LM zoo (ROADMAP.md queue A
-item 10).
+(``place``).  Nothing of the BCPNN path splits a model axis.  ``shard`` is
+the JAX constraint on LM tensors, placed at the JAX package's call sites in
+``models/``: a one-rank mesh satisfies it as it stands, and a dimension
+split over an axis longer than 1 raises (ROADMAP.md queue A item
+10b-rest).
 """
 from __future__ import annotations
 
@@ -235,7 +237,9 @@ def _axis_size(mesh: Mesh, axis: Axis) -> int:
 
 def spec_for(dims: Sequence[Axis],
              shape: Sequence[int]) -> Optional[PartitionSpec]:
-    """Build a PartitionSpec, dropping axes that don't divide the dim."""
+    """Build a PartitionSpec, dropping axes that don't divide the dim (a
+    tuple of one axis is that axis, as JAX's ``PartitionSpec`` writes
+    it)."""
     mesh = _CTX["mesh"]
     if mesh is None:
         return None
@@ -245,8 +249,34 @@ def spec_for(dims: Sequence[Axis],
         phys = rules.get(logical) if isinstance(logical, str) else None
         if phys is not None and size % _axis_size(mesh, phys) != 0:
             phys = None
+        if isinstance(phys, tuple) and len(phys) == 1:
+            phys = phys[0]
         parts.append(phys)
     return P(*parts)
+
+
+def shard(x: torch.Tensor, *dims: Axis) -> torch.Tensor:
+    """The logical sharding constraint of the JAX package's ``shard``:
+    ``x`` itself, at once, without a context.  Under one the rank must
+    match (JAX's assert), and ``x`` is returned where every mesh axis that
+    ``dims`` bind has size 1.  A dimension that would be split over an axis
+    longer than 1 raises: splitting LM tensors across ranks is ROADMAP.md
+    queue A item 10b-rest."""
+    mesh = _CTX["mesh"]
+    if mesh is None:
+        return x
+    if len(dims) != x.dim():
+        raise AssertionError((dims, tuple(x.shape)))
+    spec = spec_for(dims, x.shape)
+    split = [(d, ax) for d, ax in zip(dims, spec)
+             if ax is not None and _axis_size(mesh, ax) > 1]
+    if split:
+        raise NotImplementedError(
+            f"shard{tuple(dims)} of a {tuple(x.shape)} tensor splits "
+            f"{', '.join(f'{d!r} over {ax!r}' for d, ax in split)} on "
+            f"{mesh!r}: LM tensors split across ranks are ROADMAP.md queue A "
+            f"item 10b-rest")
+    return x
 
 
 def named_sharding(dims: Sequence[Axis],
@@ -297,7 +327,7 @@ def place(full: torch.Tensor, sharding: Optional[NamedSharding]
     dimension is split over a mesh axis longer than 1 (replicated), else a
     ``DTensor`` of this rank's block, ``Shard(dim)`` on each splitting
     axis.  Splits over several axes at once (tuple entries) are the LM
-    zoo's and raise (ROADMAP.md queue A item 10)."""
+    zoo's and raise (ROADMAP.md queue A item 10b-rest)."""
     if sharding is None:
         return full
     mesh, spec = sharding.mesh, sharding.spec
@@ -308,7 +338,7 @@ def place(full: torch.Tensor, sharding: Optional[NamedSharding]
     if any(isinstance(ax, tuple) for _, ax in split):
         raise NotImplementedError(
             f"placing a leaf split over several mesh axes at once ({spec}) "
-            f"belongs to the LM zoo (ROADMAP.md queue A item 10)")
+            f"belongs to the LM zoo (ROADMAP.md queue A item 10b-rest)")
     from torch.distributed.tensor import DTensor, Replicate, Shard
     coords = mesh.coordinates()
     placements = [Replicate() for _ in mesh.axis_names]

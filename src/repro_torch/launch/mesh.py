@@ -8,12 +8,12 @@ from ..distributed.sharding import Mesh, rank_devices
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The JAX package's 16x16 (or 2x16x16) pod mesh.  The port's LM path
-    runs on one card so far: a mesh that splits the model axis waits for
-    the training slice (ROADMAP.md queue A item 10b)."""
+    trains and serves on one rank so far: a mesh that splits the model axis
+    across ranks is ROADMAP.md queue A item 10b-rest."""
     raise NotImplementedError(
         f"the {'multi' if multi_pod else 'single'}-pod production mesh "
         f"splits the LM over a model axis, which the port does not do yet "
-        f"(ROADMAP.md queue A item 10b); use the local mesh")
+        f"(ROADMAP.md queue A item 10b-rest); use the local mesh")
 
 
 def make_local_mesh() -> Mesh:

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import shard
 from .common import dense_init_, param, rms_norm, rope
 
 # The canonical softmax-lane fill (the JAX package's ``kernels/tiling.py``):
@@ -88,6 +89,9 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps, plus_one=True)
         k = rms_norm(k, p.k_norm, cfg.norm_eps, plus_one=True)
+    q = shard(q, "batch", "act_seq", "heads", "head_dim")
+    k = shard(k, "batch", "act_seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "act_seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -175,6 +179,7 @@ def attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                           positions[i * c:(i + 1) * c], kv_pos, cfg_l, causal)
             for i in range(nchunk)], dim=1)
     out = out.reshape(b, s, hq * hd) @ p.wo
+    out = shard(out, "batch", "seq", "embed")
     if return_kv:
         return out, (k, v)
     return out
@@ -242,6 +247,8 @@ def decode_attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     slot = slot.reshape(1).long()
     cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    shard(cache["k"], "batch", "cache_seq", "kv_heads", "head_dim")
+    shard(cache["v"], "batch", "cache_seq", "kv_heads", "head_dim")
 
     idx = torch.arange(size, dtype=torch.int32, device=x.device)
     if ring:

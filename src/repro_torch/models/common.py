@@ -5,8 +5,14 @@ package's parameter-tree keys, so ``convert.lm_params_from_numpy`` maps a
 JAX tree onto a module leaf by leaf.  A module allocates its parameters
 empty; ``reset_parameters(gen)`` draws them from a ``torch.Generator``
 with the JAX initialisers' distributions (the draws differ: threefry is
-not reproduced).  The serving path takes no gradient, so parameters are
-made with ``requires_grad=False``.
+not reproduced).  Parameters are made with ``requires_grad=False``: the
+serving path takes no gradient and builds no autograd graph.  A model
+built to train (``lm.init_params(..., train=True)``,
+``convert.lm_params_from_numpy(..., train=True)``) turns them on.
+
+``shard`` (``distributed/sharding.py``) stands where the JAX package
+constrains a tensor's sharding; without a sharding context it returns its
+argument at once.
 
 The dtype choices are the JAX functions', op for op: statistics and rotary
 angles in fp32, everything else in the compute dtype.
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -156,10 +163,12 @@ class MLP(nn.Module):
 def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     """x: (B, S, d)."""
     h = x @ p.wi
+    h = shard(h, "batch", "act_seq", "ffn")
     if kind == "swiglu":
         h = F.silu(x @ p.wg) * h
     elif kind == "geglu":
         h = gelu(x @ p.wg) * h
     else:
         h = gelu(h)
-    return h @ p.wo
+    out = h @ p.wo
+    return shard(out, "batch", "seq", "embed")

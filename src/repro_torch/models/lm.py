@@ -1,5 +1,5 @@
 """Generic decoder LM assembling the zoo's sequence mixers (mirrors
-``repro/models/lm.py``, serving half).
+``repro/models/lm.py``).
 
 One model covers all ten architectures through ``ModelConfig``:
   * layer_pattern — a repeating unit over {g: global attn, l: local attn,
@@ -13,20 +13,35 @@ One model covers all ten architectures through ``ModelConfig``:
     patch embeddings (stub ViT frontend).
 
 Exposes: init_params, embed_tokens, encode, cross_kv_from_encoder,
-forward, logits_for, init_cache, prefill, decode_step.  ``decode_step``
-writes the cache in place (JAX donates it) and keeps ``pos`` a 0-d int32
-tensor on the device, so a step reads nothing back to the host.
+forward, logits_for, lm_loss, init_cache, prefill, decode_step.
+``decode_step`` writes the cache in place (JAX donates it) and keeps
+``pos`` a 0-d int32 tensor on the device, so a step reads nothing back to
+the host.
+
+Training differentiates ``lm_loss`` with autograd.  With ``cfg.remat`` a
+forward that takes gradients runs each pattern repeat under
+``torch.utils.checkpoint`` (non-reentrant), the boundary of the JAX
+package's ``jax.checkpoint(nothing_saveable)`` around its scan body; the
+tail layers are outside it.  Recomputation repeats the forward's
+operations, so the gradients are the same bits with remat on and off.
+The embedding is ``F.embedding``, whose backward sums a token's rows in a
+fixed order (an ``index_select``'s backward adds them with atomics on the
+card).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, make_generator, resolve_device
+from ..distributed.sharding import shard
 from .attention import (Attention, attend, decode_attend, fill_cache,
                         init_kv_cache)
 from .common import (MLP, Norm, compute_dtype, dense_init_, embed_init_,
@@ -106,8 +121,10 @@ class LM(nn.Module):
     ``layers`` (execution order), ``lm_head`` unless tied, ``pos_embed``
     for learned positions (whisper), ``encoder`` for enc-dec."""
 
-    def __init__(self, cfg: ModelConfig, device: Optional[torch.device]):
+    def __init__(self, cfg: ModelConfig, device: Optional[torch.device],
+                 train: bool = False):
         super().__init__()
+        self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.tok_embed = param((cfg.vocab_padded, cfg.d_model), dtype, device)
         self.final_norm = Norm(cfg, dtype, device)
@@ -121,6 +138,7 @@ class LM(nn.Module):
             self.pos_embed = param((32768, cfg.d_model), dtype, device)
         if cfg.enc_layers > 0:
             self.encoder = Encoder(cfg, dtype, device)
+        self.requires_grad_(train)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         embed_init_(self.tok_embed, gen)
@@ -136,12 +154,12 @@ class LM(nn.Module):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> LM:
+                device: DeviceLike = None, train: bool = False) -> LM:
     """Fresh parameters on ``device`` (the card unless ``"cpu"`` is asked
     for), every draw from one generator on that device seeded with
-    ``seed``."""
+    ``seed``; they require gradients only when built to ``train``."""
     dev = resolve_device(device)
-    params = LM(cfg, dev)
+    params = LM(cfg, dev, train=train)
     params.reset_parameters(make_generator(seed, dev))
     return params
 
@@ -189,6 +207,7 @@ def _apply_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
         if cfg.post_norms:
             h = p.norm2_post(h)
         x = x + h
+    x = shard(x, "batch", "seq", "embed")
     if collect:
         return x, entry
     return x
@@ -221,14 +240,12 @@ def _bf_scalar(value: float, dtype: torch.dtype) -> float:
 
 def embed_tokens(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor]) -> torch.Tensor:
-    b, s = tokens.shape
-    x = params.tok_embed.index_select(0, tokens.reshape(-1)).reshape(
-        b, s, cfg.d_model).to(compute_dtype(cfg))
+    x = F.embedding(tokens, params.tok_embed).to(compute_dtype(cfg))
     if cfg.embed_scale:
         x = x * _bf_scalar(cfg.d_model ** 0.5, x.dtype)
     if patches is not None and cfg.vision_patches > 0:
         x = torch.cat([patches.to(x.dtype), x[:, cfg.vision_patches:]], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 # -------------------------------------------------------------- encoder --
@@ -255,14 +272,27 @@ def cross_kv_from_encoder(cfg: ModelConfig, enc_out: torch.Tensor,
 
 # -------------------------------------------------------------- forward --
 
+def _run_layers(layers: List[Block], cfg: ModelConfig,
+                positions: torch.Tensor, enc_out: Optional[torch.Tensor],
+                x: torch.Tensor) -> torch.Tensor:
+    """``layers`` in turn over ``x`` (the training forward's unit)."""
+    for layer in layers:
+        ckv = (cross_kv_from_encoder(cfg, enc_out, layer)
+               if enc_out is not None else None)
+        x = _apply_block(layer, cfg, x, positions, causal=True, cross_kv=ckv)
+    return x
+
+
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             patches: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
             cache_size: int = 0):
-    """Prefill forward.  tokens: (B, S) -> hidden (B, S, d).
+    """Training/prefill forward.  tokens: (B, S) -> hidden (B, S, d).
 
     cache_size > 0 also returns the primed decode cache of every layer (in
     execution order) and the encoder's output (None without an encoder).
+    With ``cfg.remat``, a forward that takes gradients rematerialises each
+    pattern repeat in its backward pass.
     """
     x = embed_tokens(params, cfg, tokens, patches)
     s = tokens.shape[1]
@@ -270,22 +300,25 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.rope_theta == 0 and hasattr(params, "pos_embed"):
         x = x + params.pos_embed[None, :s]
     enc_out = encode(params, cfg, frames) if cfg.enc_layers > 0 else None
-    collect = cache_size > 0
-    caches: List[Cache] = []
-    for layer in params.layers:
-        ckv = (cross_kv_from_encoder(cfg, enc_out, layer)
-               if enc_out is not None else None)
-        out = _apply_block(layer, cfg, x, positions, causal=True,
-                           cross_kv=ckv, cache_size=cache_size)
-        if collect:
-            x, entry = out
+    if cache_size > 0:
+        caches: List[Cache] = []
+        for layer in params.layers:
+            ckv = (cross_kv_from_encoder(cfg, enc_out, layer)
+                   if enc_out is not None else None)
+            x, entry = _apply_block(layer, cfg, x, positions, causal=True,
+                                    cross_kv=ckv, cache_size=cache_size)
             caches.append(entry)
-        else:
-            x = out
-    x = params.final_norm(x)
-    if collect:
-        return x, caches, enc_out
-    return x
+        return params.final_norm(x), caches, enc_out
+    n_blocks, _ = cfg.pattern_blocks
+    per = len(cfg.layer_pattern)
+    layers = list(params.layers)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for r in range(n_blocks):
+        body = functools.partial(_run_layers, layers[r * per:(r + 1) * per],
+                                 cfg, positions, enc_out)
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    x = _run_layers(layers[n_blocks * per:], cfg, positions, enc_out, x)
+    return params.final_norm(x)
 
 
 def logits_for(params: LM, cfg: ModelConfig,
@@ -295,6 +328,37 @@ def logits_for(params: LM, cfg: ModelConfig,
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross-entropy (``lm.py:304-333``): targets shifted left,
+    the last position masked; the sequence in chunks of
+    ``min(lmhead_chunk, s)`` (the whole of it when that does not divide
+    it), each chunk's logits over the padded vocabulary in fp32 after the
+    compute-dtype product, softcap included; the loss is
+    ``sum((logz - gold) * mask) / max(sum(mask), 1)``, a 0-d fp32 tensor.
+    """
+    hidden = forward(params, cfg, tokens, patches, frames)
+    b, s, _ = hidden.shape
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+    mask = torch.cat([torch.ones((b, s - 1), dtype=torch.float32,
+                                 device=tokens.device),
+                      torch.zeros((b, 1), dtype=torch.float32,
+                                  device=tokens.device)], dim=1)
+    chunk = min(cfg.lmhead_chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    losses = []
+    for c0 in range(0, s, chunk):
+        part = slice(c0, c0 + chunk)
+        logits = logits_for(params, cfg, hidden[:, part]).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            targets[:, part, None].long())[..., 0]
+        losses.append(((logz - gold) * mask[:, part]).sum())
+    return torch.stack(losses).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 # --------------------------------------------------------------- decode --

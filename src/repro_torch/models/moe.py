@@ -11,6 +11,13 @@ the residual connection carries dropped tokens through unchanged.  Decode
 ``jax.lax.top_k`` takes the lower index on a tie; ``torch.topk`` makes no
 such promise, so the top k come from a stable descending sort.  The
 combine is a scatter-add, which on the card sums in an order of its own.
+
+Training differentiates through the dispatch as JAX does: the gates (the
+top-k probabilities, renormalised, through the router's softmax) and the
+experts get gradients; the ranks, slots and kept flags are integers.  The
+backward of the dispatch's gather scatter-adds into token rows that k
+choices share, with atomics on the card, so an MoE step there may sum in
+another order from run to run (not measured; PERF.md section 7).
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import data_shards
+from ..distributed.sharding import data_shards, shard
 from .common import dense_init_, param
 
 
@@ -109,6 +116,7 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.n_experts_active
     groups, tg, cap = dispatch_shape(cfg, b, s)
     xt = x.reshape(groups, tg, d)
+    xt = shard(xt, "batch", None, "embed")
     r = route(p.router, cfg, xt, cap)
 
     # index-based dispatch: slot -> token index; unused slots point at the
@@ -127,12 +135,14 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xt_pad = torch.cat([xt, xt.new_zeros((groups, 1, d))], dim=1)
     buf = torch.gather(xt_pad, 1, idx_buf[..., None].expand(-1, -1, d))
     buf = buf.reshape(groups, e, cap, d)
+    buf = shard(buf, "batch", "expert", None, None)
 
     # expert computation, batched over E
     h = torch.einsum("gecd,edf->gecf", buf, p.wi_e)
     g_ = torch.einsum("gecd,edf->gecf", buf, p.wg_e)
     h = F.silu(g_) * h
     out = torch.einsum("gecf,efd->gecd", h, p.wo_e)              # (G, E, C, d)
+    out = shard(out, "batch", "expert", None, None)
     out = out.reshape(groups, e * cap, d)
 
     # combine: gate-weighted scatter-add back to tokens
@@ -140,4 +150,15 @@ def moe_ffn(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((groups, tg + 1, d), dtype=weighted.dtype,
                     device=x.device)
     y.scatter_add_(1, idx_buf[..., None].expand(-1, -1, d), weighted)
-    return y[:, :tg].reshape(b, s, d)
+    return shard(y[:, :tg].reshape(b, s, d), "batch", "seq", "embed")
+
+
+def aux_load_balance_loss(p: MoE, cfg: ModelConfig,
+                          x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss (fraction * prob) of
+    x: (B, S, d) (``moe.py:125-132``)."""
+    logits = x.float() @ p.router
+    probs = torch.softmax(logits, dim=-1)
+    _, ids = top_k(probs, cfg.n_experts_active)
+    frac = F.one_hot(ids, cfg.n_experts).float().mean(dim=(0, 1, 2))
+    return cfg.n_experts * (frac * probs.mean(dim=(0, 1))).sum()

@@ -5,8 +5,13 @@ full-sequence path (prefill) and a single-step decode path carrying
 
 The JAX package runs the selective scan and the RG-LRU recurrence as
 ``lax.scan``s; here they are plain loops over the sequence with an fp32
-carry (``ssm_chunk`` only changes what JAX training saves for its backward
-pass, so serving takes the plain scan).  Decode updates its cache in
+carry, differentiated by autograd.  ``ssm_chunk > 1`` (dividing the
+sequence) changes only what training saves for its backward pass: as JAX
+rematerialises each chunk of its scan, a step that takes gradients runs
+each chunk under ``torch.utils.checkpoint`` and keeps only the carries at
+chunk boundaries.  The forward's arithmetic, element for element, is the
+plain scan's, and so are the gradients but ``A_log``'s: every step shares
+it, and its gradient sums chunk by chunk.  Decode updates its cache in
 place.
 """
 from __future__ import annotations
@@ -16,8 +21,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import shard
 from .common import dense_init_, gelu, param
 
 
@@ -92,27 +99,47 @@ def _mamba_coeffs(p: Mamba, cfg: ModelConfig, xc: torch.Tensor):
     return dt.float(), b_in.float(), c_out.float()
 
 
+def _mamba_scan(h: torch.Tensor, a: torch.Tensor, xc: torch.Tensor,
+                dt: torch.Tensor, b_in: torch.Tensor, c_out: torch.Tensor):
+    """The selective scan over a run of steps from carry ``h`` (B, di, N):
+    (last carry, y (B, S, di) fp32)."""
+    da = torch.exp(dt[..., None] * a)                  # (B, S, di, N)
+    dbx = (dt * xc.float())[..., None] * b_in[:, :, None, :]
+    ys = []
+    for t in range(xc.shape[1]):
+        h = da[:, t] * h + dbx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, c_out[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
 def mamba_mixer(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d)."""
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     xz = x @ p.in_proj
+    xz = shard(xz, "batch", "act_seq", "tp")
     x_br, z = torch.chunk(xz, 2, dim=-1)
     xc = F.silu(_causal_conv(x_br, p.conv_w, p.conv_b))
     a = -torch.exp(p.A_log)                            # (di, N)
     dt, b_in, c_out = _mamba_coeffs(p, cfg, xc)
-    da = torch.exp(dt[..., None] * a)                  # (B, S, di, N)
-    dbx = (dt * xc.float())[..., None] * b_in[:, :, None, :]
     h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(s):
-        h = da[:, t] * h + dbx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, c_out[:, t]))
-    y = torch.stack(ys, dim=1).to(x.dtype)             # (B, S, di)
+    ck = cfg.ssm_chunk
+    if ck > 1 and s % ck == 0 and torch.is_grad_enabled():
+        ys = []
+        for c0 in range(0, s, ck):  # one rematerialised chunk at a time
+            part = slice(c0, c0 + ck)
+            h, y_c = checkpoint(_mamba_scan, h, a, xc[:, part], dt[:, part],
+                                b_in[:, part], c_out[:, part],
+                                use_reentrant=False)
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
+    else:
+        h, y = _mamba_scan(h, a, xc, dt, b_in, c_out)
+    y = y.to(x.dtype)                                  # (B, S, di)
     y = y + xc * p.D.to(x.dtype)
     y = y * F.silu(z)
-    out = y @ p.out_proj
+    out = shard(y @ p.out_proj, "batch", "seq", "embed")
     if return_state:
         return out, {"conv": _conv_state(x_br, cfg.d_conv - 1), "ssm": h}
     return out
@@ -198,7 +225,7 @@ def rglru_mixer(p: RGLRU, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence RG-LRU block.  x: (B, S, d) -> (B, S, d)."""
     gate = gelu(x @ p.w_gate)
-    xr = x @ p.w_in
+    xr = shard(x @ p.w_in, "batch", "act_seq", "tp")
     xc = _causal_conv(xr, p.conv_w, p.conv_b)
     a, beta, i = _rglru_gates(p, xc)
     drive = beta * i * xc.float()
@@ -209,7 +236,7 @@ def rglru_mixer(p: RGLRU, cfg: ModelConfig, x: torch.Tensor,
         h = a[:, t] * h + drive[:, t]
         hs.append(h)
     hseq = torch.stack(hs, dim=1).to(x.dtype)          # (B, S, W)
-    out = (hseq * gate) @ p.w_out
+    out = shard((hseq * gate) @ p.w_out, "batch", "seq", "embed")
     if return_state:
         return out, {"conv": _conv_state(xr, cfg.d_conv - 1), "state": h}
     return out

@@ -1813,3 +1813,90 @@ def test_decode_step_on_card_needs_no_host_sync(gen, arch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(cache.pos) == 16
+
+
+def _loss_and_grads(params, cfg, toks, extra):
+    from repro_torch.convert import lm_leaf_groups
+    from repro_torch.models import lm
+    loss = lm.lm_loss(params, cfg, toks, **extra)
+    groups = lm_leaf_groups(params)
+    flat = [t for g in groups.values() for t in g]
+    got = iter(torch.autograd.grad(loss, flat))
+    return loss.detach(), {k: [next(got) for _ in g]
+                           for k, g in groups.items()}
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_train_step_on_card_matches_cpu(gen, arch):
+    """One train step of each smoke architecture in fp32 on the card
+    against the CPU: the loss within 1e-5, every gradient within 1e-4 of
+    its leaf's largest |gradient| (cuBLAS and the CPU sum in other
+    orders), and the parameters after ``make_train_step`` (AdamW, lr 1e-3)
+    within one step's bound, 2 * lr * (1 + wd * max|p|): an element whose
+    gradient is near 0 moves by lr either way on its sign."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.convert import lm_leaf_groups
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = smoke(get_config(arch)).with_(lmhead_chunk=8)
+    params = lm.init_params(cfg, 0, "cpu", train=True)
+    params_gpu = copy.deepcopy(params).to("cuda")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32))
+    extra = {}
+    if cfg.vision_patches:
+        extra["patches"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.vision_patches, cfg.d_model)).astype(np.float32))
+    if cfg.enc_layers:
+        extra["frames"] = torch.from_numpy(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    ex_gpu = {k: v.cuda() for k, v in extra.items()}
+    loss_c, g_c = _loss_and_grads(params, cfg, toks, extra)
+    loss_g, g_g = _loss_and_grads(params_gpu, cfg, toks.cuda(), ex_gpu)
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5, arch
+    for path in g_c:
+        for a, b in zip(g_g[path], g_c[path]):
+            tol = 1e-4 * max(b.abs().max().item(), 1e-30)
+            assert (a.cpu() - b).abs().max().item() <= tol, (arch, path)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt_cfg)
+    pmax = max(p.abs().max().item() for p in params.parameters())
+    batch = {"tokens": toks, **extra}
+    step(params, init_opt_state(lm_leaf_groups(params)), batch)
+    step(params_gpu, init_opt_state(lm_leaf_groups(params_gpu)),
+         {k: v.cuda() for k, v in batch.items()})
+    bound = 2 * opt_cfg.lr * (1 + opt_cfg.weight_decay * pmax)
+    for (name, a), b in zip(params_gpu.named_parameters(),
+                            params.parameters()):
+        assert (a.detach().cpu() - b.detach()).abs().max().item() <= bound, \
+            (arch, name)
+
+
+def test_compress_grads_on_card_is_bitwise_the_cpu(gen):
+    """``compress_grads`` on the card against the CPU on the same
+    gradients and error, a stacked leaf's repeats at other magnitudes:
+    codes, dequantized gradients and error bit for bit (IEEE division by
+    a device scale, products, and the error formed in fp64)."""
+    from repro_torch.optim import compress_grads
+    rng = np.random.default_rng(2)
+    grads = {"blocks/a": [torch.from_numpy((rng.normal(size=(64, 96)) *
+                                            10.0 ** e).astype(np.float32))
+                          for e in (-3, 0, 1)],
+             "tail/b": [torch.from_numpy(rng.normal(size=(4097,)).astype(
+                 np.float32) * 1e-7)]}
+    err = {k: [torch.from_numpy((rng.normal(size=t.shape) * 1e-3).astype(
+        np.float32)) for t in g] for k, g in grads.items()}
+
+    def cuda(tree):
+        return {k: [t.cuda() for t in g] for k, g in tree.items()}
+
+    d_c, e_c = compress_grads(grads, err)
+    d_g, e_g = compress_grads(cuda(grads), cuda(err))
+    for want, got in ((d_c, d_g), (e_c, e_g)):
+        for k in want:
+            for a, b in zip(got[k], want[k]):
+                assert torch.equal(a.cpu(), b), k

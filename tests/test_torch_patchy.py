@@ -339,12 +339,13 @@ def test_rewire_masks_match_jax_on_separated_and_tied_mi():
 
 
 def test_port_imports_without_jax_or_the_jax_package():
-    """Every module of the port imports with ``jax`` and ``repro`` made
-    unimportable."""
+    """Every module of the port imports with ``jax``, ``repro`` and
+    ``ml_dtypes`` made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"

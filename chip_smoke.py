@@ -123,15 +123,16 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      the readout pass, plain backend): Model 1 DP on 2 and on 4 ranks, (c)
      DP on 2 ranks across a rewire, and a Model-1 DP fit on 2 ranks killed
      by ``WorkerLost`` after its 2nd chunk of 16 batches and resumed on one
-     rank over an NCCL group of one.  The 2-rank fits and the resume equal
+     rank over an NCCL group of one.  Every DP fit and the resume equal
      the single-device fits on the card bit for bit (every tensor, mask,
-     table, clock and the generator's state); the 4-rank fit, whose
-     1024-column support blocks cuBLAS sums in another order (ROADMAP.md
-     queue C), is held by single DP steps from one state at 1e-4; every
+     table, clock and the generator's state: each rank forms the whole
+     dense support by the single-device call and keeps its columns); every
      DP-fitted state evaluated through the kernels at the single-device
      state's accuracy; walls, images/s, and a DP step's collectives
      against the rest (processes sharing one card: the protocol, not
-     scaling).  Its last check, ``python -m repro_torch.launch.train_dp
+     scaling); the 4-rank unsupervised DP step's wall with the support
+     formed whole against the parent's column-block support, in turns.
+     Its last check, ``python -m repro_torch.launch.train_dp
      --smoke --device cuda`` in a process of its own (log
      ``chiprun_out/train_dp_smoke.log``), runs beside phase 7's pytest
      process; its lines follow phase 7's.
@@ -168,6 +169,24 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      gate through the kernels) run in processes of their own beside phase
      7 (logs ``chiprun_out/serve_qwen.log``,
      ``chiprun_out/bcpnn_head_on_lm.log``); their lines follow phase 7's.
+  12. (``[phase12]`` lines) qwen1.5-0.5b trained on one rank at full
+     width: 30 steps, a traced step, repeatable gradients, compressed
+     steps; the driver killed and restarted beside phase 7.
+  13. (``[phase13]`` lines) the LM zoo on a split mesh: four rank
+     processes sharing the card over gloo on (data 2, model 2), each
+     holding its quarter of qwen1.5-0.5b at full width (bf16, remat; FSDP
+     over data, tensor parallelism over model): one split train step from
+     the seed-0 state against the one-rank step on the card (loss, each
+     gradient and parameter leaf, at PERF.md section 2's bf16 limits);
+     the bytes of parameters, moments and gradients each rank holds
+     against what the placements give, and each rank's peak; 4 split
+     steps (median ms, tokens/s) and one under the collective meter
+     (share and counts); the run killed after its step-2 checkpoint and
+     resumed on the same mesh against the uninterrupted run, every rank's
+     block bit for bit, and the checkpoint restored on one rank against
+     the saved arrays; split prefill (4 x 32) and 16 greedy decode steps
+     against one rank (logits at 4 % of the largest, differing tokens
+     counted).
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
      process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
      (each run under its own name); any failure fails the run.
@@ -2412,10 +2431,10 @@ def _phase10_rank(rank, device, root):
     once the launcher's processes are gone, so the timed fits have the card
     and the host to themselves), then: Model 1's and (c)'s DP fits and the
     Model-1 fit killed after its 2nd chunk on ranks 0 and 1 (a group of
-    their own); Model 1's DP fit on all four; one unsupervised and one
-    readout DP step on all four, each from the killed fit's checkpoint;
-    Model 1's resume from a copy of those checkpoints on rank 0 alone, over
-    a group of one on NCCL.  Rank 0 returns the snapshots, every rank their
+    their own); Model 1's DP fit on all four; the 4-rank unsupervised
+    step's wall with the support formed whole and as column blocks
+    (``dp_step_walls``); Model 1's resume from a copy of the killed fit's
+    checkpoints on rank 0 alone, over a group of one on NCCL.  Rank 0 returns the snapshots, every rank their
     digests."""
     import torch
     import torch.distributed as dist
@@ -2423,8 +2442,8 @@ def _phase10_rank(rank, device, root):
     from repro_torch.core import Trainer, init_deep
     from repro_torch.core.network import as_spec
     from repro_torch.distributed import (
-        WorkerLost, elastic_mesh, make_data_parallel_supervised_step,
-        make_data_parallel_unsupervised_step, rank_devices)
+        WorkerLost, elastic_mesh, make_data_parallel_unsupervised_step,
+        rank_devices)
     from repro_torch.launch.train_dp import snapshot
     z = np.load(os.path.join(root, "data.npz"))
     x, y = z["x"], z["y"]
@@ -2439,7 +2458,6 @@ def _phase10_rank(rank, device, root):
     mesh1 = elastic_mesh((4,), ("data",), devices=devs[:1]).with_group(alone)
     bl = 128 // 4
     x0 = torch.from_numpy(x[rank * bl:(rank + 1) * bl]).to(device)
-    y0 = torch.from_numpy(y[rank * bl:(rank + 1) * bl]).to(device)
     unsup4 = make_data_parallel_unsupervised_step(spec, mesh4)
     unsup4(init_deep(spec, 0, device), x0)  # warm-up
     while rank == 0 and not os.path.exists(os.path.join(root, "go")):
@@ -2478,18 +2496,62 @@ def _phase10_rank(rank, device, root):
             out["killed_at"] = seen[-1].to_dict()
     dist.barrier()
     fit("model1_4", cfgs["model1"], mesh4)
-    mgr = CheckpointManager(kill_dir)
-    st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, device))
-    keep("step_unsup_4", snapshot(unsup4(st, x0)))
-    st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, device))
-    keep("step_sup_4", snapshot(
-        make_data_parallel_supervised_step(spec, mesh4)(st, x0, y0)))
+    out["step_walls"] = dp_step_walls(torch, spec, unsup4, x0, device)
     if rank == 0:  # on a copy: the parent's single steps read kill_dir
         import shutil
         resume_dir = shutil.copytree(kill_dir, os.path.join(root, "resume"))
         fit("resumed_1", cfgs["model1"], mesh1, seed=1, ckpt_dir=resume_dir,
             ckpt_every_batches=DP_CKPT_EVERY, resume=True)
     return out
+
+
+def _column_block_support(proj, pspec, xf, ax):
+    """The DP support as PR 22 formed it, for the timing alone: each rank
+    multiplies its own column block, ``b[blk] + x @ w[:, blk]`` (which
+    cuBLAS sums in another order than the whole product at 1024 of 4096
+    columns)."""
+    from repro_torch.core.bcpnn_layer import is_compact
+    from repro_torch.distributed import data_parallel as dp
+    if is_compact(pspec) and proj.table is not None:
+        return DP_SUPPORT_NOW(proj, pspec, xf, ax)
+    nj_l = pspec.post.N // ax.n
+    return (dp._cols(proj.b, ax, nj_l, 0)[None, :]
+            + xf @ dp._cols(proj.w, ax, nj_l, 1))
+
+
+DP_SUPPORT_NOW = None
+DP_WALL_STEPS = 20
+
+
+def dp_step_walls(torch, spec, step, x0, device):
+    """Wall of Model 1's 4-rank unsupervised DP step (mean of 20, after 2
+    untimed), the support formed whole and narrowed (this tree) and, for
+    comparison in the same run, as column blocks (the parent's
+    ``_support_cols``): {"whole": s, "blocks": s}."""
+    global DP_SUPPORT_NOW
+    import torch.distributed as dist
+    from repro_torch.core import init_deep
+    from repro_torch.distributed import data_parallel as dp
+    DP_SUPPORT_NOW = dp._support_cols
+    walls = {}
+    try:
+        for name, form in (("whole", DP_SUPPORT_NOW),
+                           ("blocks", _column_block_support),
+                           ("whole_again", DP_SUPPORT_NOW)):
+            dp._support_cols = form
+            st = init_deep(spec, 0, device)
+            for _ in range(2):
+                st = step(st, x0)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_WALL_STEPS):
+                st = step(st, x0)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) / DP_WALL_STEPS
+    finally:
+        dp._support_cols = DP_SUPPORT_NOW
+    return walls
 
 
 def phase10_reference(torch, cfgs, x, y):
@@ -2506,28 +2568,6 @@ def phase10_reference(torch, cfgs, x, y):
         ref[name] = {"snapshot": snapshot(tr.state), "stats": stats,
                      "wall": time.perf_counter() - t0, "spec": tr.spec}
     return ref
-
-
-def phase10_single_steps(torch, spec, kill_dir, x, y):
-    """The single-device unsupervised and readout steps from the killed
-    fit's checkpoint, each from the restored state."""
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.core import init_deep
-    from repro_torch.core.network import (supervised_readout_step,
-                                          unsupervised_layer_step)
-    from repro_torch.launch.train_dp import snapshot
-    mgr = CheckpointManager(kill_dir)
-    x0 = torch.from_numpy(x[:128]).cuda()
-    y0 = torch.from_numpy(y[:128]).cuda()
-    out = {}
-    for name, step in (
-            ("step_unsup", lambda st: unsupervised_layer_step(st, spec, x0,
-                                                              0)),
-            ("step_sup", lambda st: supervised_readout_step(st, spec, x0,
-                                                            y0))):
-        st = mgr.restore(mgr.latest_step(), init_deep(spec, 0, "cuda"))
-        out[name] = snapshot(step(st))
-    return out
 
 
 def kernel_accuracy(torch, snap, spec, xte, yte):
@@ -2595,42 +2635,6 @@ def column_blocks(torch):
     return out
 
 
-def column_block_times(torch, smi):
-    """ROADMAP.md queue C item 2: Model 1's support product ``x @ w``
-    (x 128 or 104 x 1568, w 1568 x 4096) as one sgemm, against the same
-    product made of fixed 1024-column blocks (the 4-rank DP step's calls),
-    in the single-device step's place; device time of each (CUDA-graph
-    replay), the blocked product against the 4 ranks' blocks bit for bit,
-    and the difference as a share of the replayed unsupervised step's
-    180.5 us busy (PERF.md section 5)."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(1)
-    ni, nj, blk = 1568, 4096, 1024
-    w = torch.randn((ni, nj), generator=g, device="cuda")
-    cols = [slice(i, i + blk) for i in range(0, nj, blk)]
-    out = []
-    for b in (128, 104):
-        x = torch.rand((b, ni), generator=g, device="cuda")
-        whole_ms = device_ms(lambda: x @ w)
-        blocked_ms = device_ms(lambda: torch.cat([x @ w[:, c] for c in cols],
-                                                 1))
-        parts_ms = device_ms(lambda: [x @ w[:, c] for c in cols])
-        same = torch.equal(torch.cat([x @ w[:, c] for c in cols], 1),
-                           torch.cat([x @ w[:, c].contiguous()
-                                      for c in cols], 1))
-        d_us = (blocked_ms - whole_ms) * 1e3
-        out.append(d_us)
-        print(f"[phase4] queue C 2, B={b}: x @ w as one sgemm "
-              f"{whole_ms * 1e3:.2f} us; as 4 fixed 1024-column blocks "
-              f"{parts_ms * 1e3:.2f} us, with their concatenation "
-              f"{blocked_ms * 1e3:.2f} us (the rank's contiguous blocks "
-              f"{'equal' if same else 'DIFFER'} bit for bit): "
-              f"{d_us:+.2f} us, {d_us / 180.5 * 100:+.2f} % of the 180.5 us "
-              f"replayed Model-1 unsupervised step (adopt at <= +2 %; "
-              f"{smi})", flush=True)
-    return out
-
-
 def phase10(torch, data):
     """The data-parallel fit on the card: four rank processes sharing it
     over gloo (``_phase10_rank``) against single-device fits in this
@@ -2659,16 +2663,15 @@ def phase10(torch, data):
               "(differing elements, max abs diff): " + "; ".join(
                   f"{k} {c} {d:.3e}" for k, (c, d) in blocks.items())
               + f" ({smi})", flush=True)
+        # the dense support is formed whole (x @ w need not be invariant)
         check(all(c == 0 for k, (c, _) in blocks.items()
-                  if not k.startswith("x@w") or k.endswith("n=2")),
+                  if not k.startswith("x@w")),
               f"a product the DP contract relies on is not "
               f"column-invariant: {blocks}")
         cfgs = dp_cfgs()
         ref = phase10_reference(torch, cfgs, x, y)
         (root / "go").touch()
         ranks = group.join()
-        ref.update(phase10_single_steps(torch, ref["model1"]["spec"],
-                                        str(root / "kill"), x, y))
         killed = ranks[0].get("killed_at")
         check(killed == {"phase": "unsupervised", "layer": 0, "epoch": 0,
                          "batch": DP_KILL_CHUNK * DP_CKPT_EVERY},
@@ -2759,23 +2762,16 @@ def phase10_report(torch, got, ref, xte, yte, smi):
               f"images/s) sup_s {rs['sup_s']:.4f}; {smi})", flush=True)
         check(acc == acc_ref, f"phase 10 {label}: accuracy {acc} against "
                               f"the single-device {acc_ref}")
-        if ranks == 2:
-            check(same, f"phase 10 {label}: the DP fit parts from the "
-                        f"single-device fit (max abs diff {worst:.3e})")
-    # cuBLAS sums x @ w[:, blk] at 1024 of 4096 columns in another order
-    # than the whole product (ROADMAP.md queue C): on four ranks single DP
-    # steps from one state are held to single steps at PERF.md §2's 1e-4.
-    for tag, name in (("step_unsup_4", "step_unsup"),
-                      ("step_sup_4", "step_sup")):
-        worst = snapshot_diff(got[tag]["snapshot"], ref[name])
-        gen = np.array_equal(got[tag]["snapshot"]["generator"],
-                             ref[name]["generator"])
-        print(f"[phase10] Model 1, 4 ranks: one {name[5:]} DP step from the "
-              f"killed fit's checkpoint against the single-device step "
-              f"from it: max abs diff {worst:.3e}, held to 1e-4 (the 4-way "
-              f"support block is not column-invariant under cuBLAS), "
-              f"generator {'equal' if gen else 'DIFFERS'}", flush=True)
-        check(worst <= 1e-4 and gen, f"phase 10 {tag}: {worst:.3e} > 1e-4")
+        check(same, f"phase 10 {label}: the DP fit parts from the "
+                    f"single-device fit (max abs diff {worst:.3e})")
+    w = got["step_walls"]
+    print(f"[phase10] Model 1, 4 ranks: unsupervised DP step wall "
+          f"{w['whole'] * 1e3:.3f} ms with the support formed whole and "
+          f"narrowed (this tree; again {w['whole_again'] * 1e3:.3f} ms), "
+          f"{w['blocks'] * 1e3:.3f} ms with the parent's column-block "
+          f"support: {(w['whole'] - w['blocks']) * 1e3:+.3f} ms "
+          f"({(w['whole'] / w['blocks'] - 1) * 100:+.2f} %; mean of "
+          f"{DP_WALL_STEPS} steps each, rank 0; {smi})", flush=True)
 
 
 # -------------------------------------------------------------- phase 11 --
@@ -3367,6 +3363,465 @@ def phase12_resume_finish(started):
 
 # --------------------------------------------------------------- phase 7 --
 
+# -------------------------------------------------------------- phase 13 --
+
+P13_MESH = (2, 2)
+P13_STEPS, P13_KILL = 4, 2
+P13_SERVE = (4, 32, 16)      # prefill batch, prompt, greedy tokens
+P13_REL = 0.04               # PERF.md section 2's bf16 rows
+P13_TIMEOUT_S = 900
+
+
+def _p13_bytes(t):
+    """(this rank's bytes, the whole tensor's bytes) of a tensor."""
+    from torch.distributed.tensor import DTensor
+    local = t.to_local() if isinstance(t, DTensor) else t
+    return (local.numel() * local.element_size(),
+            t.numel() * t.element_size())
+
+
+def _p13_digests(groups):
+    """sha1 of this rank's block of every tensor of ``groups`` (a dict of
+    lists), in order."""
+    import hashlib
+    import torch
+    from torch.distributed.tensor import DTensor
+    out = []
+    for g in groups.values():
+        for t in g:
+            local = t.to_local() if isinstance(t, DTensor) else t
+            raw = local.detach().contiguous().view(-1).view(torch.uint8)
+            out.append(hashlib.sha1(raw.cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def _p13_change(got, want, before, mu, opt_cfg):
+    """A parameter leaf's change in one split step against the one-rank
+    change from the same ``before`` (bf16 values as fp32; ``mu`` the
+    one-rank first moment after the step): (the largest difference over
+    its bound, everywhere; the same where the step is sure; how many
+    elements are sure).  Everywhere the bound is 2 * lr * (1 + wd * |p|)
+    (a gradient near zero takes either sign) plus two bf16 ulps of the
+    parameter.  An element is sure where |mu| exceeds 4 * P13_REL of the
+    leaf's largest (beyond the gradient tolerance: the sign is the same)
+    and its clipped gradient 1e3 * eps (Adam's ratio within 1e-3 of
+    one): there both sides subtract lr times the same ratio, and the
+    bound is one bf16 ulp plus 2e-3 * lr."""
+    import torch
+    lr, wd = opt_cfg.lr, opt_cfg.weight_decay
+    ulp = torch.ldexp(torch.ones_like(before),
+                      torch.frexp(torch.maximum(before.abs(), want.abs()))
+                      .exponent - 8)
+    err = (got - want).abs()
+    everywhere = float((err / (2 * lr * (1 + wd * before.abs())
+                               + 2 * ulp)).max())
+    a = mu.abs()
+    sure = (a > 4 * P13_REL * float(a.max())) & (
+        a / (1 - opt_cfg.b1) > 1e3 * opt_cfg.eps)
+    n = int(sure.sum())
+    worst = float((err[sure] / (ulp[sure] + 2e-3 * lr)).max()) if n else 0.0
+    return everywhere, worst, n
+
+
+def _phase13_rank(rank, device, root, small=False):
+    """A rank of phase 13's group of four (gloo, all on one card), on the
+    (data 2, model 2) mesh: qwen1.5-0.5b at full width trained and served
+    split, against the one-rank computation that rank 0 makes on the card
+    from the same seed.  Returns rank 0's report (every rank its own
+    bytes, peak and digests)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_leaf_groups
+    from repro_torch.distributed.sharding import (
+        CollectiveMeter, Mesh, full_value, make_rules, place_like,
+        rank_devices, sharding_context)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_batch_fn, place_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, global_norm, init_opt_state
+    cfg = get_config("qwen1.5-0.5b")
+    if small:  # a rehearsal on the CPU: the smoke config, same code
+        from repro_torch.configs import smoke
+        cfg = smoke(cfg)
+    cuda = device.type == "cuda"
+    devs = np.empty(4, dtype=object)
+    devs[:] = rank_devices(4)
+    mesh = Mesh(devs.reshape(P13_MESH), ("data", "model"))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=P13_STEPS,
+                          warmup_steps=max(1, P13_STEPS // 20))
+    make_batch = make_batch_fn(cfg, TRAIN_BATCH, TRAIN_SEQ, 0)
+    lead = rank == 0
+    out = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def grads_of(params, batch):
+        groups = lm_leaf_groups(params)
+        flat = [t for g in groups.values() for t in g]
+        loss = lm.lm_loss(params, cfg, batch["tokens"])
+        got = iter(torch.autograd.grad(loss, flat))
+        return loss.detach(), {k: [next(got) for _ in g]
+                               for k, g in groups.items()}
+
+    # -- one split step against the one-rank step, from the seed-0 state
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with sharding_context(mesh, make_rules(mesh)):
+        params = lm.init_params(cfg, 0, device, train=True)
+        opt = init_opt_state(lm_leaf_groups(params))
+        step = make_train_step(cfg, opt_cfg)
+        batch0 = place_batch(make_batch(0), device)
+        loss_s, grads = grads_of(params, batch0)
+        loss_s = float(full_value(loss_s))
+        gnorm_s = float(full_value(global_norm(grads)))
+    ref = ref0 = ref_opt = None
+    if lead:  # the one-rank reference, on the card, outside the mesh
+        ref = lm.init_params(cfg, 0, device, train=True)
+        ref0 = {k: [t_.detach().clone() for t_ in g]
+                for k, g in lm_leaf_groups(ref).items()}
+        plain0 = {k: torch.from_numpy(v).to(device)
+                  for k, v in make_batch(0).items()}
+        loss_1, ref_grads = grads_of(ref, plain0)
+        out["loss"] = (loss_s, float(loss_1))
+        out["gnorm"] = (gnorm_s, float(global_norm(ref_grads)))
+        ref_opt = init_opt_state(lm_leaf_groups(ref))
+        make_train_step(cfg, opt_cfg)(ref, ref_opt, plain0)
+    sync()
+    gerr, perr, merr = {}, {}, {}
+    by = {"params": [0, 0], "moments": [0, 0], "grads": [0, 0]}
+    with sharding_context(mesh, make_rules(mesh)):
+        for path, g in grads.items():
+            for i, t_ in enumerate(g):
+                mine, whole_b = _p13_bytes(t_)
+                by["grads"][0] += mine
+                by["grads"][1] += whole_b
+                whole = full_value(t_).float()
+                if lead:
+                    want = ref_grads[path][i].float()
+                    gerr[f"{path}[{i}]"] = (
+                        float((whole - want).abs().max()),
+                        float(want.abs().max()))
+                del whole
+        del grads
+        if lead:
+            del ref_grads
+        sync()
+        t = time.perf_counter()
+        loss0, params, opt = step(params, opt, batch0)
+        sync()
+        first_step = time.perf_counter() - t
+        ref_groups = lm_leaf_groups(ref) if lead else None
+        for path, g in lm_leaf_groups(params).items():
+            for i, t_ in enumerate(g):
+                whole = full_value(t_.detach()).float()
+                if lead:
+                    perr[f"{path}[{i}]"] = _p13_change(
+                        whole, ref_groups[path][i].detach().float(),
+                        ref0[path][i].float(), ref_opt["mu"][path][i],
+                        opt_cfg)
+        for key in ("mu", "nu"):
+            for path, g in opt[key].items():
+                for i, t_ in enumerate(g):
+                    whole = full_value(t_)
+                    if lead:
+                        want = ref_opt[key][path][i]
+                        merr[f"{key}/{path}[{i}]"] = (
+                            float((whole - want).abs().max()),
+                            float(want.abs().max()))
+        # -- bytes a rank holds against what the placements give
+        want_b = want_m = 0
+        for g in lm_leaf_groups(params).values():
+            for t_ in g:
+                mine, whole_b = _p13_bytes(t_)
+                by["params"][0] += mine
+                by["params"][1] += whole_b
+                n = t_.numel()
+                for i, p in enumerate(t_.placements):
+                    if p.is_shard():
+                        n //= mesh.devices.shape[i]
+                want_b += n * t_.element_size()
+                want_m += n * 8  # fp32 mu and nu
+        for key in ("mu", "nu"):
+            for g in opt[key].values():
+                for t_ in g:
+                    mine, whole_b = _p13_bytes(t_)
+                    by["moments"][0] += mine
+                    by["moments"][1] += whole_b
+        del params, opt
+    if lead:  # the one-rank run on to P13_STEPS, the split run's twin
+        one_step = make_train_step(cfg, opt_cfg)
+        out["one_losses"] = [float(loss_1)] + [
+            float(one_step(ref, ref_opt, {
+                k: torch.from_numpy(v).to(device)
+                for k, v in make_batch(i).items()})[0])
+            for i in range(1, P13_STEPS)]
+    del ref, ref0, ref_opt, ref_groups
+    free()
+    out.update(grads=gerr, params=perr, moments=merr,
+               first_step=first_step, step_loss=float(loss0),
+               bytes={k: tuple(v) for k, v in by.items()},
+               param_bytes_by_placements=want_b,
+               moment_bytes_by_placements=want_m)
+
+    # -- P13_STEPS split steps from the start (the run the kill-resume
+    #    checks), a checkpoint after step P13_KILL, then one measured step
+    ckpt = os.path.join(root, "ckpt")
+    walls, losses = [], []
+    with sharding_context(mesh, make_rules(mesh)):
+        params = lm.init_params(cfg, 0, device, train=True)
+        opt = init_opt_state(lm_leaf_groups(params))
+        mgr = CheckpointManager(ckpt)
+        save_s = None
+        for i in range(P13_STEPS):
+            batch = place_batch(make_batch(i), device)
+            sync()
+            t = time.perf_counter()
+            loss, params, opt = step(params, opt, batch)
+            losses.append(float(loss))
+            walls.append(time.perf_counter() - t)
+            if i + 1 == P13_KILL:
+                sync()
+                t = time.perf_counter()
+                mgr.save(P13_KILL, {"params": params, "opt": opt})
+                save_s = time.perf_counter() - t
+        whole_run = _p13_digests({**lm_leaf_groups(params), **{
+            f"mu/{k}": v for k, v in opt["mu"].items()}, **{
+            f"nu/{k}": v for k, v in opt["nu"].items()},
+            "step": [opt["step"]]})
+        meter = CollectiveMeter()
+        batch = place_batch(make_batch(P13_STEPS), device)
+        sync()
+        t = time.perf_counter()
+        with meter:
+            step(params, opt, batch)
+        sync()
+        metered = time.perf_counter() - t
+        del params, opt
+        free()
+
+        # -- killed after the checkpoint: a fresh state, restored, resumed
+        params = lm.init_params(cfg, 1, device, train=True)
+        opt = init_opt_state(lm_leaf_groups(params))
+        sync()
+        t = time.perf_counter()
+        CheckpointManager(ckpt).restore(P13_KILL, {"params": params,
+                                                   "opt": opt})
+        restore_s = time.perf_counter() - t
+        for i in range(P13_KILL, P13_STEPS):
+            _, params, opt = step(params, opt,
+                                  place_batch(make_batch(i), device))
+        resumed = _p13_digests({**lm_leaf_groups(params), **{
+            f"mu/{k}": v for k, v in opt["mu"].items()}, **{
+            f"nu/{k}": v for k, v in opt["nu"].items()},
+            "step": [opt["step"]]})
+        del params, opt
+        free()
+    out.update(walls=walls, losses=losses, save_s=save_s,
+               restore_s=restore_s, resume_equal=resumed == whole_run,
+               n_leaves=len(whole_run), metered_s=metered,
+               comm_s=meter.seconds, comm_counts=dict(meter.counts))
+    sync()
+    if lead:  # the same checkpoint restored on one rank
+        ref = lm.init_params(cfg, 1, device, train=True)
+        ref_opt = init_opt_state(lm_leaf_groups(ref))
+        CheckpointManager(ckpt).restore(P13_KILL, {"params": ref,
+                                                   "opt": ref_opt})
+        arrays = np.load(os.path.join(ckpt, f"step_{P13_KILL}",
+                                      "arrays.npz"))
+        from repro_torch.convert import stack_leaf
+        same, n = True, 0
+        for prefix, tree in (("params", lm_leaf_groups(ref)),
+                             ("opt/mu", ref_opt["mu"]),
+                             ("opt/nu", ref_opt["nu"])):
+            for path, g in tree.items():
+                a = stack_leaf(g)
+                same &= a.tobytes() == arrays[f"{prefix}/{path}"].tobytes()
+                n += 1
+        same &= int(ref_opt["step"]) == int(arrays["opt/step"])
+        out["one_rank_restore"] = (bool(same), n + 1)
+        del ref, ref_opt
+        free()
+    sync()
+
+    # -- split serving: prefill and greedy decode against one rank
+    b, prompt, gen = P13_SERVE
+    from repro_torch.data.pipeline import TokenStream
+    toks = TokenStream(cfg.vocab, seed=0).batch(0, b, prompt)
+    with torch.no_grad():
+        one_logits, one_tokens = [], []
+        if lead:
+            ref = lm.init_params(cfg, 0, device)
+            logits, cache = lm.prefill(ref, cfg, torch.from_numpy(toks).to(
+                device), prompt + gen)
+            for _ in range(gen):
+                one_logits.append(logits.float())
+                tok = torch.argmax(logits, -1)
+                one_tokens.append(tok)
+                logits, cache = lm.decode_step(ref, cfg, cache, tok)
+            del ref, cache
+            free()
+            drive = torch.stack(one_tokens, 0).cpu().numpy()
+        else:
+            drive = np.zeros((gen, b), np.int64)
+        drive_t = torch.from_numpy(drive).to(device)
+        dist.broadcast(drive_t, 0)  # the one-rank tokens drive both
+        with sharding_context(mesh, make_rules(mesh)):
+            params = lm.init_params(cfg, 0, device)
+            sync()
+            t = time.perf_counter()
+            logits, cache = lm.prefill(params, cfg, place_like(
+                torch.from_numpy(toks).to(device), ("batch", None)),
+                prompt + gen)
+            sync()
+            prefill_s = time.perf_counter() - t
+            errs, differ = [], 0
+            t = time.perf_counter()
+            for i in range(gen):
+                whole = full_value(logits).float()
+                if lead:
+                    errs.append((float((whole - one_logits[i]).abs().max()),
+                                 float(one_logits[i].abs().max())))
+                    differ += int((torch.argmax(whole, -1)
+                                   != one_tokens[i]).sum())
+                logits, cache = lm.decode_step(
+                    params, cfg, cache, place_like(drive_t[i], ("batch",)))
+            sync()
+            decode_s = time.perf_counter() - t
+            del params, cache
+    out.update(serve_err=errs, serve_differ=differ, prefill_s=prefill_s,
+               decode_s=decode_s,
+               peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    return out
+
+
+def phase13(torch, smi, device="cuda", small=False):
+    """The LM zoo on a split mesh: four rank processes sharing the card
+    over gloo (``RankGroup``, as phase 10), on (data 2, model 2), each
+    holding a quarter of qwen1.5-0.5b at full width (FSDP over data,
+    tensor parallelism over model: ``_phase13_rank``).  ``device="cpu"``
+    with ``small`` rehearses it on the CPU at the smoke size."""
+    import shutil
+    import tempfile
+    from repro_torch.distributed import RankGroup
+    root = Path(tempfile.mkdtemp(prefix="phase13_", dir=ROOT / "build"))
+    t = time.perf_counter()
+    try:
+        ranks = RankGroup(_phase13_rank, 4, backend="gloo", device=device,
+                          args=(str(root), small),
+                          timeout_s=P13_TIMEOUT_S).join()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t
+    r = ranks[0]
+    split, one = r["loss"]
+    gworst = max(e / max(m, 1e-30) for e, m in r["grads"].values())
+    mworst = max(e / max(m, 1e-30) / (2 if k.startswith("nu/") else 1)
+                 for k, (e, m) in r["moments"].items())
+    gn_s, gn_1 = r["gnorm"]
+    every = max(v[0] for v in r["params"].values())
+    sure = max(v[1] for v in r["params"].values())
+    n_sure = sum(v[2] for v in r["params"].values())
+    print(f"[phase13] qwen1.5-0.5b (published width and depth, bf16, remat)"
+          f" split over (data {P13_MESH[0]}, model {P13_MESH[1]}), four "
+          f"ranks sharing the card over gloo, against one rank on the card "
+          f"from seed 0: loss {split:.6f} vs {one:.6f} (rel "
+          f"{abs(split - one) / abs(one):.2e}); gradients' global norm "
+          f"{gn_s:.6f} vs {gn_1:.6f} (rel {abs(gn_s - gn_1) / gn_1:.2e}); "
+          f"worst gradient leaf {gworst:.3e} of its largest; worst mu leaf "
+          f"after the step and half the worst nu leaf {mworst:.3e} of its "
+          f"largest (limit {P13_REL} each, PERF.md section 2; "
+          f"{len(r['grads'])} leaves); each parameter's change against the "
+          f"one-rank change: worst {every:.3f} of its bound everywhere "
+          f"(2 lr (1 + wd |p|) + 2 bf16 ulps), {sure:.3f} of its bound on "
+          f"the {n_sure} elements where the step is sure (one bf16 ulp + "
+          f"2e-3 lr; {smi})", flush=True)
+    check(abs(split - one) <= P13_REL * abs(one),
+          f"phase 13: split loss {split} against {one}")
+    check(abs(gn_s - gn_1) <= P13_REL * gn_1,
+          f"phase 13: split global norm {gn_s} against {gn_1}")
+    check(gworst <= P13_REL, f"phase 13: a gradient leaf differs by "
+                             f"{gworst:.3e} of its largest")
+    check(mworst <= P13_REL, f"phase 13: a moment leaf differs by "
+                             f"{mworst:.3e} of its largest (nu halved)")
+    check(every <= 1.0, f"phase 13: a parameter's change is {every:.3f} of "
+                        f"its bound from the one-rank change")
+    check(n_sure > 0 and sure <= 1.0,
+          f"phase 13: a sure parameter's change is {sure:.3f} of its bound "
+          f"from the one-rank change ({n_sure} sure)")
+    mine, whole = r["bytes"]["params"]
+    print(f"[phase13] bytes a rank holds (rank by rank): " + "; ".join(
+        f"rank {i}: params {q['bytes']['params'][0] / 2**20:.1f} MiB, "
+        f"moments {q['bytes']['moments'][0] / 2**20:.1f} MiB, grads "
+        f"{q['bytes']['grads'][0] / 2**20:.1f} MiB "
+        f"({q['bytes']['params'][0] / q['bytes']['params'][1]:.4f} of one "
+        f"rank's), peak allocated {q['peak'] / 2**30:.2f} GiB"
+        for i, q in enumerate(ranks)) + f"; the placements give "
+        f"{r['param_bytes_by_placements'] / 2**20:.1f} MiB of parameters a "
+        f"rank of {whole / 2**20:.1f} MiB ({smi})", flush=True)
+    check(all(q["bytes"]["params"][0] == r["param_bytes_by_placements"]
+              for q in ranks), "phase 13: a rank holds other parameter "
+                               "bytes than its placements give")
+    check(all(q["bytes"]["moments"][0] == r["moment_bytes_by_placements"]
+              and q["bytes"]["grads"][0] == q["bytes"]["params"][0]
+              for q in ranks), "phase 13: moments or gradients are not "
+                               "placed as their parameters")
+    med = statistics.median(r["walls"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[phase13] {P13_STEPS} split steps (batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, lr {TRAIN_LR}): median {med * 1e3:.1f} ms "
+          f"({', '.join(f'{w * 1e3:.1f}' for w in r['walls'])}), "
+          f"{tokens / med:.0f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in r['losses'])}; one step under "
+          f"the collective meter {r['metered_s'] * 1e3:.1f} ms, "
+          f"{r['comm_s'] * 1e3:.1f} ms ({r['comm_s'] / r['metered_s']:.3f})"
+          f" in {sum(r['comm_counts'].values())} collectives "
+          f"{json.dumps(r['comm_counts'], sort_keys=True)} (ranks sharing "
+          f"one card over gloo: the protocol, not scaling; {smi})",
+          flush=True)
+    check(all(np.isfinite(r["losses"])), "phase 13: a non-finite loss")
+    lworst = max(abs(a - b) / abs(b)
+                 for a, b in zip(r["losses"], r["one_losses"]))
+    print(f"[phase13] the same {P13_STEPS} steps on one rank: losses "
+          f"{', '.join(f'{x:.4f}' for x in r['one_losses'])}; the split "
+          f"run's within {lworst:.2e} of them (limit {P13_REL})", flush=True)
+    check(lworst <= P13_REL, f"phase 13: the split run's losses part from "
+                             f"the one-rank run's by {lworst:.2e}")
+    resume_ok = all(q["resume_equal"] for q in ranks)
+    same1, n1 = r["one_rank_restore"]
+    print(f"[phase13] killed after the step-{P13_KILL} checkpoint (saved in "
+          f"{r['save_s']:.1f} s, restored in {r['restore_s']:.1f} s) and "
+          f"resumed on the same mesh: every rank's block of all "
+          f"{r['n_leaves']} leaves {'EQUAL' if resume_ok else 'DIFFERS'} to "
+          f"the uninterrupted split run bit for bit; the checkpoint restored"
+          f" on one rank: {n1} leaves {'EQUAL' if same1 else 'DIFFER'} to "
+          f"the saved arrays bit for bit", flush=True)
+    check(resume_ok, "phase 13: the resumed split run parts from the "
+                     "uninterrupted one")
+    check(same1, "phase 13: the one-rank restore differs from the saved "
+                 "arrays")
+    b, prompt, gen = P13_SERVE
+    worst = max(e / m for e, m in r["serve_err"])
+    print(f"[phase13] split serving: prefill {b} x {prompt} in "
+          f"{r['prefill_s'] * 1e3:.1f} ms, {gen} decode steps in "
+          f"{r['decode_s'] * 1e3:.1f} ms (the logits gathered each step for "
+          f"the comparison), driven by the one-rank greedy tokens: logits "
+          f"within {worst:.4f} of the largest (limit {P13_REL}), "
+          f"{r['serve_differ']} of {b * gen} greedy tokens differ; phase "
+          f"13 took {wall:.1f} s, process start-up included ({smi})",
+          flush=True)
+    check(worst <= P13_REL, f"phase 13: split logits differ by {worst:.4f} "
+                            f"of the largest")
+
+
 def phase7():
     """The ``gpu`` tests in their own pytest process, the log written under
     a name no other run takes; a failing test fails the run."""
@@ -3574,9 +4029,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    column_block_times(torch, smi)
     head_launches = phase11(torch)
     phase12(torch, smi)
+    phase13(torch, smi)
     started = [launcher_start()]
     resume = None
     try:

@@ -42,6 +42,12 @@ of this path needs ``ml_dtypes``; a restore casts each array to its
 target's dtype.  A train state restores in place: the target's tensors
 take the checkpoint's values, every leaf checked before any is written,
 and the target is returned.
+
+A train state split over a mesh (DTensor leaves) saves the same files: each
+leaf is gathered whole in turn (every rank takes part) and rank 0 writes it,
+so the host holds one leaf at a time; the save is blocking and no rank
+returns before the directory is in place.  Any checkpoint restores onto any
+mesh: each target tensor takes its own block of the saved array.
 """
 from __future__ import annotations
 
@@ -139,25 +145,71 @@ def _train_groups(tree) -> Dict[str, List[torch.Tensor]]:
     return out
 
 
-def _check_unsplit(shardings) -> None:
-    """A train state restores onto this rank whole: a leaf that a sharding
-    splits over a mesh axis longer than 1 raises."""
-    from ..distributed.sharding import NamedSharding, _axis_size
+def _is_split(groups: Dict[str, List[torch.Tensor]]) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for g in groups.values() for t in g)
 
-    def walk(node):
+
+def _check_placed(groups: Dict[str, List[torch.Tensor]], shardings) -> None:
+    """Each target leaf is placed as ``shardings`` (nested dicts of
+    ``NamedSharding`` or None, keyed as the train state) says: a leaf the
+    sharding splits is a DTensor of its placements, a leaf it leaves whole
+    is whole on this rank."""
+    from ..distributed.sharding import (NamedSharding, placements,
+                                        split_mesh)
+
+    def flat(node, prefix=""):
         if isinstance(node, dict):
-            for v in node.values():
-                walk(v)
+            for k, v in node.items():
+                yield from flat(v, f"{prefix}{k}/")
         elif isinstance(node, NamedSharding):
-            split = [ax for ax in node.spec
-                     if ax is not None and _axis_size(node.mesh, ax) > 1]
-            if split:
-                raise NotImplementedError(
-                    f"restoring an LM leaf split over {split} of "
-                    f"{node.mesh!r}: LM tensors split across ranks are "
-                    f"ROADMAP.md queue A item 10b-rest")
+            yield prefix[:-1], node
 
-    walk(shardings)
+    for name, shd in flat(shardings):
+        if name not in groups or not split_mesh(shd.mesh):
+            continue
+        want = placements(shd.mesh, shd.spec)
+        for t in groups[name]:
+            got = tuple(getattr(t, "placements", ()))
+            # a stacked JAX leaf's spec has the stacking dim first
+            shift = len(shd.spec) - t.dim()
+            want_t = tuple(type(p)(p.dim - shift) if p.is_shard() else p
+                           for p in want)
+            if got != want_t:
+                raise ValueError(f"restoring {name}: the target is placed "
+                                 f"{got or 'whole'}, the sharding asks for "
+                                 f"{want_t}")
+
+
+def _write_split(path: str, groups: Dict[str, List[torch.Tensor]]
+                 ) -> Optional[Dict[str, Any]]:
+    """The arrays of a split train state, gathered whole one leaf at a
+    time (``full_tensor``: every rank takes part) and written by rank 0
+    into ``path``/arrays.npz as ``np.savez`` writes them, so the host holds
+    one leaf at a time.  Returns rank 0's manifest leaves (None
+    elsewhere)."""
+    import zipfile
+    from ..convert import stack_leaf
+    from ..distributed.sharding import _rank
+    leader = _rank() == 0
+    leaves: Dict[str, Any] = {}
+    zf = (zipfile.ZipFile(os.path.join(path, "arrays.npz"), mode="w",
+                          compression=zipfile.ZIP_STORED, allowZip64=True)
+          if leader else None)
+    try:
+        for name, group in groups.items():
+            a = stack_leaf(group)  # gathers a DTensor on every rank
+            if zf is not None:
+                with zf.open(name + ".npy", mode="w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, np.asanyarray(a),
+                                              allow_pickle=False)
+                leaves[name] = {"shape": list(a.shape),
+                                "dtype": str(a.dtype)}
+            del a
+    finally:
+        if zf is not None:
+            zf.close()
+    return leaves if leader else None
 
 
 class CheckpointManager:
@@ -179,6 +231,9 @@ class CheckpointManager:
         ``DeepState``'s generator state added under
         ``"torch_generator"``."""
         self.wait()
+        if _is_train_state(tree) and _is_split(_train_groups(tree)):
+            self._save_split(step, _train_groups(tree), extra)
+            return
         if _is_train_state(tree):
             from ..convert import stack_leaf  # bf16 widened to float32
             groups = _train_groups(tree)
@@ -219,6 +274,31 @@ class CheckpointManager:
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
+
+    def _save_split(self, step: int, groups, extra: Optional[dict]
+                    ) -> None:
+        """A split train state's ``step_<step>``, written at once: every
+        rank gathers each leaf in turn, rank 0 writes it (the files a
+        one-rank save of the same state writes), and no rank returns
+        before the directory is in place."""
+        from ..distributed.sharding import _rank
+        tmp = os.path.join(self.dir, f".tmp_step_{step}")
+        final = os.path.join(self.dir, f"step_{step}")
+        leader = _rank() == 0
+        if leader:
+            os.makedirs(tmp, exist_ok=True)
+        leaves = _write_split(tmp, groups)
+        if leader:
+            manifest = {"step": step, "leaves": leaves}
+            if extra is not None:
+                manifest["extra"] = extra
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self._gc()
+        torch.distributed.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -340,15 +420,20 @@ class CheckpointManager:
     @torch.no_grad()
     def _restore_train(self, step: int, target, shardings: Any = None):
         """An LM train state restored in place (a checkpoint of either
-        package); ``shardings`` (optional, nested dicts of
-        ``NamedSharding`` or None) must not split a leaf across ranks."""
+        package, saved on any mesh): each target tensor takes its block of
+        the saved array, the whole array for a plain tensor, this rank's
+        block for a DTensor (``assign_``), one leaf at a time on the host.
+        ``shardings`` (optional, nested dicts of ``NamedSharding`` or None
+        keyed as the state) must agree with the targets' placements: the
+        leaves are placed by them."""
+        from ..distributed.sharding import assign_
+        groups = _train_groups(target)
         if shardings is not None:
-            _check_unsplit(shardings)
+            _check_placed(groups, shardings)
         self.wait()
         arrays = np.load(os.path.join(self.dir, f"step_{step}",
                                       "arrays.npz"))
         from ..convert import leaf_spec
-        groups = _train_groups(target)
         names = set(groups)
         missing = sorted(names - set(arrays.files))
         surplus = sorted(set(arrays.files) - names)
@@ -356,19 +441,19 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint step_{step} does not match the train state: "
                 f"missing leaves {missing[:5]}, extra leaves {surplus[:5]}")
-        host = {}
+        manifest = self._manifest(step)["leaves"]
+        for name, group in groups.items():
+            want = leaf_spec(group).shape
+            if tuple(manifest[name]["shape"]) != want:
+                raise ValueError(f"checkpoint leaf {name!r} has shape "
+                                 f"{tuple(manifest[name]['shape'])}, target "
+                                 f"expects {want}")
         for name, group in groups.items():
             a = arrays[name]
-            want = leaf_spec(group).shape
-            if tuple(a.shape) != want:
-                raise ValueError(f"checkpoint leaf {name!r} has shape "
-                                 f"{tuple(a.shape)}, target expects {want}")
-            host[name] = a
-        for name, group in groups.items():
-            a = host[name]
             parts = [a] if len(group) == 1 else list(a)
             for t, part in zip(group, parts):
-                t.copy_(torch.from_numpy(np.array(part)).to(t.dtype))
+                assign_(t, torch.from_numpy(np.array(part)).to(t.dtype))
+            del a, parts
         return target
 
 

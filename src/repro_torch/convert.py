@@ -35,6 +35,12 @@ optimizer's moments and the compression error are such groups of fp32
 tensors; ``opt_state_{to,from}_numpy`` and ``error_state_{to,from}_numpy``
 carry them in the JAX layout (moments stacked as the parameters are,
 ``step`` int32), bitwise both ways.
+
+Under a sharding context on a split mesh the ``from_numpy`` functions of
+the LM zoo place what they make: parameters as ``DTensor``s of this rank's
+blocks by the rules (``models.params.distribute_params``), moments and
+errors as their parameters are; the ``to_numpy`` functions gather each
+DTensor whole (every rank of the mesh calls them together).
 """
 from __future__ import annotations
 
@@ -48,7 +54,10 @@ from .core.bcpnn_layer import InferPack, Projection, ProjSpec, is_patchy
 from .core.network import DeepState, InferParams, NetworkSpec, as_spec
 from .core.traces import Traces
 from .device import DeviceLike, make_generator, resolve_device
+from .distributed.sharding import (assign_, current_mesh, distribute_like,
+                                   full_value, split_mesh)
 from .models.lm import LM, LMCache
+from .models.params import distribute_params
 
 
 def _projection_from_numpy(d: Dict[str, Any], dev: torch.device) -> Projection:
@@ -214,7 +223,7 @@ def _to_numpy(t: torch.Tensor, bf16_as: str = "ml_dtypes") -> np.ndarray:
     is imported only here, for a caller that asks for them) or, with
     ``bf16_as="float32"``, widened to float32 exactly, as the checkpoint
     format writes it."""
-    t = t.detach().cpu()
+    t = full_value(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         if bf16_as == "float32":
             return t.float().numpy()
@@ -257,7 +266,7 @@ def _load_module(module: torch.nn.Module, tree: Dict[str, Any],
             raise ValueError(f"{where}/{key} is {tuple(t.shape)} {t.dtype}, "
                              f"the port wants {tuple(own[key].shape)} "
                              f"{own[key].dtype}")
-        own[key].copy_(t)
+        assign_(own[key], t)
 
 
 def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
@@ -266,7 +275,11 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     ``lm.init_params`` tree of numpy leaves (checked key by key, shape and
     dtype); its parameters require gradients when built to ``train``."""
     dev = resolve_device(device)
-    params = LM(cfg, dev, train=train)
+    if split_mesh(current_mesh()):
+        params = LM(cfg, torch.device("meta"), train=train)
+        distribute_params(params, dev)
+    else:
+        params = LM(cfg, dev, train=train)
     _load_module(params, tree, "params")
     for layer, (group, key, r) in zip(params.layers, _layer_slots(cfg)):
         _load_module(layer, _take(tree[group][key], r), f"{group}/{key}")
@@ -455,8 +468,9 @@ def groups_from_numpy(tree: Dict[str, Any], like: Groups,
             raise ValueError(f"{path} has shape {tuple(a.shape)}, the port "
                              f"wants {want}")
         parts = [a] if len(group) == 1 else list(a)
-        out[path] = [_pack_tensor(part, t.device).to(dtype).clone()
-                     for part, t in zip(parts, group)]
+        out[path] = [distribute_like(
+            _pack_tensor(part, t.device).to(dtype).clone(), t)
+            for part, t in zip(parts, group)]
     return out
 
 

@@ -33,8 +33,9 @@ process runs the same ``fit`` on the same data, with the state replicated;
 every epoch is the mesh's data-parallel program
 (``distributed/data_parallel.py``), fed this rank's rows of each batch,
 and ends in the single-device fit's state bit for bit, whatever the
-number of ranks, where the products are column-invariant (ROADMAP.md
-queue C names where cuBLAS is not).
+number of ranks (each rank forms the whole dense support by the
+single-device call and keeps its columns; the trace products it splits
+are column-invariant).
 Those programs run eagerly (a gloo collective cannot run inside a
 captured graph) and in plain torch whatever the backend says, as in JAX.
 The rank first on the data axis writes the checkpoints and every rank

@@ -6,18 +6,20 @@ to the global trace; but a batch-SPLIT decomposition (each rank contracting
 its own rows, then a sum) reassociates the fp32 reduction.  As in the JAX
 module the decomposition is over POST COLUMNS instead: every rank gathers
 the full batch of activations and contracts it against its own block of
-post-HC columns, so each element of every product is computed by exactly
-one rank, in the call the single-device step makes for it.  The trace
-all-reduce then adds one real value and zeros per element; the port
-all-gathers the column blocks instead, which gives the same bits (x + 0 =
-x for the non-negative co-activations) and moves less.  The forward is
-sharded the same way (column blocks of the support product, the per-HC
-softmax block-local), and the exploration noise is drawn from the
+post-HC columns, so each element of every trace product is computed by
+exactly one rank.  The trace all-reduce then adds one real value and
+zeros per element; the port all-gathers the column blocks instead, which
+gives the same bits (x + 0 = x for the non-negative co-activations) and
+moves less.  The forward is sharded by columns too, but its dense support
+is not computed by columns: every rank forms the whole ``b + x @ w`` by
+the very call the single-device step makes (the state is replicated) and
+keeps its own columns, because cuBLAS sums a column block of a product in
+another order than the same columns of the whole product.  The per-HC
+softmax is block-local, and the exploration noise is drawn from the
 replicated generator at the full (B, Nj) shape and column-sliced, so a
 step reproduces the port's single-device ``unsupervised_layer_step`` /
-``supervised_readout_step`` bit for bit, provided each product's column
-block equals the same columns of the whole product (PERF.md and ROADMAP.md
-queue C record where cuBLAS breaks this on the card).
+``supervised_readout_step`` bit for bit, provided each trace product's
+column block equals the same columns of the whole product.
 
 Each rank runs these programs on its own process with the state
 replicated (every rank holds the same state and generator) and its block
@@ -42,7 +44,7 @@ import torch
 
 from ..core.bcpnn_layer import (Projection, ProjSpec, apply_dense_stats,
                                 is_compact, learn, learn_masked,
-                                masked_inputs, maybe_rewire)
+                                masked_inputs, maybe_rewire, support)
 from ..core.compact import (apply_compact_stats, compact_co_stats,
                             compact_support)
 from ..core.hypercolumns import LayerGeom, hc_softmax
@@ -71,17 +73,20 @@ def _cols(t: torch.Tensor, ax: DataAxis, width: int, dim: int
 def _support_cols(proj: Projection, pspec: ProjSpec, xf: torch.Tensor,
                   ax: DataAxis) -> torch.Tensor:
     """This rank's post-column block of the log-domain support, from the
-    FULL batch: the single-device support's columns, bit for bit where the
-    product is column-invariant."""
+    FULL batch: the single-device support's columns, bit for bit.  Dense:
+    the whole ``b + x @ w`` (every rank holds the whole ``w``), narrowed.
+    Compact: the block's own gather and product, which are
+    column-invariant."""
     if is_compact(pspec) and proj.table is not None:
         hj_l = pspec.post.H // ax.n
         return compact_support(
             xf, _cols(proj.w, ax, hj_l, 0),
             _cols(proj.b, ax, hj_l * pspec.post.M, 0),
             _cols(proj.table, ax, hj_l, 0), pspec.pre.M)
-    nj_l = pspec.post.N // ax.n
-    return _cols(proj.b, ax, nj_l, 0)[None, :] + xf @ _cols(proj.w, ax,
-                                                            nj_l, 1)
+    # The whole support by the single-device call, then this rank's
+    # columns: cuBLAS sums a column block of a product in another order
+    # than the same columns of the whole product.
+    return _cols(support(proj, pspec, xf), ax, pspec.post.N // ax.n, 1)
 
 
 def _softmax_cols(s_l: torch.Tensor, pspec: ProjSpec,

@@ -274,3 +274,31 @@ class DataAxis:
         """Wait for every rank of the axis (nothing without a group)."""
         if self.group is not None:
             _barrier(self.group)
+
+
+def join_torchrun(device: str = "cuda") -> torch.device:
+    """Join the default process group from ``torchrun``'s environment
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``_PORT``)
+    when the world holds more than one rank, and return this rank's
+    device: ``cuda:{LOCAL_RANK % cards}`` (set as the current card), or
+    the CPU when ``device`` is ``"cpu"``.  The backend is NCCL with one
+    rank a card, gloo on the CPU or with ranks sharing a card (NCCL
+    refuses those).  A world of one joins nothing."""
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist = torch.distributed
+    if world > 1 and not dist.is_initialized():
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        nccl = dev.type == "cuda" and per_host <= torch.cuda.device_count()
+        if dev.type == "cpu":
+            torch.set_num_threads(max(1, torch.get_num_threads()
+                                      // per_host))
+        dist.init_process_group("nccl" if nccl else "gloo",
+                                init_method="env://",
+                                device_id=dev if nccl else None)
+    return dev

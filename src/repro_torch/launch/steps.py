@@ -23,7 +23,8 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..convert import (ShapeDtype, leaf_spec, lm_cache_groups,
                        lm_leaf_groups, lm_leaf_specs)
-from ..distributed.sharding import named_sharding
+from ..distributed.sharding import (full_value, named_sharding,
+                                    placed_as, sharding_context)
 from ..models import lm
 from ..models.params import cache_shardings, param_shardings
 from ..optim import AdamWConfig, apply_updates, compress_grads
@@ -47,14 +48,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                           patches=batch.get("patches"),
                           frames=batch.get("frames"))
         got = iter(torch.autograd.grad(loss, flat))
-        grads = {k: [next(got) for _ in g] for k, g in groups.items()}
+        grads = {k: [placed_as(next(got), p) for p in g]
+                 for k, g in groups.items()}
         if compress:
             grads, opt_state["err"] = compress_grads(grads, opt_state["err"])
         _, new_opt = apply_updates(
             opt_cfg, groups, grads,
             {k: v for k, v in opt_state.items() if k != "err"})
         opt_state["step"] = new_opt["step"]
-        return loss.detach(), params, opt_state
+        return full_value(loss.detach()), params, opt_state
 
     return train_step
 
@@ -127,8 +129,10 @@ def abstract_opt_state(aparams) -> Dict[str, Any]:
 
 def abstract_cache(cfg: ModelConfig, batch: int,
                    seq_len: int) -> Dict[str, ShapeDtype]:
-    """``{path: ShapeDtype}`` of the decode cache in the JAX layout."""
-    cache = lm.init_cache(abstract_params(cfg), cfg, batch, seq_len)
+    """``{path: ShapeDtype}`` of the decode cache in the JAX layout (made
+    on the ``meta`` device outside any mesh: shapes only)."""
+    with sharding_context(None):
+        cache = lm.init_cache(abstract_params(cfg), cfg, batch, seq_len)
     return {path: leaf_spec(g)
             for path, g in lm_cache_groups(cache, cfg).items()}
 

@@ -14,7 +14,11 @@
 Scores, soft-cap, mask and softmax are fp32 (JAX forms the scores with
 ``preferred_element_type=float32``); the probabilities are cast to the
 compute dtype before the product with V.  Decode writes its cache in place
-at a slot computed on the device, so a step needs no host sync.
+at a slot computed on the device, so a step needs no host sync; on a split
+mesh the cache is a DTensor split over batch and kv_heads and each rank
+writes its own block (``write_``).  The products go through
+``distributed.sharding.linear``, and the attention itself runs on each
+rank's block of whole K/V groups (``per_rank``): its batch rows and heads.
 """
 from __future__ import annotations
 
@@ -22,10 +26,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard
-from .common import dense_init_, param, rms_norm, rope
+from ..distributed.sharding import gather_dims, linear, per_rank, shard, write_
+from .common import add_bias, dense_init_, param, rms_norm, rope
 
 # The canonical softmax-lane fill (the JAX package's ``kernels/tiling.py``):
 # exp(NEG - max) underflows to exactly 0.0.
@@ -78,14 +83,15 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     kv_x = x if kv_x is None else kv_x
     skv = kv_x.shape[1]
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p.wq
-    k = kv_x @ p.wk
-    v = kv_x @ p.wv
+    q = linear(x, p.wq)
+    k = linear(kv_x, p.wk)
+    v = linear(kv_x, p.wv)
     if p.bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, skv, hk, hd)
-    v = v.reshape(b, skv, hk, hd)
+        q, k, v = (add_bias(t, bias) for t, bias in ((q, p.bq), (k, p.bk),
+                                                    (v, p.bv)))
+    q = _heads(q, hq, hd)
+    k = _heads(k, hk, hd)
+    v = _heads(v, hk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps, plus_one=True)
         k = rms_norm(k, p.k_norm, cfg.norm_eps, plus_one=True)
@@ -93,6 +99,33 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     k = shard(k, "batch", "act_seq", "kv_heads", "head_dim")
     v = shard(v, "batch", "act_seq", "kv_heads", "head_dim")
     return q, k, v
+
+
+def _heads(t: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """(..., h * hd) -> (..., h, hd).  On a split mesh each rank reshapes
+    its block of whole heads (the split of the last dimension becomes the
+    split of the heads); a split that does not fall on whole heads is
+    gathered first."""
+    if not isinstance(t, DTensor):
+        return t.reshape(*t.shape[:-1], h, hd)
+    n = 1
+    for i, q in enumerate(t.placements):
+        if q.is_shard() and q.dim == t.dim() - 1:
+            n *= t.device_mesh.size(i)
+    if h % n:
+        t = gather_dims(t, -1)
+    return per_rank(lambda l: l.reshape(*l.shape[:-1], l.shape[-1] // hd,
+                                        hd), t)
+
+
+def _head_aligned(q: torch.Tensor, *kv: torch.Tensor):
+    """q and the K/V on one placement for a rank-local attention: where
+    the K/V heads stay whole (their count does not divide the axis), the
+    query heads are gathered whole too."""
+    if not isinstance(q, DTensor) or all(
+            tuple(t.placements) == tuple(q.placements) for t in kv):
+        return (q,) + kv
+    return (gather_dims(q, 2),) + kv
 
 
 def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -124,7 +157,14 @@ def _chunk_attend(q_chunk: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
                local: bool, cache_size: int) -> Dict[str, torch.Tensor]:
     """Lay prompt K/V (B,S,Hk,D) out in decode-cache format (flat or ring;
-    the ring holds position p at slot p mod its size)."""
+    the ring holds position p at slot p mod its size); on a split mesh on
+    each rank's block (only the sequence moves)."""
+    return per_rank(lambda k_, v_: _fill_cache(cfg, k_, v_, local,
+                                               cache_size), k, v)
+
+
+def _fill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                local: bool, cache_size: int) -> Dict[str, torch.Tensor]:
     b, s, hk, hd = k.shape
     use_ring = local and cfg.window > 0 and cache_size <= cfg.window
     if not use_ring:
@@ -154,15 +194,33 @@ def attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     (plus the roped (k, v) when return_kv, to prime the decode cache).
     """
     cfg_l = cfg if local else cfg.with_(window=0)
-    b, s, _ = x.shape
-    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = hq // hk
     q, k, v = _project_qkv(p, cfg_l, x, kv_x)
+    q, k, v = _head_aligned(q, k, v)
+    out, k, v = per_rank(
+        lambda q_, k_, v_: _attend_heads(q_, k_, v_, cfg, cfg_l, positions,
+                                         causal, kv_x is None, q_chunk),
+        q, k, v)
+    out = shard(linear(out, p.wo), "batch", "seq", "embed")
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _attend_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig, cfg_l: ModelConfig,
+                  positions: torch.Tensor, causal: bool, self_attn: bool,
+                  q_chunk: int):
+    """Attention of q (B, S, Hq', D) over k, v (B, Skv, Hk', D), the heads
+    a whole number of K/V groups (all of them on one rank, or a rank's
+    block): (out (B, S, Hq' * D), roped k, v)."""
+    b, s, hq, hd = q.shape
+    hk = k.shape[2]
+    g = hq // hk
     q = q.reshape(b, s, hk, g, hd)
     skv = k.shape[1]
-    kv_pos = positions if kv_x is None else torch.arange(
-        skv, dtype=torch.int32, device=x.device)
-    if cfg.rope_theta > 0 and kv_x is None:  # no rope on cross-attention
+    kv_pos = positions if self_attn else torch.arange(
+        skv, dtype=torch.int32, device=q.device)
+    if cfg.rope_theta > 0 and self_attn:  # no rope on cross-attention
         q = rope(q.reshape(b, s, hk * g, hd), positions[None],
                  cfg.rope_theta).reshape(b, s, hk, g, hd)
         k = rope(k, kv_pos[None], cfg.rope_theta)
@@ -178,11 +236,7 @@ def attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
             _chunk_attend(q[:, i * c:(i + 1) * c], k, v,
                           positions[i * c:(i + 1) * c], kv_pos, cfg_l, causal)
             for i in range(nchunk)], dim=1)
-    out = out.reshape(b, s, hq * hd) @ p.wo
-    out = shard(out, "batch", "seq", "embed")
-    if return_kv:
-        return out, (k, v)
-    return out
+    return out.reshape(b, s, hq * hd), k, v
 
 
 # ------------------------------------------------------------- decoding --
@@ -199,8 +253,8 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, local: bool,
 def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cfg: ModelConfig, dtype: torch.dtype,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B, Hk, G, D) against k, v (B, S, Hk, D) -> (B, 1, Hq*D)."""
-    b = q.shape[0]
+    """q (B, Hk, G, D) against k, v (B, S, Hk, D) -> (B, 1, Hk*G*D)."""
+    b, hk, g, hd = q.shape
     scores = torch.einsum("bhgd,bshd->bhgs", q.float(),
                           k.float()) * cfg.head_dim ** -0.5
     scores = _softcap(scores, cfg.attn_softcap)
@@ -208,7 +262,7 @@ def _attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores + torch.where(valid, 0.0, neg_fill(scores.dtype))
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v)
-    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return out.reshape(b, 1, hk * g * hd)
 
 
 def decode_attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -235,29 +289,49 @@ def decode_attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         return _attend_one(q[:, 0], k, v, cfg, x.dtype) @ p.wo, cache
 
     q, k_new, v_new = _project_qkv(p, cfg, x)
+    q, k_new, v_new = _head_aligned(q, k_new, v_new)
+    if isinstance(cache["k"], DTensor) and (
+            tuple(cache["k"].placements) != tuple(k_new.placements)):
+        raise ValueError(f"the decode cache is placed "
+                         f"{cache['k'].placements}, the new K/V "
+                         f"{k_new.placements}: the write would not be local")
+    size = cache["k"].shape[1]
+    ring = local and cfg.window > 0
+    out = per_rank(
+        lambda q_, k_, v_, ck, cv: _decode_heads(q_, k_, v_, ck, cv, cfg,
+                                                 pos, ring, x.dtype),
+        q, k_new, v_new, cache["k"], cache["v"])
+    shard(cache["k"], "batch", "cache_seq", "kv_heads", "head_dim")
+    shard(cache["v"], "batch", "cache_seq", "kv_heads", "head_dim")
+    return linear(out, p.wo), cache
+
+
+def _decode_heads(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                  cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  cfg: ModelConfig, pos: torch.Tensor, ring: bool,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One token's attention on a block of whole K/V groups: rope at
+    ``pos``, the new K/V written into the cache blocks in place (at ``pos
+    mod size`` on a ring, else ``pos`` clamped to the end, as
+    ``dynamic_update_slice`` clamps), then q against the cache."""
+    b, _, hq, hd = q.shape
+    hk = k_new.shape[2]
     if cfg.rope_theta > 0:
         posv = pos.reshape(1, 1).expand(b, 1)
         q = rope(q, posv, cfg.rope_theta)
         k_new = rope(k_new, posv, cfg.rope_theta)
-
-    size = cache["k"].shape[1]
-    ring = local and cfg.window > 0
+    size = cache_k.shape[1]
     slot = torch.remainder(pos, size) if ring else torch.clamp(pos, 0,
                                                                size - 1)
     slot = slot.reshape(1).long()
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
-    shard(cache["k"], "batch", "cache_seq", "kv_heads", "head_dim")
-    shard(cache["v"], "batch", "cache_seq", "kv_heads", "head_dim")
-
-    idx = torch.arange(size, dtype=torch.int32, device=x.device)
+    write_(cache_k, k_new, slot, dim=1)
+    write_(cache_v, v_new, slot, dim=1)
+    idx = torch.arange(size, dtype=torch.int32, device=q.device)
     if ring:
         # slot i holds absolute position p_i = pos - ((pos - i) mod size)
         p_i = pos - torch.remainder(pos - idx, size)
         valid = (p_i >= 0) & (p_i <= pos) & (p_i > pos - cfg.window)
     else:
         valid = idx <= pos
-
-    out = _attend_one(q.reshape(b, hk, g, hd), cache["k"], cache["v"], cfg,
-                      x.dtype, valid)
-    return out @ p.wo, cache
+    return _attend_one(q.reshape(b, hk, hq // hk, hd), cache_k, cache_v,
+                       cfg, dtype, valid)

@@ -11,8 +11,15 @@ built to train (``lm.init_params(..., train=True)``,
 ``convert.lm_params_from_numpy(..., train=True)``) turns them on.
 
 ``shard`` (``distributed/sharding.py``) stands where the JAX package
-constrains a tensor's sharding; without a sharding context it returns its
-argument at once.
+constrains a tensor's sharding; without a sharding context, or on a
+one-rank mesh, it returns its argument at once.  On a split mesh the
+parameters are ``DTensor``s (``params.distribute_params``), and each
+initialiser draws the whole leaf from the generator, as one rank does, and
+keeps this rank's block (``assign_``): the generator's stream and the
+model's numbers are the one-rank model's, and the peak is one full leaf.
+The products go through ``distributed.sharding.linear`` and the norms run
+on each rank's rows (``_per_row``), with placements chosen here rather
+than by DTensor's propagation, which differs between torch releases.
 
 The dtype choices are the JAX functions', op for op: statistics and rotary
 angles in fp32, everything else in the compute dtype.
@@ -27,7 +34,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import (assign_, gather_dims, linear,
+                                    local_operand, per_rank, shard)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -53,22 +63,47 @@ def dense_init_(p: torch.Tensor, gen: torch.Generator,
     std = 1.0 / math.sqrt(p.shape[in_axis])
     t = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
-    return p.copy_(t)
+    return assign_(p, t)
 
 
 @torch.no_grad()
 def embed_init_(p: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     t = torch.empty(p.shape, dtype=torch.float32, device=p.device)
     nn.init.trunc_normal_(t, 0.0, 0.02, -0.04, 0.04, generator=gen)
-    return p.copy_(t)
+    return assign_(p, t)
 
 
 # ----------------------------------------------------------------- norms --
+
+def _per_row(norm, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    """A norm over the last dimension: on a split mesh on each rank's rows,
+    the last dimension gathered whole first and the parameters whole."""
+    if not isinstance(x, DTensor):
+        return norm(x, *params)
+    x = gather_dims(x, -1)
+    local = [local_operand(p, x) for p in params]
+    return per_rank(lambda xl: norm(xl, *local), x)
+
+
+def add_bias(t: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``t + bias`` along the last dimension (on a split mesh each rank's
+    block of it)."""
+    if not isinstance(t, DTensor):
+        return t + bias
+    b_l = local_operand(bias, t, {t.dim() - 1: 0})
+    return per_rank(lambda t_: t_ + b_l, t)
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              plus_one: bool = False) -> torch.Tensor:
     """RMSNorm: the (..., 1) statistic in fp32, ``inv`` cast to the compute
     dtype, the products in the compute dtype (``common.py:28``)."""
+    return _per_row(lambda x_, s_: _rms_norm(x_, s_, eps, plus_one), x,
+                    scale)
+
+
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+              plus_one: bool) -> torch.Tensor:
     d = x.shape[-1]
     xf = x.float()
     var = torch.einsum("...d,...d->...", xf, xf)[..., None] / d
@@ -79,6 +114,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    return _per_row(lambda x_, s_, b_: _layer_norm(x_, s_, b_, eps), x,
+                    scale, bias)
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
     d = x.shape[-1]
     xf = x.float()
     mu = xf.sum(dim=-1, keepdim=True) / d
@@ -162,13 +203,13 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
     """x: (B, S, d)."""
-    h = x @ p.wi
+    h = linear(x, p.wi)
     h = shard(h, "batch", "act_seq", "ffn")
     if kind == "swiglu":
-        h = F.silu(x @ p.wg) * h
+        h = F.silu(linear(x, p.wg)) * h
     elif kind == "geglu":
-        h = gelu(x @ p.wg) * h
+        h = gelu(linear(x, p.wg)) * h
     else:
         h = gelu(h)
-    out = h @ p.wo
+    out = linear(h, p.wo)
     return shard(out, "batch", "seq", "embed")

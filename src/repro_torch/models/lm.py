@@ -35,18 +35,22 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, make_generator, resolve_device
-from ..distributed.sharding import shard
-from .attention import (Attention, attend, decode_attend, fill_cache,
-                        init_kv_cache)
+from ..distributed.sharding import (current_mesh, embedding, linear,
+                                    local_block, logsumexp_and_gold,
+                                    per_rank, place_like, reduce_over_splits,
+                                    shard, split_mesh)
+from .attention import (Attention, _head_aligned, _heads, attend,
+                        decode_attend, fill_cache, init_kv_cache)
 from .common import (MLP, Norm, compute_dtype, dense_init_, embed_init_,
                      mlp, param, rms_norm)
 from .moe import MoE, moe_ffn
+from .params import CACHE_DIMS, distribute_params
 from .recurrent import (RGLRU, Mamba, init_mamba_cache, init_rglru_cache,
                         mamba_decode, mamba_mixer, rglru_decode, rglru_mixer)
 
@@ -157,9 +161,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None, train: bool = False) -> LM:
     """Fresh parameters on ``device`` (the card unless ``"cpu"`` is asked
     for), every draw from one generator on that device seeded with
-    ``seed``; they require gradients only when built to ``train``."""
+    ``seed``; they require gradients only when built to ``train``.  On a
+    split mesh each parameter is a ``DTensor`` of this rank's block
+    (``params.distribute_params``), drawn whole leaf by leaf in the
+    one-rank order, so it holds the one-rank model's numbers."""
     dev = resolve_device(device)
-    params = LM(cfg, dev, train=train)
+    if split_mesh(current_mesh()):
+        params = LM(cfg, torch.device("meta"), train=train)
+        distribute_params(params, dev)
+    else:
+        params = LM(cfg, dev, train=train)
     params.reset_parameters(make_generator(seed, dev))
     return params
 
@@ -220,14 +231,21 @@ def _cross_attend(p: Attention, cfg: ModelConfig, h: torch.Tensor,
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = hq // hk
     k, v = cross_kv
-    q = (h @ p.wq).reshape(b, s, hk, g, hd)
+    q = _heads(linear(h, p.wq), hq, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps, plus_one=True)
-    scores = torch.einsum("bchgd,bshd->bhgcs", q.float(),
-                          k.float()) * hd ** -0.5
-    probs = torch.softmax(scores, dim=-1).to(h.dtype)
-    out = torch.einsum("bhgcs,bshd->bchgd", probs, v).reshape(b, s, hq * hd)
-    return out @ p.wo
+    q, k, v = _head_aligned(q, k, v)
+
+    def attend(q_, k_, v_):
+        b_, s_, hq_, _ = q_.shape
+        q5 = q_.reshape(b_, s_, k_.shape[2], hq_ // k_.shape[2], hd)
+        scores = torch.einsum("bchgd,bshd->bhgcs", q5.float(),
+                              k_.float()) * hd ** -0.5
+        probs = torch.softmax(scores, dim=-1).to(q_.dtype)
+        return torch.einsum("bhgcs,bshd->bchgd", probs, v_).reshape(
+            b_, s_, hq_ * hd)
+
+    return linear(per_rank(attend, q, k, v), p.wo)
 
 
 # ----------------------------------------------------------- embeddings --
@@ -240,7 +258,7 @@ def _bf_scalar(value: float, dtype: torch.dtype) -> float:
 
 def embed_tokens(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor]) -> torch.Tensor:
-    x = F.embedding(tokens, params.tok_embed).to(compute_dtype(cfg))
+    x = embedding(tokens, params.tok_embed).to(compute_dtype(cfg))
     if cfg.embed_scale:
         x = x * _bf_scalar(cfg.d_model ** 0.5, x.dtype)
     if patches is not None and cfg.vision_patches > 0:
@@ -263,10 +281,9 @@ def encode(params: LM, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
 
 def cross_kv_from_encoder(cfg: ModelConfig, enc_out: torch.Tensor,
                           block: Block) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, s, _ = enc_out.shape
     hk, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ block.cross.wk).reshape(b, s, hk, hd)
-    v = (enc_out @ block.cross.wv).reshape(b, s, hk, hd)
+    k = _heads(linear(enc_out, block.cross.wk), hk, hd)
+    v = _heads(linear(enc_out, block.cross.wv), hk, hd)
     return k, v
 
 
@@ -324,7 +341,7 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
 def logits_for(params: LM, cfg: ModelConfig,
                hidden: torch.Tensor) -> torch.Tensor:
     head = params.lm_head if hasattr(params, "lm_head") else params.tok_embed.T
-    logits = hidden @ head.to(hidden.dtype)
+    logits = linear(hidden, head.to(hidden.dtype))
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -342,7 +359,8 @@ def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     """
     hidden = forward(params, cfg, tokens, patches, frames)
     b, s, _ = hidden.shape
-    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], dim=1)
+    targets = per_rank(lambda t: torch.cat(
+        [t[:, 1:], t.new_zeros((t.shape[0], 1))], dim=1), tokens)
     mask = torch.cat([torch.ones((b, s - 1), dtype=torch.float32,
                                  device=tokens.device),
                       torch.zeros((b, 1), dtype=torch.float32,
@@ -350,15 +368,18 @@ def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     chunk = min(cfg.lmhead_chunk, s)
     if s % chunk != 0:
         chunk = s
+    # each rank's batch rows: vocab-parallel on a split mesh, the masked
+    # losses summed over the batch's ranks
+    mask_l = local_block(place_like(mask, ("batch", None)))
     losses = []
     for c0 in range(0, s, chunk):
         part = slice(c0, c0 + chunk)
-        logits = logits_for(params, cfg, hidden[:, part]).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            targets[:, part, None].long())[..., 0]
-        losses.append(((logz - gold) * mask[:, part]).sum())
-    return torch.stack(losses).sum() / torch.clamp_min(mask.sum(), 1.0)
+        logits = shard(logits_for(params, cfg, hidden[:, part]).float(),
+                       "batch", None, "vocab")
+        logz, gold = logsumexp_and_gold(logits, targets[:, part])
+        losses.append(((logz - gold) * mask_l[:, part]).sum())
+    total = reduce_over_splits(torch.stack(losses).sum(), targets)
+    return total / torch.clamp_min(mask.sum(), 1.0)
 
 
 # --------------------------------------------------------------- decode --
@@ -393,9 +414,28 @@ def init_cache(params: LM, cfg: ModelConfig, batch: int, seq_len: int,
         enc_out = (encode(params, cfg, frames) if frames is not None else
                    torch.zeros((batch, cfg.enc_seq, cfg.d_model), dtype=dtype,
                                device=dev))
-    return LMCache(layers=[cache_for(c) for c in layer_chars(cfg)],
-                   pos=torch.zeros((), dtype=torch.int32, device=dev),
-                   enc_out=enc_out)
+    return _placed_cache(LMCache(
+        layers=[cache_for(c) for c in layer_chars(cfg)],
+        pos=torch.zeros((), dtype=torch.int32, device=dev), enc_out=enc_out))
+
+
+def _placed_cache(cache: LMCache) -> LMCache:
+    """On a split mesh every cache leaf a DTensor placed by its
+    ``CACHE_DIMS`` (batch over the batch axes, heads and features over
+    ``model``), so decode's in-place writes are each rank's own; ``pos``
+    stays a plain 0-d tensor, the same on every rank."""
+    if not split_mesh(current_mesh()):
+        return cache
+
+    def put(name: str, t: torch.Tensor) -> torch.Tensor:
+        dims = CACHE_DIMS[name]
+        if isinstance(t, DTensor):
+            return shard(t, *dims)
+        return place_like(t, dims)
+
+    layers = [{k: put(k, t) for k, t in c.items()} for c in cache.layers]
+    enc = None if cache.enc_out is None else put("enc_out", cache.enc_out)
+    return LMCache(layers=layers, pos=cache.pos, enc_out=enc)
 
 
 def _decode_block(p: Block, cfg: ModelConfig, x: torch.Tensor, c: Cache,
@@ -454,4 +494,5 @@ def prefill(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     logits = logits_for(params, cfg, hidden[:, -1:])[:, 0]
     pos = torch.full((), tokens.shape[1], dtype=torch.int32,
                      device=tokens.device)
-    return logits, LMCache(layers=caches, pos=pos, enc_out=enc_out)
+    return logits, _placed_cache(LMCache(layers=caches, pos=pos,
+                                         enc_out=enc_out))

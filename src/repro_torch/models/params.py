@@ -9,12 +9,24 @@ sequence of keys; a leaf is anything with a ``shape`` in the JAX layout
 (stacked repeats included).  ``param_shardings`` and ``cache_shardings``
 give the port's ``NamedSharding`` of each leaf, keyed by path, or None
 outside a sharding context.
+
+The port holds one tensor a layer where JAX stacks the repeats of a
+scanned leaf, so a tensor's dims are its JAX leaf's with the leading
+stacking dimension dropped (``tensor_dims``): the same rule on the same
+sizes, so a tensor splits as its JAX leaf does.  On a split mesh
+``distribute_params`` makes every parameter of a ``meta``-device ``LM`` a
+``DTensor`` of this rank's (still empty) block; the initialisers and the
+conversions then fill the blocks leaf by leaf.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
-from ..distributed.sharding import NamedSharding, named_sharding
+import torch
+from torch import nn
+
+from ..distributed.sharding import (NamedSharding, current_mesh,
+                                    named_sharding, placements, split_mesh)
 
 Path = Union[str, Sequence[str]]
 
@@ -108,3 +120,39 @@ def cache_shardings(cache: Dict[str, Any]
     cache leaves (``launch.steps.abstract_cache``)."""
     return {path: named_sharding(cache_dims(path, leaf), leaf.shape)
             for path, leaf in cache.items()}
+
+
+def tensor_dims(path: Path, t: Any) -> Tuple:
+    """Logical dims of one port tensor of the JAX leaf at ``path`` (one
+    repeat of a stacked leaf: the leaf's dims without the stacking
+    dimension)."""
+    dims = leaf_dims(path, t)
+    return dims[len(dims) - len(t.shape):] if len(t.shape) else ()
+
+
+def distribute_params(params, device: torch.device) -> None:
+    """Make every parameter of ``params`` (an ``LM`` on the ``meta``
+    device) a ``DTensor`` on the context's split mesh, placed by its
+    leaf's rules (``tensor_dims``): an uninitialised block of this rank's
+    share on ``device``, nothing of the full leaf allocated."""
+    from torch.distributed.tensor import DTensor
+    from ..convert import lm_leaf_groups
+    mesh = current_mesh()
+    if not split_mesh(mesh):
+        raise ValueError("distribute_params needs a split mesh in the "
+                         "sharding context")
+    dmesh = mesh.device_mesh(device.type)
+    path_of = {id(t): path for path, group in lm_leaf_groups(params).items()
+               for t in group}
+    for module in params.modules():
+        for name, p in list(module._parameters.items()):
+            dims = tensor_dims(path_of[id(p)], p)
+            pl = placements(mesh, named_sharding(dims, p.shape).spec)
+            shape = list(p.shape)
+            for i, q in enumerate(pl):
+                if q.is_shard():
+                    shape[q.dim] //= dmesh.size(i)
+            local = torch.empty(shape, dtype=p.dtype, device=device)
+            module._parameters[name] = nn.Parameter(
+                DTensor.from_local(local, dmesh, pl, run_check=False),
+                requires_grad=p.requires_grad)

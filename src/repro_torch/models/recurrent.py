@@ -13,6 +13,11 @@ chunk boundaries.  The forward's arithmetic, element for element, is the
 plain scan's, and so are the gradients but ``A_log``'s: every step shares
 it, and its gradient sums chunk by chunk.  Decode updates its cache in
 place.
+
+On a split mesh the products go through ``distributed.sharding.linear``,
+and the convs, scans, gates and cache writes run on each rank's channels
+(``per_rank``; the channels split over the tensor-parallel axis), the
+per-step B and C of the SSM whole on every rank.
 """
 from __future__ import annotations
 
@@ -24,8 +29,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard
-from .common import dense_init_, gelu, param
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import (assign_, gather_dims, linear,
+                                    local_operand, per_rank, shard)
+from .common import add_bias, dense_init_, gelu, param
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -56,6 +64,47 @@ def _conv_state(x: torch.Tensor, k: int) -> torch.Tensor:
     return F.pad(x, (0, 0, k - s, 0))
 
 
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_causal_conv``; on a split mesh on each rank's channels."""
+    if not isinstance(x, DTensor):
+        return _causal_conv(x, w, b)
+    c = x.dim() - 1
+    w_l, b_l = local_operand(w, x, {c: 1}), local_operand(b, x, {c: 0})
+    return per_rank(lambda x_: _causal_conv(x_, w_l, b_l), x)
+
+
+def _conv_decode(x: torch.Tensor, window: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """One step of the causal conv: x (B, 1, C) against the cache's window
+    (B, K-1, C), which is moved on in place; (B, 1, C).  On a split mesh
+    each rank's channels, its block of the window written locally."""
+    if isinstance(x, DTensor):
+        w, b = local_operand(w, x, {2: 1}), local_operand(b, x, {2: 0})
+
+    def step(x_, win):
+        new, y = _conv_step(win, x_[:, 0], w, b)
+        win.copy_(new)
+        return y[:, None]
+
+    return per_rank(step, x, window)
+
+
+def _halves(t: torch.Tensor, *dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.chunk(t, 2, -1)``.  On a split mesh the rows of a split
+    last dimension do not fall on the halves: it is gathered whole, cut,
+    and each half placed by logical ``dims`` again."""
+    if not isinstance(t, DTensor):
+        return torch.chunk(t, 2, dim=-1)
+    t = gather_dims(t, -1)
+    first, second = per_rank(lambda t_: tuple(torch.chunk(t_, 2, dim=-1)), t)
+    return shard(first, *dims), shard(second, *dims)
+
+
+def _state_of(t: torch.Tensor) -> torch.Tensor:
+    """A cache leaf's block on this rank (the leaf itself when whole)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 # ------------------------------------------------------------- mamba-1 --
 
 class Mamba(nn.Module):
@@ -83,20 +132,35 @@ class Mamba(nn.Module):
         self.dt_bias.fill_(-4.6)  # softplus^-1(0.01)
         n = self.A_log.shape[1]
         # S4D-real A initialization: A_n = -(n+1)
-        self.A_log.copy_(torch.log(torch.arange(
+        assign_(self.A_log, torch.log(torch.arange(
             1, n + 1, dtype=torch.float32, device=self.A_log.device)
-        )[None].expand_as(self.A_log))
+        )[None].expand(self.A_log.shape))
         self.D.fill_(1.0)
 
 
 def _mamba_coeffs(p: Mamba, cfg: ModelConfig, xc: torch.Tensor):
     """xc: (..., di) post-conv activations -> per-step SSM coefficients."""
     n, r = cfg.ssm_state, cfg.dt_rank_eff
-    proj = xc @ p.x_proj                               # (..., R+2N)
-    dt_low, bc = proj[..., :r], proj[..., r:]
-    b_in, c_out = bc[..., :n], bc[..., n:]
-    dt = F.softplus(dt_low @ p.dt_w + p.dt_bias)
+    # (..., R+2N), whole on every rank: a split contraction is summed
+    proj = gather_dims(linear(xc, p.x_proj), -1)
+    dt_low, b_in, c_out = per_rank(
+        lambda t: (t[..., :r], t[..., r:r + n], t[..., r + n:]), proj)
+    dt = F.softplus(add_bias(linear(dt_low, p.dt_w), p.dt_bias))
     return dt.float(), b_in.float(), c_out.float()
+
+
+def _ssm_operands(p: Mamba, xc: torch.Tensor, b_in: torch.Tensor,
+                  c_out: torch.Tensor):
+    """(A, B, C, D) as they meet xc's block: A and D by channel, B and C
+    (shared by every channel) whole on each rank's rows."""
+    a = -torch.exp(p.A_log)                            # (di, N)
+    if not isinstance(xc, DTensor):
+        return a, b_in, c_out, p.D
+    c = xc.dim() - 1
+    return (local_operand(a, xc, {c: 0}),
+            local_operand(b_in, xc, {0: 0, 1: 1}),
+            local_operand(c_out, xc, {0: 0, 1: 1}),
+            local_operand(p.D, xc, {c: 0}))
 
 
 def _mamba_scan(h: torch.Tensor, a: torch.Tensor, xc: torch.Tensor,
@@ -114,17 +178,36 @@ def _mamba_scan(h: torch.Tensor, a: torch.Tensor, xc: torch.Tensor,
 
 def mamba_mixer(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False):
-    """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d)."""
-    b, s, _ = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
-    xz = x @ p.in_proj
+    """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d).  On a
+    split mesh the conv, the scan and the gates run on each rank's
+    channels."""
+    xz = linear(x, p.in_proj)
     xz = shard(xz, "batch", "act_seq", "tp")
-    x_br, z = torch.chunk(xz, 2, dim=-1)
-    xc = F.silu(_causal_conv(x_br, p.conv_w, p.conv_b))
-    a = -torch.exp(p.A_log)                            # (di, N)
+    x_br, z = _halves(xz, "batch", "act_seq", "tp")
+    xc = F.silu(_conv(x_br, p.conv_w, p.conv_b))
     dt, b_in, c_out = _mamba_coeffs(p, cfg, xc)
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    ck = cfg.ssm_chunk
+    a, b_in, c_out, d_skip = _ssm_operands(p, xc, b_in, c_out)
+    # the carry (B, di, N) holds the channels in dimension 1
+    y, h = per_rank(
+        lambda xc_, dt_, z_: _mamba_channels(a, xc_, dt_, b_in, c_out,
+                                             d_skip, z_, cfg.ssm_chunk,
+                                             x.dtype), xc, dt, z,
+        remap={1: {2: 1}})
+    out = shard(linear(y, p.out_proj), "batch", "seq", "embed")
+    if return_state:
+        k = cfg.d_conv - 1
+        return out, {"conv": per_rank(lambda t: _conv_state(t, k), x_br),
+                     "ssm": h}
+    return out
+
+
+def _mamba_channels(a, xc, dt, b_in, c_out, d_skip, z, ck: int,
+                    dtype: torch.dtype):
+    """The scan from a zero carry, the D skip and the z gate over a block
+    of channels: (y (B, S, di') in ``dtype``, last carry (B, di', N))."""
+    b, s, di = xc.shape
+    h = torch.zeros((b, di, a.shape[1]), dtype=torch.float32,
+                    device=xc.device)
     if ck > 1 and s % ck == 0 and torch.is_grad_enabled():
         ys = []
         for c0 in range(0, s, ck):  # one rematerialised chunk at a time
@@ -136,13 +219,10 @@ def mamba_mixer(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
         y = torch.cat(ys, dim=1)
     else:
         h, y = _mamba_scan(h, a, xc, dt, b_in, c_out)
-    y = y.to(x.dtype)                                  # (B, S, di)
-    y = y + xc * p.D.to(x.dtype)
+    y = y.to(dtype)                                    # (B, S, di)
+    y = y + xc * d_skip.to(dtype)
     y = y * F.silu(z)
-    out = shard(y @ p.out_proj, "batch", "seq", "embed")
-    if return_state:
-        return out, {"conv": _conv_state(x_br, cfg.d_conv - 1), "ssm": h}
-    return out
+    return y, h
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -158,23 +238,27 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 def mamba_decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: (B, 1, d) -> (B, 1, d); the cache is updated in place."""
-    xz = x[:, 0] @ p.in_proj
-    x_br, z = torch.chunk(xz, 2, dim=-1)
-    conv_state, xc = _conv_step(cache["conv"], x_br, p.conv_w, p.conv_b)
-    xc = F.silu(xc)
+    """x: (B, 1, d) -> (B, 1, d); the cache is updated in place (on a split
+    mesh each rank's block)."""
+    xz = linear(x, p.in_proj)
+    x_br, z = _halves(xz, "batch", "act_seq", "tp")
+    xc = F.silu(_conv_decode(x_br, cache["conv"], p.conv_w, p.conv_b))
     dt, b_in, c_out = _mamba_coeffs(p, cfg, xc)
-    a = -torch.exp(p.A_log)
-    da = torch.exp(dt[..., None] * a)
-    dbx = (dt * xc.float())[..., None] * b_in[:, None, :]
-    h = da * cache["ssm"] + dbx
-    y = torch.einsum("bdn,bn->bd", h, c_out).to(x.dtype)
-    y = y + xc * p.D.to(x.dtype)
-    y = y * F.silu(z)
-    out = (y @ p.out_proj)[:, None]
-    cache["conv"].copy_(conv_state)
-    cache["ssm"].copy_(h)
-    return out, cache
+    a, b_in, c_out, d_skip = _ssm_operands(p, xc, b_in, c_out)
+    ssm = _state_of(cache["ssm"])
+
+    def step(xc_, dt_, z_):
+        x1, d1 = xc_[:, 0], dt_[:, 0]
+        da = torch.exp(d1[..., None] * a)
+        dbx = (d1 * x1.float())[..., None] * b_in[:, 0, None, :]
+        h = da * ssm + dbx
+        y = torch.einsum("bdn,bn->bd", h, c_out[:, 0]).to(x.dtype)
+        y = y + x1 * d_skip.to(x.dtype)
+        y = y * F.silu(z_[:, 0])
+        ssm.copy_(h)
+        return y[:, None]
+
+    return linear(per_rank(step, xc, dt, z), p.out_proj), cache
 
 
 # -------------------------------------------------------------- rg-lru --
@@ -209,36 +293,60 @@ class RGLRU(nn.Module):
         u = torch.empty(self.Lambda.shape, dtype=torch.float32,
                         device=self.Lambda.device)
         u.uniform_(0.9, 0.999, generator=gen)
-        self.Lambda.copy_(torch.log(torch.expm1(-torch.log(u) / _LRU_C)))
+        assign_(self.Lambda, torch.log(torch.expm1(-torch.log(u) / _LRU_C)))
 
 
 def _rglru_gates(p: RGLRU, xc: torch.Tensor):
-    r = torch.sigmoid((xc @ p.w_r).float() + p.b_r)
-    i = torch.sigmoid((xc @ p.w_i).float() + p.b_i)
-    log_a = -_LRU_C * F.softplus(p.Lambda) * r
-    a = torch.exp(log_a)
-    beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9))
-    return a, beta, i
+    """(a, beta, i) of the recurrence at xc (..., W); on a split mesh on
+    each rank's channels."""
+    r_lin, i_lin = linear(xc, p.w_r), linear(xc, p.w_i)
+    b_r, b_i, lam = p.b_r, p.b_i, p.Lambda
+    if isinstance(r_lin, DTensor):
+        c = r_lin.dim() - 1
+        b_r, b_i, lam = (local_operand(t, r_lin, {c: 0})
+                         for t in (b_r, b_i, lam))
+
+    def gates(r_, i_):
+        r = torch.sigmoid(r_.float() + b_r)
+        i = torch.sigmoid(i_.float() + b_i)
+        log_a = -_LRU_C * F.softplus(lam) * r
+        a = torch.exp(log_a)
+        beta = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-9))
+        return a, beta, i
+
+    return per_rank(gates, r_lin, i_lin)
+
+
+def _rglru_scan(a: torch.Tensor, beta: torch.Tensor, i: torch.Tensor,
+                xc: torch.Tensor, dtype: torch.dtype):
+    """The recurrence from a zero carry over (B, S, W'): (the carries in
+    ``dtype``, the last carry (B, W') fp32)."""
+    drive = beta * i * xc.float()
+    b, s, w = xc.shape
+    h = torch.zeros((b, w), dtype=torch.float32, device=xc.device)
+    hs = []
+    for t in range(s):
+        h = a[:, t] * h + drive[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(dtype), h          # (B, S, W)
 
 
 def rglru_mixer(p: RGLRU, cfg: ModelConfig, x: torch.Tensor,
                 return_state: bool = False):
     """Full-sequence RG-LRU block.  x: (B, S, d) -> (B, S, d)."""
-    gate = gelu(x @ p.w_gate)
-    xr = shard(x @ p.w_in, "batch", "act_seq", "tp")
-    xc = _causal_conv(xr, p.conv_w, p.conv_b)
+    gate = gelu(linear(x, p.w_gate))
+    xr = shard(linear(x, p.w_in), "batch", "act_seq", "tp")
+    xc = _conv(xr, p.conv_w, p.conv_b)
     a, beta, i = _rglru_gates(p, xc)
-    drive = beta * i * xc.float()
-    b, s, w = xc.shape
-    h = torch.zeros((b, w), dtype=torch.float32, device=x.device)
-    hs = []
-    for t in range(s):
-        h = a[:, t] * h + drive[:, t]
-        hs.append(h)
-    hseq = torch.stack(hs, dim=1).to(x.dtype)          # (B, S, W)
-    out = shard((hseq * gate) @ p.w_out, "batch", "seq", "embed")
+    # the carry (B, W) holds the channels in dimension 1
+    hseq, h = per_rank(lambda a_, b_, i_, x_: _rglru_scan(a_, b_, i_, x_,
+                                                          x.dtype),
+                       a, beta, i, xc, remap={1: {2: 1}})
+    out = shard(linear(hseq * gate, p.w_out), "batch", "seq", "embed")
     if return_state:
-        return out, {"conv": _conv_state(xr, cfg.d_conv - 1), "state": h}
+        k = cfg.d_conv - 1
+        return out, {"conv": per_rank(lambda t: _conv_state(t, k), xr),
+                     "state": h}
     return out
 
 
@@ -255,12 +363,17 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 def rglru_decode(p: RGLRU, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    gate = gelu(x[:, 0] @ p.w_gate)
-    xr = x[:, 0] @ p.w_in
-    conv_state, xc = _conv_step(cache["conv"], xr, p.conv_w, p.conv_b)
+    """x: (B, 1, d) -> (B, 1, d); the cache is updated in place (on a split
+    mesh each rank's block)."""
+    gate = gelu(linear(x, p.w_gate))
+    xc = _conv_decode(linear(x, p.w_in), cache["conv"], p.conv_w, p.conv_b)
     a, beta, i = _rglru_gates(p, xc)
-    h = a * cache["state"] + beta * i * xc.float()
-    out = ((h.to(x.dtype) * gate) @ p.w_out)[:, None]
-    cache["conv"].copy_(conv_state)
-    cache["state"].copy_(h)
-    return out, cache
+    state = _state_of(cache["state"])
+
+    def step(a_, b_, i_, x_):
+        h = a_[:, 0] * state + b_[:, 0] * i_[:, 0] * x_[:, 0].float()
+        state.copy_(h)
+        return h.to(x.dtype)[:, None]
+
+    h = per_rank(step, a, beta, i, xc)
+    return linear(h * gate, p.w_out), cache

@@ -17,6 +17,12 @@ fp32; each update is made in fp32 and cast back to the parameter's dtype
 (bf16 rounds to nearest even); the moments are fp32.  ``apply_updates``
 writes the parameters and the moments in place (JAX donates them) and
 reads nothing back to the host.
+
+On a split mesh parameters, gradients and moments are DTensors of one
+placement a leaf (the gradients brought to their parameters' placements by
+the train step), so every update is local to each rank's block; only the
+global norm crosses ranks.  Decay still follows the JAX leaf's rank
+(``_jax_ndim``: a DTensor's ``dim()`` is the whole tensor's).
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from ..distributed.sharding import reduce_over_splits, settled
 
 Tree = Dict[str, List[torch.Tensor]]
 
@@ -55,9 +63,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params: Tree) -> dict:
-    """fp32 zero moments shaped as ``params``, and ``step`` 0 (int32)."""
+    """fp32 zero moments shaped and placed as ``params`` (a DTensor
+    parameter's moments are DTensors of its placements: the ZeRO
+    partitioning of the optimizer state), and ``step`` 0 (int32)."""
     def zeros(group):
-        return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return [torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
                 for p in group]
 
     dev = next(iter(params.values()))[0].device
@@ -68,12 +79,31 @@ def init_opt_state(params: Tree) -> dict:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, leaf by leaf in
-    the tree's order (a stacked leaf's repeats summed in turn)."""
+    the tree's order (a stacked leaf's repeats summed in turn).  DTensor
+    leaves (a ``Partial`` one, an autograd gradient, reduced first) add
+    their local blocks' squares per placement (each class of
+    leaves a ``Partial`` over the axes that split it), and each class is
+    reduced to one replicated scalar, the classes summed in the order
+    they first appear: the norm of the whole tree on every rank."""
+    from torch.distributed.tensor import DTensor
     total = None
+    partial: Dict[tuple, list] = {}
     for group in tree.values():
         for x in group:
+            if isinstance(x, DTensor):
+                x = settled(x)
+                sq = torch.sum(torch.square(x.to_local().float()))
+                key = tuple(x.placements)
+                if key in partial:
+                    partial[key][0] = partial[key][0] + sq
+                else:
+                    partial[key] = [sq, x]
+                continue
             sq = torch.sum(torch.square(x.float()))
             total = sq if total is None else total + sq
+    for local, ref in partial.values():
+        sq = reduce_over_splits(local, ref)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 

@@ -20,6 +20,11 @@ The arithmetic is the JAX function's as XLA compiles it, bit for bit:
   rounded once.  The port forms it in fp64, where the product (8 by 24
   bits) and the difference (of two numbers within a few binades of each
   other, or one of them 0) are exact, and rounds once to fp32.
+
+On a split mesh the gradients and the error are DTensors: the scale is the
+max over every rank's block of every repeat (a max is exact, so it is the
+one-rank scale), and the rest is elementwise on each rank's block, so
+split gradients compress to the one-rank result bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import reduce_over_splits, settled
 
 Tree = Dict[str, List[torch.Tensor]]
 
@@ -38,11 +45,23 @@ def quantize(parts: List[torch.Tensor]
              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """int8 codes of each part of one JAX leaf and the leaf's 0-d fp32
     scale."""
-    amax = torch.stack([torch.amax(torch.abs(g)) for g in parts]).amax()
+    amax = torch.stack([_amax(g) for g in parts]).amax()
     scale = torch.clamp_min(amax, 1e-12) * _INV_127
     q = [torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
          for g in parts]
     return q, scale
+
+
+def _amax(g: torch.Tensor) -> torch.Tensor:
+    """max |g| over the whole tensor: a DTensor's local max, then the max
+    over the ranks that split it (exact, so the same bits as one rank's),
+    a plain 0-d tensor."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(g, DTensor):
+        g = settled(g)
+        return reduce_over_splits(torch.amax(torch.abs(g.to_local())), g,
+                                  "max")
+    return torch.amax(torch.abs(g))
 
 
 def dequantize(q: List[torch.Tensor], scale: torch.Tensor
@@ -51,7 +70,8 @@ def dequantize(q: List[torch.Tensor], scale: torch.Tensor
 
 
 def init_error_state(params: Tree) -> Tree:
-    return {k: [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {k: [torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
                 for p in g] for k, g in params.items()}
 
 

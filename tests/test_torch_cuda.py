@@ -1900,3 +1900,48 @@ def test_compress_grads_on_card_is_bitwise_the_cpu(gen):
         for k in want:
             for a, b in zip(got[k], want[k]):
                 assert torch.equal(a.cpu(), b), k
+
+
+# ------------------------------------------------------ split meshes --
+
+# The split paths the card's phase 13 does not take: the MoE dispatch, the
+# selective scan, the RG-LRU, whisper's encoder and cross-attention, the
+# vision patches.
+SPLIT_CARD_ARCHS = ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                    "recurrentgemma-2b", "whisper-tiny", "internvl2-26b"]
+
+
+@pytest.fixture(scope="module")
+def split_card():
+    """Every split job of the tests below, in one group of four rank
+    processes sharing the card over gloo (``tests/torch_mesh_ranks.py``):
+    rank 0's results by architecture, and ``"compress"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the split steps run on the card")
+    import torch_mesh_ranks as R
+    from repro_torch.distributed import run_group
+    jobs = ([("train_step", (2, 2), {"arch": a, "tree": R.port_tree(a)})
+             for a in SPLIT_CARD_ARCHS] + [("compress", (2, 2), {})])
+    out = run_group(R.run, 4, backend="gloo", device="cuda", args=(jobs,),
+                    timeout_s=600)[0]
+    return dict(zip(SPLIT_CARD_ARCHS + ["compress"], out))
+
+
+@pytest.mark.parametrize("arch", SPLIT_CARD_ARCHS)
+def test_split_train_step_on_the_card_matches_one_rank(split_card, arch):
+    """A smoke architecture split over (data 2, model 2) against the
+    one-rank step on the card from the same parameters (``moe_groups`` = 2
+    for the MoE), at ``test_torch_mesh_train.py``'s tolerances with the
+    card's gradient tolerance, 1e-4 of each leaf's largest (PERF.md
+    section 2): the loss, the gradients and their global norm, ``mu`` and
+    ``nu``, and each parameter's change (``torch_mesh_ranks.hold_step``);
+    the split model drawn by ``init_params`` bit for bit."""
+    import torch_mesh_ranks as R
+    R.check_split_step(split_card[arch], arch, 1e-4)
+
+
+def test_compress_grads_on_split_card_tensors_is_bitwise(split_card):
+    """``compress_grads`` on gradients split over (data 2, model 2) on the
+    card against the one-rank call on the card, 3 steps carrying the
+    error: bit for bit."""
+    assert split_card["compress"]["bitwise"]

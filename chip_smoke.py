@@ -12,7 +12,11 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      the main path (the update kernels also on a padded tail batch, and
      the resident-trace ones at a = 1, a fit's first step, where pij' is
      the product itself; patchy_update's silent entries held bit for bit)
-     and one ragged shape, with its time
+     and one ragged shape, and at batch 64 at Table-1 Models 2 and 3's
+     (``m2-*``/``m3-*`` rows: 1568 -> 32x256, 8192 -> 1x2 and 8192 ->
+     32x128 for the dense kernels, with 36- and 34-row tails for the
+     update; nact 128 of 784 and of 4096 pre-HCs for the gathered ones),
+     each with its time
      (CUDA-graph replay of 20 launches, median of 10), the plain version's
      time, one PyTorch library call's time where one computes the same
      function, and the least time the card could take (``bound_ms``).
@@ -130,9 +134,7 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      DP-fitted state evaluated through the kernels at the single-device
      state's accuracy; walls, images/s, and a DP step's collectives
      against the rest (processes sharing one card: the protocol, not
-     scaling); the 4-rank unsupervised DP step's wall with the support
-     formed whole against the parent's column-block support, in turns.
-     Its last check, ``python -m repro_torch.launch.train_dp
+     scaling).  Its last check, ``python -m repro_torch.launch.train_dp
      --smoke --device cuda`` in a process of its own (log
      ``chiprun_out/train_dp_smoke.log``), runs beside phase 7's pytest
      process; its lines follow phase 7's.
@@ -187,6 +189,26 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      the saved arrays; split prefill (4 x 32) and 16 greedy decode steps
      against one rank (logits at 4 % of the largest, differing tokens
      counted).
+  14. (``[phase14]`` lines, after phase 10) Table-1 Models 2 and 3 and
+     their -struct presets as published, on ``make_synthetic`` surrogates
+     with the datasets' shapes (pneumonia 4708 / 624 rows of 28 x 28,
+     breast 546 / 156 of 64 x 64, 2 classes, seed 0): each fitted by
+     ``Trainer.fit`` at its paper epochs (20; 100) and batch 64, then
+     evaluated (batch 64, 52 for breast), with its launches and rewires
+     (every 16 and every 8 steps) as predicted, the graphed fit equal to
+     the eager loop bit for bit, test accuracy at least the JAX
+     reference's less 0.03 (``JAX_TABLE1_TEST_ACC``); kernel against plain
+     single steps from one state (the noisy unsupervised step, the
+     readout step, the eval step over the padded tail; the -struct
+     presets also in layouts (b) and (c)) within 1e-4; the int8 hidden
+     forward against the exact integer accumulators; int8 and bf16 test
+     accuracy within phase 6's gate, launches as predicted; replayed
+     steps across rewires, int8 packing and serving with no device
+     synchronisation.  Phase 4 times their replayed steps.  ``python -m
+     repro_torch.examples.medical``, ``.quickstart`` and
+     ``.structural_plasticity`` run on the card in processes of their own
+     beside phase 7 (logs ``chiprun_out/<name>.log``); their assertions
+     must hold, and their lines follow phase 7's.
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
      process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
      (each run under its own name); any failure fails the run.
@@ -374,7 +396,9 @@ def kernel_cases(torch, gen):
     for label, b, h, m in (("hidden", 128, 32, 128), ("readout", 128, 1, 10),
                            ("ragged", 37, 3, 10), ("narrow", 128, 64, 2),
                            ("head", 128, 16, 64),
-                           ("head-readout", 128, 1, 10)):
+                           ("head-readout", 128, 1, 10),
+                           ("m2-hidden", 64, 32, 256),
+                           ("m2-readout", 64, 1, 2)):
         s = randn(b, h * m) * 4
         lib = (lambda s=s, b=b, h=h, m=m:
                torch.softmax(s.view(b, h, m), dim=-1))
@@ -386,7 +410,10 @@ def kernel_cases(torch, gen):
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
                                  ("readout", 128, 4096, 1, 10),
                                  ("ragged", 37, 1000, 3, 10),
-                                 ("head", 128, 2048, 16, 64)):
+                                 ("head", 128, 2048, 16, 64),
+                                 ("m2-hidden", 64, 1568, 32, 256),
+                                 ("m2-readout", 64, 8192, 1, 2),
+                                 ("m3-hidden", 64, 8192, 32, 128)):
         x, w, bias = rand(b, ni), randn(ni, hj * mj) * 0.1, randn(hj * mj)
         nj = hj * mj
         add("bcpnn_fwd", label,
@@ -408,7 +435,12 @@ def kernel_cases(torch, gen):
             ("tail", 128, 104, 784, 2, 32, 128, 2e-3),
             ("ragged", 37, None, 500, 2, 3, 10, 2e-3),
             ("head", 128, None, 1024, 2, 16, 64, 1e-2),
-            ("head-readout", 128, None, 16, 64, 1, 10, 1e-2)):
+            ("head-readout", 128, None, 16, 64, 1, 10, 1e-2),
+            ("m2-hidden", 64, None, 784, 2, 32, 256, 2e-3),
+            ("m2-tail", 64, 36, 784, 2, 32, 256, 2e-3),
+            ("m2-readout", 64, None, 32, 256, 1, 2, 2e-3),
+            ("m3-hidden", 64, None, 4096, 2, 32, 128, 2e-3),
+            ("m3-tail", 64, 34, 4096, 2, 32, 128, 2e-3)):
         ni, nj = hi * mi, hj * mj
         pij = rand(ni, nj) * 0.01 + 1e-5
         lpi = torch.log(rand(ni) * 0.5 + 1e-4)
@@ -460,7 +492,9 @@ def kernel_cases(torch, gen):
     for label, b, n, hi, mi, hj, mj, nact in (
             ("struct", 128, None, 784, 2, 32, 128, 128),
             ("tail", 128, 104, 784, 2, 32, 128, 128),
-            ("ragged", 37, None, 13, 3, 3, 10, 4)):
+            ("ragged", 37, None, 13, 3, 3, 10, 4),
+            ("m2-struct", 64, None, 784, 2, 32, 256, 128),
+            ("m3-struct", 64, None, 4096, 2, 32, 128, 128)):
         ni, nj, k = hi * mi, hj * mj, nact * mi
         hc_mask = topk_mask(rand(hi, hj), nact)
         table = build_table(hc_mask, nact)
@@ -560,13 +594,15 @@ def kernel_cases(torch, gen):
     # few tens.
     for label, b, ni, hj, mj in (("hidden", 128, 1568, 32, 128),
                                  ("ragged", 37, 1000, 3, 10),
-                                 ("k8192", 128, 8192, 4, 128)):
+                                 ("k8192", 128, 8192, 4, 128),
+                                 ("m2-hidden", 64, 1568, 32, 256),
+                                 ("m3-hidden", 64, 8192, 32, 128)):
         nj = hj * mj
         w_q, bias, scale = codes(ni, nj), randn(nj), rand(hj) * 0.02 + 1e-3
-        if label == "hidden":
-            x = rand(b, ni)
-        elif label == "ragged":
+        if label == "ragged":
             x = rand(b, ni) * 1.2 - 0.1
+        elif label != "k8192":
+            x = rand(b, ni)
         else:
             x = torch.ones((b, ni), device=dev, dtype=f32)
             flip = rand(ni, nj) < torch.linspace(0.0, 0.05, nj, device=dev)
@@ -582,11 +618,13 @@ def kernel_cases(torch, gen):
             note=quant_note(x, w_q, hj, mj))
     for label, b, hi, mi, hj, mj, nact in (
             ("struct", 128, 784, 2, 32, 128, 128),
-            ("ragged", 37, 13, 3, 3, 10, 4)):
+            ("ragged", 37, 13, 3, 3, 10, 4),
+            ("m2-struct", 64, 784, 2, 32, 256, 128),
+            ("m3-struct", 64, 4096, 2, 32, 128, 128)):
         ni, nj, k = hi * mi, hj * mj, nact * mi
         live = hj * k * mj
         table = build_table(topk_mask(rand(hi, hj), nact), nact)
-        x = rand(b, ni) if label == "struct" else rand(b, ni) * 1.2 - 0.1
+        x = rand(b, ni) * 1.2 - 0.1 if label == "ragged" else rand(b, ni)
         w_q, w_c = codes(ni, nj), codes(hj, k, mj)
         bias, scale = randn(nj), rand(hj) * 0.02 + 1e-3
         for name, w, kern, plain in (
@@ -990,7 +1028,8 @@ def state_identity(torch, a, b):
     return worst, len(ta), same
 
 
-def graphed_vs_eager(torch, label, tr, stats, cfg, xtr, ytr, xte, yte):
+def graphed_vs_eager(torch, label, tr, stats, cfg, xtr, ytr, xte, yte,
+                     epochs=5, batch=128, eval_batch=128):
     """A graphed fit (``tr``, fitted by ``Trainer.fit``) against the eager
     loop of the same steps from the same seed: the same state bit for bit,
     masks and tables equal, and ``evaluate`` through ``eval_batches``
@@ -998,10 +1037,10 @@ def graphed_vs_eager(torch, label, tr, stats, cfg, xtr, ytr, xte, yte):
     are left as they were."""
     from repro_torch.kernels import ops
     counts = ops.launch_counts()
-    state, unsup_s, sup_s = eager_fit(torch, cfg, xtr, ytr)
+    state, unsup_s, sup_s = eager_fit(torch, cfg, xtr, ytr, epochs, batch)
     worst, n, same = state_identity(torch, tr.state, state)
-    acc_g = tr.evaluate(xte, yte)
-    acc_e = eager_accuracy(torch, state, tr.spec, xte, yte)
+    acc_g = tr.evaluate(xte, yte, batch=eval_batch)
+    acc_e = eager_accuracy(torch, state, tr.spec, xte, yte, eval_batch)
     ops.set_launch_counts(counts)
     print(f"{label} graphed vs eager fit: unsup_s {stats['unsup_s']:.4f} "
           f"vs {unsup_s:.4f}, sup_s {stats['sup_s']:.4f} vs {sup_s:.4f}; "
@@ -1190,7 +1229,7 @@ def struct_cfg(variant):
     return dataclasses.replace(MODEL1_MNIST_STRUCT, **STRUCT_VARIANTS[variant])
 
 
-def check_masks(tr, mask0, version0, variant):
+def check_masks(tr, mask0, version0, variant, rewires=STRUCT_REWIRES):
     """Exactly nact live pre-HCs per post-HC, a state that passes the
     deployment guard, and evidence that the rewires ran: the fit's epoch
     programs donate the state, so each rewire writes its mask into the
@@ -1205,12 +1244,11 @@ def check_masks(tr, mask0, version0, variant):
     moved = int((proj.mask != mask0).sum().item()) // 2
     check(proj.traces.t_host == int(proj.traces.t.item()),
           f"({variant}) host clock {proj.traces.t_host} != device clock")
-    rewires = proj.mask._version - version0
-    check(rewires == STRUCT_REWIRES, f"({variant}) the mask was written by "
-                                     f"{rewires} rewires, not "
-                                     f"{STRUCT_REWIRES}")
+    writes = proj.mask._version - version0
+    check(writes == rewires, f"({variant}) the mask was written by "
+                             f"{writes} rewires, not {rewires}")
     if variant != "c":
-        check(moved > 0, f"({variant}) 10 rewires moved no pre-HC")
+        check(moved > 0, f"({variant}) {rewires} rewires moved no pre-HC")
     return moved
 
 
@@ -1467,7 +1505,8 @@ SERVE_KERNELS = {
 }
 
 
-def phase6_accuracy(torch, trainers, xte, yte):
+def phase6_accuracy(torch, trainers, xte, yte, batch=128,
+                    kernels=SERVE_KERNELS, tag="[phase6]"):
     """Each fitted state evaluated on the test rows in fp32, then in int8
     and bf16 with the launch counts set to 0 just before and read just
     after: accuracy within the gate, and exactly one forward-kernel and one
@@ -1475,20 +1514,20 @@ def phase6_accuracy(torch, trainers, xte, yte):
     as in the reference)."""
     from repro_torch.core import evaluate_padded
     from repro_torch.kernels import ops
-    batches = -(-len(xte) // 128)
+    batches = -(-len(xte) // batch)
     runs = {}
     for run, tr in trainers.items():
-        acc32 = tr.evaluate(xte, yte)
+        acc32 = tr.evaluate(xte, yte, batch=batch)
         line = [f"fp32 {acc32:.4f}"]
         for dtype in ("int8", "bf16"):
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             acc = evaluate_padded(tr.state, tr.spec.with_infer_dtype(dtype),
-                                  xte, yte)
+                                  xte, yte, batch)
             torch.cuda.synchronize()
             got = ops.launch_counts()
             want = {name: 0 for name in got}
-            want[SERVE_KERNELS[run][dtype]] = batches
+            want[kernels[run][dtype]] = batches
             want["hc_softmax"] = batches
             check(got == want, f"({run}, {dtype}) evaluation launched {got}, "
                                f"predicted {want}")
@@ -1499,7 +1538,7 @@ def phase6_accuracy(torch, trainers, xte, yte):
                   f"{MAX_QUANT_ACC_DELTA_PP} pp)")
             line.append(f"{dtype} {acc:.4f} ({(acc - acc32) * 100:+.2f} pp)")
             runs[f"{run}_{dtype}"] = got
-        print(f"[phase6] ({run}) test accuracy on {len(xte)} rows: "
+        print(f"{tag} ({run}) test accuracy on {len(xte)} rows: "
               + ", ".join(line) + f"; launches as predicted ({batches} "
               f"batches)", flush=True)
     return runs
@@ -2431,10 +2470,9 @@ def _phase10_rank(rank, device, root):
     once the launcher's processes are gone, so the timed fits have the card
     and the host to themselves), then: Model 1's and (c)'s DP fits and the
     Model-1 fit killed after its 2nd chunk on ranks 0 and 1 (a group of
-    their own); Model 1's DP fit on all four; the 4-rank unsupervised
-    step's wall with the support formed whole and as column blocks
-    (``dp_step_walls``); Model 1's resume from a copy of the killed fit's
-    checkpoints on rank 0 alone, over a group of one on NCCL.  Rank 0 returns the snapshots, every rank their
+    their own); Model 1's DP fit on all four; Model 1's resume from a
+    copy of the killed fit's checkpoints on rank 0 alone, over a group of
+    one on NCCL.  Rank 0 returns the snapshots, every rank their
     digests."""
     import torch
     import torch.distributed as dist
@@ -2496,62 +2534,12 @@ def _phase10_rank(rank, device, root):
             out["killed_at"] = seen[-1].to_dict()
     dist.barrier()
     fit("model1_4", cfgs["model1"], mesh4)
-    out["step_walls"] = dp_step_walls(torch, spec, unsup4, x0, device)
     if rank == 0:  # on a copy: the parent's single steps read kill_dir
         import shutil
         resume_dir = shutil.copytree(kill_dir, os.path.join(root, "resume"))
         fit("resumed_1", cfgs["model1"], mesh1, seed=1, ckpt_dir=resume_dir,
             ckpt_every_batches=DP_CKPT_EVERY, resume=True)
     return out
-
-
-def _column_block_support(proj, pspec, xf, ax):
-    """The DP support as PR 22 formed it, for the timing alone: each rank
-    multiplies its own column block, ``b[blk] + x @ w[:, blk]`` (which
-    cuBLAS sums in another order than the whole product at 1024 of 4096
-    columns)."""
-    from repro_torch.core.bcpnn_layer import is_compact
-    from repro_torch.distributed import data_parallel as dp
-    if is_compact(pspec) and proj.table is not None:
-        return DP_SUPPORT_NOW(proj, pspec, xf, ax)
-    nj_l = pspec.post.N // ax.n
-    return (dp._cols(proj.b, ax, nj_l, 0)[None, :]
-            + xf @ dp._cols(proj.w, ax, nj_l, 1))
-
-
-DP_SUPPORT_NOW = None
-DP_WALL_STEPS = 20
-
-
-def dp_step_walls(torch, spec, step, x0, device):
-    """Wall of Model 1's 4-rank unsupervised DP step (mean of 20, after 2
-    untimed), the support formed whole and narrowed (this tree) and, for
-    comparison in the same run, as column blocks (the parent's
-    ``_support_cols``): {"whole": s, "blocks": s}."""
-    global DP_SUPPORT_NOW
-    import torch.distributed as dist
-    from repro_torch.core import init_deep
-    from repro_torch.distributed import data_parallel as dp
-    DP_SUPPORT_NOW = dp._support_cols
-    walls = {}
-    try:
-        for name, form in (("whole", DP_SUPPORT_NOW),
-                           ("blocks", _column_block_support),
-                           ("whole_again", DP_SUPPORT_NOW)):
-            dp._support_cols = form
-            st = init_deep(spec, 0, device)
-            for _ in range(2):
-                st = step(st, x0)
-            dist.barrier()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(DP_WALL_STEPS):
-                st = step(st, x0)
-            torch.cuda.synchronize()
-            walls[name] = (time.perf_counter() - t0) / DP_WALL_STEPS
-    finally:
-        dp._support_cols = DP_SUPPORT_NOW
-    return walls
 
 
 def phase10_reference(torch, cfgs, x, y):
@@ -2764,14 +2752,6 @@ def phase10_report(torch, got, ref, xte, yte, smi):
                               f"the single-device {acc_ref}")
         check(same, f"phase 10 {label}: the DP fit parts from the "
                     f"single-device fit (max abs diff {worst:.3e})")
-    w = got["step_walls"]
-    print(f"[phase10] Model 1, 4 ranks: unsupervised DP step wall "
-          f"{w['whole'] * 1e3:.3f} ms with the support formed whole and "
-          f"narrowed (this tree; again {w['whole_again'] * 1e3:.3f} ms), "
-          f"{w['blocks'] * 1e3:.3f} ms with the parent's column-block "
-          f"support: {(w['whole'] - w['blocks']) * 1e3:+.3f} ms "
-          f"({(w['whole'] / w['blocks'] - 1) * 100:+.2f} %; mean of "
-          f"{DP_WALL_STEPS} steps each, rank 0; {smi})", flush=True)
 
 
 # -------------------------------------------------------------- phase 11 --
@@ -3822,6 +3802,343 @@ def phase13(torch, smi, device="cuda", small=False):
                             f"of the largest")
 
 
+# -------------------------------------------------------------- phase 14 --
+
+# The four Table-1 presets no earlier phase runs, as published (layout
+# (a)): Model 2 (pneumonia, 784x2 -> 32x256 -> 2, 20 epochs), Model 3
+# (breast, 4096x2 -> 32x128 -> 2, 100 epochs) and their -struct variants
+# (nact 128, a rewire every 16 and every 8 steps).
+TABLE1_PRESETS = ("model2-pneumonia", "model3-breast",
+                  "model2-pneumonia-struct", "model3-breast-struct")
+# (train rows, test rows, side) of ``load_or_synthesize``'s table; the data
+# is ``make_synthetic(train, test, side, 2, seed=0)``.
+TABLE1_DATA = {"pneumonia": (4708, 624, 28), "breast": (546, 156, 64)}
+TABLE1_BATCH = 64
+# The JAX medical example's evaluation batch.
+TABLE1_EVAL_BATCH = {"pneumonia": 64, "breast": 52}
+# Test accuracy of the JAX package's own fits (jnp backend, on the CPU;
+# the same data, seed and protocol), printed by ``python
+# tests/test_torch_table1.py --reference-accuracy``; the port's fit must
+# reach it less ACC_SLACK.
+JAX_TABLE1_TEST_ACC = {"model2-pneumonia": 1.0, "model3-breast": 0.8462,
+                       "model2-pneumonia-struct": 0.9936,
+                       "model3-breast-struct": 0.8974}
+# Launches of one fit and the evaluation of its train and test rows,
+# predicted from the protocol.  Model 2: 4708 rows are 73 batches of 64
+# and a 36-row tail, 74 steps an epoch: 1480 unsupervised steps (an update
+# and an hc_softmax each), 74 readout steps (a hidden forward and an update
+# each), evaluation of 74 + 10 batches (624 = 9 x 64 + 48; a hidden
+# forward and the readout's hc_softmax each).  Model 3: 546 rows are 8
+# batches and a 34-row tail, 9 steps: 900 unsupervised steps, 9 readout
+# steps, evaluation at batch 52 of 11 + 3 batches.  The -struct presets in
+# layout (a) take the patchy forward where the others take the dense one;
+# their unsupervised support is a plain masked product, as Model 1-struct's.
+TABLE1_LAUNCHES = {
+    "model2-pneumonia": {"bcpnn_fwd": 158, "bcpnn_update": 1554,
+                         "hc_softmax": 1564},
+    "model3-breast": {"bcpnn_fwd": 23, "bcpnn_update": 909,
+                      "hc_softmax": 914},
+    "model2-pneumonia-struct": {"patchy_forward": 158, "bcpnn_update": 1554,
+                                "hc_softmax": 1564},
+    "model3-breast-struct": {"patchy_forward": 23, "bcpnn_update": 909,
+                             "hc_softmax": 914},
+}
+# Rewires in one fit: at every multiple of struct_every of the trace clock,
+# 1480 // 16 and 900 // 8.
+TABLE1_REWIRES = {"model2-pneumonia-struct": 92, "model3-breast-struct": 112}
+# Replayed unsupervised steps of the no-sync check: past two rewires of
+# Model 3-struct and one of Model 2-struct.
+TABLE1_NO_SYNC_STEPS = 20
+# int8 accumulator and rates tolerance of phase 1's int8 rows.
+QUANT_TOL = 1e-6
+
+
+def table1_data():
+    """{dataset: (x_train, y_train, x_test, y_test)}, encoded."""
+    from repro_torch.data.synthetic import encode_images, make_synthetic
+    data = {}
+    for dataset, (n_train, n_test, side) in TABLE1_DATA.items():
+        ds = make_synthetic(n_train, n_test, side, 2, seed=0)
+        data[dataset] = (encode_images(ds.x_train), ds.y_train,
+                         encode_images(ds.x_test), ds.y_test)
+    return data
+
+
+def table1_fit(torch, name, data):
+    """The preset's fit at its paper epochs and batch 64 through
+    ``Trainer``, then ``evaluate`` of its train and test rows: launches and
+    rewires as predicted, the graphed fit equal to the eager loop, test
+    accuracy at least the JAX reference's less ACC_SLACK.  Returns the
+    trainer and the launches."""
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    from repro_torch.core import Trainer
+    from repro_torch.kernels import ops
+    cfg, dataset, epochs = BCPNN_MODELS[name]
+    xtr, ytr, xte, yte = data[dataset]
+    eb = TABLE1_EVAL_BATCH[dataset]
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    tr = Trainer(cfg, seed=0, device="cuda")
+    mask0 = tr.state.projs[0].mask.clone()
+    version0 = tr.state.projs[0].mask._version
+    stats = tr.fit(xtr, ytr, epochs=epochs, batch=TABLE1_BATCH)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t
+    acc_train = tr.evaluate(xtr, ytr, batch=eb)
+    acc_test = tr.evaluate(xte, yte, batch=eb)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    moved = ""
+    if name in TABLE1_REWIRES:
+        n = check_masks(tr, mask0, version0, name, TABLE1_REWIRES[name])
+        moved = f"; {TABLE1_REWIRES[name]} rewires moved {n} pre-HCs"
+    print(f"[phase14] {name}: {epochs} epochs at batch {TABLE1_BATCH} over "
+          f"{len(xtr)} rows (the paper's), unsup_s {stats['unsup_s']:.4f}  "
+          f"sup_s {stats['sup_s']:.4f}  train_ms_per_img "
+          f"{stats['train_ms_per_img']:.6f}  (fit {t_fit:.3f} s incl. "
+          f"init); accuracy train {acc_train:.4f} test {acc_test:.4f} "
+          f"(evaluation batch {eb}){moved}; launches {json.dumps(got)}",
+          flush=True)
+    want = {k: TABLE1_LAUNCHES[name].get(k, 0) for k in got}
+    check(got == want, f"{name}: launches {got}, predicted {want}")
+    graphed_vs_eager(torch, f"[phase14] {name}", tr, stats, cfg, xtr, ytr,
+                     xte, yte, epochs=epochs, batch=TABLE1_BATCH,
+                     eval_batch=eb)
+    floor = JAX_TABLE1_TEST_ACC[name] - ACC_SLACK
+    check(acc_test >= floor, f"{name} test accuracy {acc_test:.4f} < "
+                             f"{floor:.4f} (JAX reference "
+                             f"{JAX_TABLE1_TEST_ACC[name]} less {ACC_SLACK})")
+    return tr, got
+
+
+def table1_single_steps(torch, name, tr, data):
+    """Kernel backend against plain from one state: the noisy unsupervised
+    step (the same noise injected) and the readout step on a whole batch of
+    64, and the eval step over the dataset's padded tail, every state
+    array within 1e-4 and the served probabilities within 1e-4 with equal
+    predictions.  The fitted state in layout (a); for the -struct presets
+    also fresh states in layouts (b) and (c)."""
+    import dataclasses
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    from repro_torch.core import Trainer
+    from repro_torch.core.network import (infer, supervised_readout_step,
+                                          train_projection_step)
+    cfg, dataset, _ = BCPNN_MODELS[name]
+    xtr, ytr, _, _ = data[dataset]
+    dev, b = "cuda", TABLE1_BATCH
+    tail = len(xtr) % b
+    x = torch.from_numpy(xtr[:b]).to(dev)
+    y = torch.from_numpy(ytr[:b]).to(dev)
+    xt = torch.zeros_like(x)
+    xt[:tail] = x[:tail]
+    valid = (torch.arange(b, device=dev) < tail).to(torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    layouts = [("a", tr.spec, tr.state)]
+    if name in TABLE1_REWIRES:
+        for v in ("b", "c"):
+            fresh = Trainer(dataclasses.replace(cfg, **STRUCT_VARIANTS[v]),
+                            seed=0, device=dev)
+            layouts.append((v, fresh.spec, fresh.state))
+    for v, spec, state in layouts:
+        plain = spec.with_backend("torch")
+        noise = torch.randn((b, spec.projs[0].post.N), generator=gen,
+                            device=dev)
+        d_unsup = state_diff(
+            train_projection_step(state, spec, x, 0, noise=noise),
+            train_projection_step(state, plain, x, 0, noise=noise))
+        d_read = state_diff(supervised_readout_step(state, spec, x, y),
+                            supervised_readout_step(state, plain, x, y))
+        pk, qk = infer(state, spec, xt, valid)
+        pp, qp = infer(state, plain, xt, valid)
+        d_eval = (pk - pp).abs().max().item()
+        same = torch.equal(qk, qp)
+        print(f"[phase14] {name} ({v}{', fitted' if v == 'a' else ', fresh'}"
+              f") kernel vs plain: noisy unsupervised step {d_unsup:.3e}, "
+              f"readout step {d_read:.3e} (state max abs diff), eval step "
+              f"over the {tail}-row tail {d_eval:.3e} (probabilities), "
+              f"predictions {'equal' if same else 'DIFFER'}", flush=True)
+        check(max(d_unsup, d_read, d_eval) <= 1e-4 and same,
+              f"{name} ({v}): kernel and plain single steps differ "
+              f"({d_unsup:.3e}, {d_read:.3e}, {d_eval:.3e}, predictions "
+              f"equal: {same})")
+
+
+def table1_int8_oracle(torch, name, tr, data):
+    """The fitted state's int8 hidden forward (``quant_fwd``, or the
+    patchy one for -struct) on 64 test rows against the exact integer
+    accumulators: ``torch._int_mm`` of the Q0.7 codes and the weight codes
+    in int32 (no sum can overflow: |acc| <= Ni * 127**2 < 2**31), widened
+    to int64 (and on 8 rows of the first post-HC equal to numpy's int64
+    product), then the plain epilogue; rates within QUANT_TOL.  (Not an
+    fp32 product, which rounds sums past 2**24.)"""
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    from repro_torch.core.bcpnn_layer import packed_forward
+    from repro_torch.core.compact import gather_dense, unit_indices
+    from repro_torch.core.network import pack_state
+    from repro_torch.kernels import quantize_acts, ref
+    _, dataset, _ = BCPNN_MODELS[name]
+    spec = tr.spec.with_infer_dtype("int8")
+    ps = spec.projs[0]
+    pack = pack_state(tr.state, spec).projs[0]
+    x = torch.from_numpy(data[dataset][2][:TABLE1_BATCH]).cuda()
+    got = packed_forward(pack, ps, x)
+    xq = quantize_acts(x).to(torch.int8)
+    hj, mj = ps.post.H, ps.post.M
+    if pack.table is None:
+        acc = torch._int_mm(xq, pack.w).to(torch.int64)
+        acc = acc.view(len(x), hj, mj)
+    else:  # each post-HC's live rows of x and of the codes
+        ui = unit_indices(pack.table, ps.pre.M, sentinel=x.shape[1])
+        w_c = gather_dense(pack.w, ui, hj, mj)
+        acc = torch.stack([torch._int_mm(xq[:, ui[j].long()].contiguous(),
+                                         w_c[j].contiguous())
+                           for j in range(hj)], 1).to(torch.int64)
+    # numpy's int64 product on 8 rows of the first post-HC's live inputs
+    live = (np.arange(x.shape[1]) if pack.table is None
+            else ui[0].long().cpu().numpy())
+    x64 = xq[:8].cpu().numpy().astype(np.int64)[:, live]
+    w64 = pack.w.cpu().numpy().astype(np.int64)[live, :mj]
+    check(np.array_equal(acc[:8, 0].cpu().numpy(), x64 @ w64),
+          f"{name}: torch._int_mm's accumulators differ from numpy's int64")
+    want = ref._quant_rates(acc.to(torch.float64), pack.scale, pack.b, hj,
+                            mj, ps.gain)
+    err = (got - want).abs().max().item()
+    print(f"[phase14] {name} int8 hidden forward (Ni {ps.pre.N}) on 64 "
+          f"test rows against the exact integer accumulators (largest "
+          f"|acc| {acc.abs().max().item()}): max abs err {err:.3e}",
+          flush=True)
+    check(err <= QUANT_TOL, f"{name}: int8 forward {err:.3e} from the "
+                            f"integer oracle")
+
+
+def table1_no_sync(torch, name, data):
+    """The epoch programs' captured steps of a fresh state, captured at
+    their first batch, then replayed with any implicit device
+    synchronisation an error: TABLE1_NO_SYNC_STEPS unsupervised steps
+    (across one rewire of Model 2-struct, two of Model 3-struct), two
+    readout steps and two eval batches; then int8 ``pack_state`` and three
+    ``infer_packed`` calls the same way."""
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    from repro_torch.core import Trainer
+    from repro_torch.core.network import infer_packed, pack_state
+    cfg, dataset, _ = BCPNN_MODELS[name]
+    xtr, ytr, _, _ = data[dataset]
+    b, n = TABLE1_BATCH, TABLE1_NO_SYNC_STEPS
+    fresh = Trainer(cfg, seed=1, device="cuda")
+    rows = np.arange(b * n) % len(xtr)  # breast has 546 rows: they repeat
+    xs = torch.from_numpy(xtr[rows]).cuda().view(n, b, -1)
+    ys = torch.from_numpy(ytr[rows]).cuda().view(n, b)
+    valid = torch.ones((2, b), device="cuda")
+    unsup, sup, ev = fresh._unsup_fn(0, False), fresh._sup_fn(False), \
+        fresh._eval_fn()
+    fresh.state = unsup(fresh.state, xs[:1])
+    fresh.state = sup(fresh.state, xs[:1], ys[:1])
+    ev(fresh.state, xs[:1], ys[:1], valid[:1])
+    mask = fresh.state.projs[0].mask.clone()
+    version = fresh.state.projs[0].mask._version
+    spec8 = fresh.spec.with_infer_dtype("int8")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fresh.state = unsup(fresh.state, xs[1:])
+        fresh.state = sup(fresh.state, xs[:2], ys[:2])
+        acc = ev(fresh.state, xs[:2], ys[:2], valid)
+        params = pack_state(fresh.state, spec8)
+        for _ in range(3):
+            infer_packed(params, spec8, xs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    proj = fresh.state.projs[0]
+    check(proj.traces.t_host == n == int(proj.traces.t.item()),
+          f"{name}: clock mirror {proj.traces.t_host} after {n} steps")
+    check(0.0 <= float(acc) <= 1.0, f"{name}: eval replay gave {acc}")
+    rewires = proj.mask._version - version
+    every = cfg.struct_every
+    want = n // every if every else 0
+    check(rewires == want, f"{name}: {rewires} rewires in {n} replayed "
+                           f"steps, predicted {want}")
+    return rewires, int((proj.mask != mask).sum().item()) // 2
+
+
+def table1_step_fns(torch, name, tr, data):
+    """Phase 4's rows of a fitted preset: its unsupervised step, readout
+    step and eval batch at batch 64 as the epoch programs run them."""
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    _, dataset, _ = BCPNN_MODELS[name]
+    xtr, ytr, _, _ = data[dataset]
+    x = torch.from_numpy(xtr[:TABLE1_BATCH]).cuda()
+    y = torch.from_numpy(ytr[:TABLE1_BATCH]).cuda()
+    return {f"{name} graphed {k}": fn for k, fn in
+            graphed_steps(torch, tr.state, tr.spec, x, y).items()}
+
+
+def phase14(torch):
+    """Table-1 Models 2 and 3 and their -struct presets (``[phase14]``
+    lines).  Returns the launches by run (the kernels line's ``runs``) and
+    phase 4's step functions."""
+    from repro_torch.configs.bcpnn_models import BCPNN_MODELS
+    t = time.perf_counter()
+    data = table1_data()
+    print(f"[phase14] data: " + ", ".join(
+        f"{k} {v[0].shape} + {v[2].shape}" for k, v in data.items())
+        + f" in {time.perf_counter() - t:.2f} s", flush=True)
+    runs, steps = {}, {}
+    for name in TABLE1_PRESETS:
+        tr, launches = table1_fit(torch, name, data)
+        # the preset's key in the kernels line's "runs": model2_struct, ...
+        tag = name.split("-")[0] + ("_struct" if name in TABLE1_REWIRES
+                                    else "")
+        runs[tag] = launches
+        table1_single_steps(torch, name, tr, data)
+        table1_int8_oracle(torch, name, tr, data)
+        dataset = BCPNN_MODELS[name][1]
+        fwd = "patchy_forward" if name in TABLE1_REWIRES else "bcpnn_fwd"
+        q = "quant_patchy_forward" if name in TABLE1_REWIRES else "quant_fwd"
+        runs.update(phase6_accuracy(
+            torch, {tag: tr}, *data[dataset][2:],
+            batch=TABLE1_EVAL_BATCH[dataset],
+            kernels={tag: {"int8": q, "bf16": fwd}}, tag="[phase14]"))
+        rewires, moved = table1_no_sync(torch, name, data)
+        print(f"[phase14] {name}: {TABLE1_NO_SYNC_STEPS - 1} replayed "
+              f"unsupervised steps ({rewires} rewires, {moved} pre-HCs "
+              f"moved), two readout steps, two eval batches, int8 "
+              f"pack_state and 3 infer_packed ran with no device "
+              f"synchronisation", flush=True)
+        if name in ("model2-pneumonia", "model3-breast"):
+            steps.update(table1_step_fns(torch, name, tr, data))
+    print(f"[phase14] done in {time.perf_counter() - t:.1f} s", flush=True)
+    return runs, steps
+
+
+EXAMPLES = (("repro_torch.examples.medical", "[medical]"),
+            ("repro_torch.examples.quickstart", "[quickstart]"),
+            ("repro_torch.examples.structural_plasticity", "[struct]"))
+
+
+def examples_start():
+    """Phase 14's last check, started before phase 7 to run beside its
+    pytest process: the three examples on the card at their defaults, each
+    in a process of its own, their logs kept."""
+    return [start_module([module, "--device", "cuda"],
+                         f"{module.rsplit('.', 1)[1]}.log")
+            for module, _ in EXAMPLES]
+
+
+def examples_finish(started):
+    for (proc, log, t), (module, prefix) in zip(started, EXAMPLES):
+        rc = proc.wait(timeout=600)
+        lines = log.read_text().strip().splitlines()
+        for line in lines:
+            if line.startswith(prefix):
+                print(f"[phase14] {line}", flush=True)
+        print(f"[phase14] {module}: rc {rc} in {time.perf_counter() - t:.1f}"
+              f" s, beside phase 7 (log {log.relative_to(ROOT)})",
+              flush=True)
+        check(rc == 0, f"{module} failed: {lines[-1:] or ['(no output)']}")
+
+
 def phase7():
     """The ``gpu`` tests in their own pytest process, the log written under
     a name no other run takes; a failing test fails the run."""
@@ -3849,7 +4166,7 @@ def phase7():
 WALL_WINDOWS = 5
 
 
-def phase4(torch, tr, tr_b, tr_c, xte, yte, served):
+def phase4(torch, tr, tr_b, tr_c, xte, yte, more):
     """Time, then trace, 20 steps of each main-path step type on the
     fitted dense Model-1 state, of (b)'s unsupervised step (one
     ``patchy_update`` launch each) and eval batch (one ``patchy_forward``),
@@ -3862,9 +4179,10 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte, served):
     Last, for Model 1, (b) and (c): the eval program's step run eagerly
     (``eager_eval_step``), then the unsupervised step, readout step and
     eval batch as the epoch programs run them (``graphed_steps``, on
-    copies of the fitted states).  The trace slows the host, so the idle
-    share divides the traced device-busy time by the untraced wall time
-    (the median of ``WALL_WINDOWS`` windows)."""
+    copies of the fitted states), and the rows of ``more``: phase 8's
+    served batches and phase 14's Model-2 and Model-3 steps.  The trace
+    slows the host, so the idle share divides the traced device-busy time
+    by the untraced wall time (the median of ``WALL_WINDOWS`` windows)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.network import (infer, infer_packed, pack_state,
                                           supervised_readout_step,
@@ -3904,7 +4222,9 @@ def phase4(torch, tr, tr_b, tr_c, xte, yte, served):
         steps[f"{label}eval_step"] = eager_eval_step(torch, st, sp, x, y)
         for name, fn in graphed_steps(torch, st, sp, x, y).items():
             steps[f"{label}graphed {name}"] = fn
-    steps.update(served)  # phase 8's served batches at bucket 64
+    # phase 8's served batches at bucket 64; phase 14's Model-2 and Model-3
+    # steps as the epoch programs run them
+    steps.update(more)
     n = 20
     for name, fn in steps.items():
         for _ in range(3):
@@ -4024,7 +4344,9 @@ def main() -> int:
     stream_launches, served = phase8(torch, tr, fitted, data)
     stream_launches.update(phase9(torch, tr, fitted, data))
     phase10(torch, data)
-    phase4(torch, tr, fitted["b"], fitted["c"], xte, yte, served)
+    table1_runs, table1_steps = phase14(torch)
+    phase4(torch, tr, fitted["b"], fitted["c"], xte, yte,
+           {**served, **table1_steps})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4037,9 +4359,11 @@ def main() -> int:
     try:
         resume = phase12_resume()
         started += phase11_start()
+        started += examples_start()
         phase7()
         launcher_finish(started[0])
-        phase11_finish(started[1:])
+        phase11_finish(started[1:3])
+        examples_finish(started[3:])
         phase12_resume_finish(resume)
     finally:
         for proc, _, _ in started:  # nothing left running, whatever failed
@@ -4057,7 +4381,8 @@ def main() -> int:
     # the state that runs them; every run's counts are under "runs".
     runs = {"model1": launches, **{f"struct_{v}": c
                                    for v, c in struct_launches.items()},
-            **serve_launches, **stream_launches, **head_launches}
+            **serve_launches, **stream_launches, **head_launches,
+            **table1_runs}
     main_run = {"patchy_forward": "struct_b", "patchy_update": "struct_b",
                 "compact_forward": "struct_c", "compact_update": "struct_c",
                 "quant_fwd": "model1_int8",

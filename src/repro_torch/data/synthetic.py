@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -69,8 +70,17 @@ def make_synthetic(
     return Dataset(xtr, ytr, xte, yte)
 
 
+def surrogate_seed(name: str) -> int:
+    """The surrogate's seed, the same in every process: a CRC-32 of the
+    name.  The reference seeds with ``hash(name)``, which
+    ``PYTHONHASHSEED`` randomises per process, so its surrogate, and every
+    accuracy measured on it, changes from run to run."""
+    return zlib.crc32(name.encode()) % 2**31
+
+
 def load_or_synthesize(name: str, path_hint: str = "data") -> Dataset:
-    """Load real data if an .npz is present, else synthesize paper shapes."""
+    """Load real data if an .npz is present, else synthesize paper shapes
+    (seeded by ``surrogate_seed``, unlike the reference)."""
     spec = {
         # name: (train, test, side, classes)  — paper Table 1
         "mnist": (60000, 10000, 28, 10),
@@ -85,7 +95,8 @@ def load_or_synthesize(name: str, path_hint: str = "data") -> Dataset:
             z["x_test"].astype(np.float32), z["y_test"].astype(np.int32),
         )
     n_train, n_test, side, ncls = spec
-    return make_synthetic(n_train, n_test, side, ncls, seed=hash(name) % 2**31)
+    return make_synthetic(n_train, n_test, side, ncls,
+                          seed=surrogate_seed(name))
 
 
 def encode_images(x: np.ndarray) -> np.ndarray:

@@ -36,8 +36,16 @@ def _randn(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
+# Table-1 Models 2 and 3 (pneumonia, breast) at their fit's batch of 64,
+# (B, Ni, Hj, Mj): the hidden layers 1568 -> 32x256 and 8192 -> 32x128 and
+# Model 2's 2-class readout (the -struct presets in PATCHY_SHAPES).
+M2_HIDDEN, M2_READOUT, M3_HIDDEN = (64, 1568, 32, 256), (64, 8192, 1, 2), \
+    (64, 8192, 32, 128)
+
+
 # (B, H, M): sub-warp segments in registers up to M=256, a loop beyond
 @pytest.mark.parametrize("b,h,m", [(1, 1, 2), (37, 3, 10), (128, 32, 128),
+                                   (64, 32, 256), (64, 1, 2),
                                    (5, 2, 256), (3, 4, 300)])
 def test_hc_softmax_kernel(gen, b, h, m):
     s = _randn(gen, b, h * m) * 4
@@ -114,7 +122,8 @@ def test_hc_softmax_kernel_non_finite_and_pads(gen, b, h, m):
 @pytest.mark.parametrize("b,ni,hj,mj", [(1, 7, 1, 2), (37, 1000, 3, 10),
                                         (33, 100, 5, 20), (64, 257, 4, 40),
                                         (128, 1568, 32, 128),
-                                        (40, 300, 2, 256)])
+                                        (40, 300, 2, 256), M2_HIDDEN,
+                                        M2_READOUT, M3_HIDDEN])
 def test_bcpnn_fwd_kernel(gen, b, ni, hj, mj):
     x = _rand(gen, b, ni)
     w = _randn(gen, ni, hj * mj) * 0.1
@@ -252,7 +261,10 @@ def test_trace_updates_keep_nan(gen):
 @pytest.mark.parametrize("b,hi,mi,hj,mj", [(1, 3, 2, 1, 2), (37, 500, 2, 3, 10),
                                            (128, 784, 2, 32, 128),
                                            (17, 32, 128, 1, 10),
-                                           (300, 40, 2, 2, 64)])
+                                           (300, 40, 2, 2, 64),
+                                           (64, 784, 2, 32, 256),
+                                           (64, 32, 256, 1, 2),
+                                           (64, 4096, 2, 32, 128)])
 def test_bcpnn_update_kernel(gen, b, hi, mi, hj, mj, alpha):
     ni, nj = hi * mi, hj * mj
     pij = _rand(gen, ni, nj) * 0.01 + 1e-5
@@ -351,9 +363,11 @@ def _close_update(got, want):
     assert (gw - ww).abs().max().item() <= 1e-4
 
 
-# (B, Hi, Mi, Hj, Mj, nact): Model 1-struct, the ragged shape, a wide HC
+# (B, Hi, Mi, Hj, Mj, nact): Model 1-struct, the ragged shape, a wide HC,
+# Model 2-struct and Model 3-struct
 PATCHY_SHAPES = [(128, 784, 2, 32, 128, 128), (37, 13, 3, 3, 10, 4),
-                 (19, 13, 2, 5, 10, 4), (40, 30, 2, 2, 256, 7)]
+                 (19, 13, 2, 5, 10, 4), (40, 30, 2, 2, 256, 7),
+                 (64, 784, 2, 32, 256, 128), (64, 4096, 2, 32, 128, 128)]
 
 
 @pytest.mark.parametrize("b,hi,mi,hj,mj,nact", PATCHY_SHAPES)
@@ -489,7 +503,8 @@ def _quant_operands(gen, hj, nj):
 # a multiple of 4 takes the bytewise weight loads), two column chunks.
 @pytest.mark.parametrize("b,ni,hj,mj", [(128, 1568, 32, 128), (37, 1000, 3, 10),
                                         (1, 7, 1, 2), (33, 100, 5, 20),
-                                        (64, 257, 4, 40), (40, 300, 2, 256)])
+                                        (64, 257, 4, 40), (40, 300, 2, 256),
+                                        M2_HIDDEN, M3_HIDDEN])
 def test_quant_fwd_kernel(gen, b, ni, hj, mj):
     x = _rand(gen, b, ni) * 1.2 - 0.1  # codes clip outside [0, 1]
     w_q = _codes(gen, ni, hj * mj)

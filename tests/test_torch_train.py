@@ -707,7 +707,8 @@ toks = torch.from_numpy(np.random.default_rng(0).integers(
     0, cfg.vocab, (2, 16)).astype(np.int32))
 _, params, opt = make_train_step(cfg, AdamWConfig(), compress=True)(
     params, opt, {'tokens': toks})
-CheckpointManager(out + '/ckpt').save(1, {'params': params, 'opt': opt})
+CheckpointManager(out + '/ckpt').save(1, {'params': params, 'opt': opt},
+                                     blocking=True)
 flat = {'params/' + k: v for k, v in convert._flat(
     convert.lm_params_to_numpy(params, cfg, bf16_as='float32')).items()}
 state = convert.opt_state_to_numpy(opt)

@@ -209,9 +209,19 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      ``.structural_plasticity`` run on the card in processes of their own
      beside phase 7 (logs ``chiprun_out/<name>.log``); their assertions
      must hold, and their lines follow phase 7's.
+  15. (``[phase15]`` lines, beside phase 7) the dry run
+     (``repro_torch.launch.dryrun``) in three processes of its own with no
+     card visible, each a fake group and fake tensors: phase 12's step
+     (qwen1.5-0.5b, batch 8 x 256) on one rank, its peak within 20 % of
+     phase 12's measured peak over what it held; the same step on phase
+     13's (data 2, model 2), its parameter and moment bytes a rank equal to
+     phase 13's ranks' exactly and its peak beside each rank's (a ratio);
+     and the production cell ``--arch qwen1.5-0.5b --shape train_4k`` on
+     (16, 16), which must be ``ok`` under the card machine's torch.
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
      process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
-     (each run under its own name); any failure fails the run.
+     (each run under its own name); any failure fails the run (the
+     kernels over the analysis audit's hostile geometry sweep among them).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3098,7 +3108,9 @@ def phase12(torch, smi):
     by leaf, and the embedding's two backwards (``index_add_``, what
     ``index_select``'s backward runs, and ``F.embedding``'s) repeated on
     the same rows; then ``--compress-grads``' step for a few steps.  The
-    driver's kill and resume runs beside phase 7 (``phase12_resume``)."""
+    driver's kill and resume runs beside phase 7 (``phase12_resume``).
+    Returns the peak of allocated bytes over what was held before (phase
+    15 holds the dry run's estimate against it)."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -3211,6 +3223,7 @@ def phase12(torch, smi):
           f"{statistics.median(cwalls[1:]) * 1e3:.2f} ms ({smi})", flush=True)
     del params, opt, groups, step, cstep, batch
     torch.cuda.empty_cache()
+    return peak - held
 
 
 def phase12_determinism(torch, F, params, cfg, batch):
@@ -3688,7 +3701,8 @@ def phase13(torch, smi, device="cuda", small=False):
     over gloo (``RankGroup``, as phase 10), on (data 2, model 2), each
     holding a quarter of qwen1.5-0.5b at full width (FSDP over data,
     tensor parallelism over model: ``_phase13_rank``).  ``device="cpu"``
-    with ``small`` rehearses it on the CPU at the smoke size."""
+    with ``small`` rehearses it on the CPU at the smoke size.  Returns
+    every rank's report (phase 15 reads the bytes and peaks)."""
     import shutil
     import tempfile
     from repro_torch.distributed import RankGroup
@@ -3800,6 +3814,7 @@ def phase13(torch, smi, device="cuda", small=False):
           flush=True)
     check(worst <= P13_REL, f"phase 13: split logits differ by {worst:.4f} "
                             f"of the largest")
+    return ranks
 
 
 # -------------------------------------------------------------- phase 14 --
@@ -4139,6 +4154,117 @@ def examples_finish(started):
         check(rc == 0, f"{module} failed: {lines[-1:] or ['(no output)']}")
 
 
+# -------------------------------------------------------------- phase 15 --
+
+# The dry run (``repro_torch.launch.dryrun``) of phase 12's step (one rank)
+# and of phase 13's (data 2, model 2) layout, at their batch of 8 x 256, and
+# one production cell on (16, 16); each in a process of its own with no
+# card visible (fake tensors on the CPU), beside phase 7.
+P15_CELLS = (("1x1", ["--mesh-shape", "1x1", "--batch", str(TRAIN_BATCH),
+                      "--seq", str(TRAIN_SEQ)]),
+             ("2x2", ["--mesh-shape", "x".join(map(str, P13_MESH)),
+                      "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]),
+             ("16x16", []))
+# The dry run's peak against phase 12's measured peak over what it held.
+P15_PEAK_REL = 0.20
+
+
+def phase15_start():
+    """Phase 15's processes: ``python -m repro_torch.launch.dryrun --arch
+    qwen1.5-0.5b --shape train_4k`` for each of ``P15_CELLS``, with
+    ``CUDA_VISIBLE_DEVICES=""`` (they hold nothing on the card), records
+    and logs under ``chiprun_out/dryrun_phase15/``."""
+    out = ROOT / "chiprun_out" / "dryrun_phase15"
+    out.mkdir(parents=True, exist_ok=True)
+    started = []
+    for name, extra in P15_CELLS:
+        log = out / f"{name}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 "qwen1.5-0.5b", "--shape", "train_4k", "--out", str(out),
+                 *extra], cwd=ROOT,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                     "CUDA_VISIBLE_DEVICES": ""},
+                stdout=f, stderr=subprocess.STDOUT)
+        started.append((proc, log, time.perf_counter()))
+    return started
+
+
+def _p15_record(name):
+    """The dry-run record of ``P15_CELLS``' cell ``name``."""
+    out = ROOT / "chiprun_out" / "dryrun_phase15"
+    tail = "" if name == "16x16" else f"_b{TRAIN_BATCH}_s{TRAIN_SEQ}"
+    return json.loads((out / f"qwen1.5-0.5b_train_4k_{name}{tail}.json")
+                      .read_text())
+
+
+def phase15_finish(started, held_peak, ranks, smi):
+    """Phase 15's checks: every process exits 0 and its cell is ``ok``;
+    the one-rank estimate's peak within P15_PEAK_REL of phase 12's
+    measured peak over what it held (``held_peak``); on (2, 2) the bytes
+    of parameters and of the moments a rank holds equal phase 13's ranks'
+    (``ranks``) exactly, and the estimate's peak beside each rank's
+    measured peak (a ratio, reported: rank 0 also holds the one-rank
+    reference, and every rank serves after training); the (16, 16) cell's
+    record."""
+    recs = {}
+    for (proc, log, t), (name, _) in zip(started, P15_CELLS):
+        rc = proc.wait(timeout=600)
+        lines = log.read_text().strip().splitlines()
+        for line in lines:
+            if line.startswith("[dryrun]"):
+                print(f"[phase15] {line}", flush=True)
+        print(f"[phase15] the {name} dry run: rc {rc} in "
+              f"{time.perf_counter() - t:.1f} s, beside phase 7 (log "
+              f"{log.relative_to(ROOT)})", flush=True)
+        check(rc == 0, f"phase 15: the {name} dry run failed: "
+                       f"{lines[-1:] or ['(no output)']}")
+        recs[name] = _p15_record(name)
+        check(recs[name]["status"] == "ok",
+              f"phase 15: the {name} cell is {recs[name]['status']}")
+    one, split, pod = recs["1x1"], recs["2x2"], recs["16x16"]
+    est = one["memory"]["peak_memory_in_bytes"]
+    rel = abs(est - held_peak) / held_peak
+    print(f"[phase15] qwen1.5-0.5b train step, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, one rank: the dry run's peak {est / 2**30:.3f} GiB "
+          f"(arguments {one['memory']['argument_size_in_bytes'] / 2**30:.3f}"
+          f" GiB; fake CPU tensors, torch {one['torch']}, "
+          f"traced in {one['trace_s']} s) against phase 12's measured peak "
+          f"over what it held, {held_peak / 2**30:.3f} GiB: ratio "
+          f"{est / held_peak:.4f} (limit {P15_PEAK_REL} either way; {smi})",
+          flush=True)
+    check(rel <= P15_PEAK_REL, f"phase 15: the dry run's peak {est} is "
+                               f"{rel:.3f} from phase 12's {held_peak}")
+    args = split["arguments"]
+    moments = args["mu"] + args["nu"]
+    speak = split["memory"]["peak_memory_in_bytes"]
+    print(f"[phase15] the same step on (data {P13_MESH[0]}, model "
+          f"{P13_MESH[1]}): the dry run gives a rank parameters "
+          f"{args['params']} B, moments {moments} B; phase 13's ranks hold "
+          + "; ".join(f"rank {i}: {q['bytes']['params'][0]} B, "
+                      f"{q['bytes']['moments'][0]} B" for i, q in
+                      enumerate(ranks))
+          + f"; the dry run's peak {speak / 2**30:.3f} GiB against each "
+          f"rank's measured peak: "
+          + ", ".join(f"{speak / q['peak']:.3f}" for q in ranks)
+          + f" (rank 0 also holds the one-rank reference; every rank also "
+          f"serves after training)", flush=True)
+    check(all(q["bytes"]["params"][0] == args["params"]
+              and q["bytes"]["moments"][0] == moments for q in ranks),
+          "phase 15: the dry run's bytes a rank holds on (2, 2) differ "
+          "from phase 13's ranks'")
+    mem, roof = pod["memory"], pod["roofline"]
+    print(f"[phase15] the production cell qwen1.5-0.5b train_4k on (16, "
+          f"16), torch {pod['torch']}: ok in {pod['trace_s']} s; a rank holds "
+          f"{mem['argument_size_in_bytes'] / 2**30:.4f} GiB, peak "
+          f"{mem['peak_memory_in_bytes'] / 2**30:.3f} GiB (fits one 80 GB "
+          f"rank: {pod['fits_80GB']}); {roof['flops']:.4e} FLOPs a rank, "
+          f"useful ratio {roof['useful_ratio']:.3f}, collectives "
+          f"{roof['coll_bytes']:.4e} B {json.dumps(roof['coll_counts'])}; "
+          f"lacks {', '.join(pod['lacks'])}", flush=True)
+
+
 def phase7():
     """The ``gpu`` tests in their own pytest process, the log written under
     a name no other run takes; a failing test fails the run."""
@@ -4352,18 +4478,20 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     head_launches = phase11(torch)
-    phase12(torch, smi)
-    phase13(torch, smi)
+    held_peak = phase12(torch, smi)
+    ranks = phase13(torch, smi)
     started = [launcher_start()]
     resume = None
     try:
         resume = phase12_resume()
         started += phase11_start()
         started += examples_start()
+        started += phase15_start()
         phase7()
         launcher_finish(started[0])
         phase11_finish(started[1:3])
-        examples_finish(started[3:])
+        examples_finish(started[3:6])
+        phase15_finish(started[6:], held_peak, ranks, smi)
         phase12_resume_finish(resume)
     finally:
         for proc, _, _ in started:  # nothing left running, whatever failed

@@ -10,6 +10,14 @@ launchers' ``--mesh-shape``), on the same axis names.  Ranks come from
 ``torchrun`` (``launch/train.py``, ``launch/serve.py``) or from
 ``distributed/group.py::RankGroup``.  ``make_local_mesh`` is this process
 alone.
+
+``fake=True`` builds the production mesh with no ranks behind it: this
+process joins a default group of all the mesh's ranks as rank 0 through
+torch's ``fake`` backend (``init_fake_group``: every collective returns at
+once and moves nothing), and the mesh's CPU ``DeviceMesh`` is made at
+once, outside any fake tensor mode (its rank ids are a real tensor).  The dry run (``launch/dryrun.py``) runs a step of the cell on
+that mesh under fake tensors, the counterpart of JAX's 512 fake host
+devices.
 """
 from __future__ import annotations
 
@@ -24,14 +32,36 @@ POD_SHAPE = (16, 16)
 MULTI_POD_SHAPE = (2, 16, 16)
 
 
+def init_fake_group(world_size: int) -> None:
+    """Make this process rank 0 of a default process group of
+    ``world_size`` ranks on torch's ``fake`` backend (no other process,
+    no communication).  A fake group of another size is replaced; a real
+    group raises."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a fake group cannot replace the process "
+                               f"group of backend {dist.get_backend()!r}")
+        if dist.get_world_size() == world_size:
+            return
+        dist.destroy_process_group()
+    # importing the module registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
-                         shape: Optional[Sequence[int]] = None) -> Mesh:
+                         shape: Optional[Sequence[int]] = None,
+                         fake: bool = False) -> Mesh:
     """The default group's ranks on the production mesh's axes, in rank
     order (row-major over ``shape``): ``shape`` defaults to the JAX mesh's
     (16, 16), or (2, 16, 16) with ``multi_pod``, and must hold exactly the
     group's ranks.  Each host holds ``LOCAL_WORLD_SIZE`` consecutive ranks
     (``torchrun`` exports it; every rank on one host where it is unset), so
-    ``distributed/fault.py`` sees the hosts."""
+    ``distributed/fault.py`` sees the hosts.  With ``fake`` the default
+    group is a fake group of the mesh's ranks (``init_fake_group``), and
+    the mesh's CPU ``DeviceMesh`` is made here."""
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     shape = tuple(shape) if shape is not None else (
         MULTI_POD_SHAPE if multi_pod else POD_SHAPE)
@@ -39,6 +69,8 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise ValueError(f"a {'multi' if multi_pod else 'single'}-pod mesh "
                          f"has axes {axes}; shape {shape} names "
                          f"{len(shape)}")
+    if fake:
+        init_fake_group(int(np.prod(shape)))
     n = _world_size()
     if int(np.prod(shape)) != n:
         raise ValueError(
@@ -47,7 +79,10 @@ def make_production_mesh(*, multi_pod: bool = False,
             f"(name the layout of these ranks with shape=, --mesh-shape)")
     devices = np.empty(n, dtype=object)
     devices[:] = rank_devices(n, int(os.environ.get("LOCAL_WORLD_SIZE", n)))
-    return Mesh(devices.reshape(shape), axes)
+    mesh = Mesh(devices.reshape(shape), axes)
+    if fake and mesh.size > 1:
+        mesh.device_mesh("cpu")
+    return mesh
 
 
 def make_local_mesh() -> Mesh:

@@ -104,17 +104,18 @@ def production_or_local(mesh: str, shape: Optional[str]):
                                 shape=parse_mesh_shape(shape))
 
 
+def batch_dims(key: str) -> tuple:
+    """Logical dims of a batch entry: tokens (B, S); patches and frames
+    (B, P, d) split along d as the JAX ``batch_shardings`` say."""
+    return ("batch", None) if key == "tokens" else ("batch", None, "embed")
+
+
 def place_batch(batch: Dict[str, np.ndarray], dev: torch.device
                 ) -> Dict[str, torch.Tensor]:
     """A host batch on ``dev``, split over ``batch`` on a split mesh
-    (tokens (B, S); patches and frames (B, P, d) split along d as the JAX
-    ``batch_shardings`` say)."""
-    dims = {"tokens": ("batch", None)}
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(v).to(dev)
-        out[k] = place_like(t, dims.get(k, ("batch", None, "embed")))
-    return out
+    (``batch_dims``)."""
+    return {k: place_like(torch.from_numpy(v).to(dev), batch_dims(k))
+            for k, v in batch.items()}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -16,7 +16,9 @@ Scores, soft-cap, mask and softmax are fp32 (JAX forms the scores with
 compute dtype before the product with V.  Decode writes its cache in place
 at a slot computed on the device, so a step needs no host sync; on a split
 mesh the cache is a DTensor split over batch and kv_heads and each rank
-writes its own block (``write_``).  The products go through
+writes its own block (``write_``); a cache split along its sequence (the
+dry run's ``cache_seq`` rule) is attended block by block and the
+blocks' softmax statistics combined (``_decode_seq_split``).  The products go through
 ``distributed.sharding.linear``, and the attention itself runs on each
 rank's block of whole K/V groups (``per_rank``): its batch rows and heads.
 """
@@ -277,26 +279,33 @@ def decode_attend(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``window`` at ``pos mod size``.  The write is in place.
     Cross-attention reads precomputed encoder K/V and writes nothing.
     """
-    b = x.shape[0]
-    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = hq // hk
-
+    hq, hd = cfg.n_heads, cfg.head_dim
     if cross_kv is not None:
+        # on each rank's block of whole K/V groups, as the training
+        # forward's cross-attention (``lm._cross_attend``)
         k, v = cross_kv
-        q = (x @ p.wq).reshape(b, 1, hk, g, hd)
+        q = _heads(linear(x, p.wq), hq, hd)
         if cfg.qk_norm:
             q = rms_norm(q, p.q_norm, cfg.norm_eps, plus_one=True)
-        return _attend_one(q[:, 0], k, v, cfg, x.dtype) @ p.wo, cache
+        q, k, v = _head_aligned(q, k, v)
+        out = per_rank(lambda q_, k_, v_: _attend_one(
+            q_[:, 0].reshape(q_.shape[0], k_.shape[2],
+                             q_.shape[2] // k_.shape[2], hd),
+            k_, v_, cfg, x.dtype), q, k, v)
+        return linear(out, p.wo), cache
 
     q, k_new, v_new = _project_qkv(p, cfg, x)
     q, k_new, v_new = _head_aligned(q, k_new, v_new)
+    ring = local and cfg.window > 0
+    if _seq_axes(cache["k"]):
+        out = _decode_seq_split(q, k_new, v_new, cache["k"], cache["v"], cfg,
+                                pos, ring, x.dtype)
+        return linear(out, p.wo), cache
     if isinstance(cache["k"], DTensor) and (
             tuple(cache["k"].placements) != tuple(k_new.placements)):
         raise ValueError(f"the decode cache is placed "
                          f"{cache['k'].placements}, the new K/V "
                          f"{k_new.placements}: the write would not be local")
-    size = cache["k"].shape[1]
-    ring = local and cfg.window > 0
     out = per_rank(
         lambda q_, k_, v_, ck, cv: _decode_heads(q_, k_, v_, ck, cv, cfg,
                                                  pos, ring, x.dtype),
@@ -310,28 +319,117 @@ def _decode_heads(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                   cache_k: torch.Tensor, cache_v: torch.Tensor,
                   cfg: ModelConfig, pos: torch.Tensor, ring: bool,
                   dtype: torch.dtype) -> torch.Tensor:
-    """One token's attention on a block of whole K/V groups: rope at
-    ``pos``, the new K/V written into the cache blocks in place (at ``pos
-    mod size`` on a ring, else ``pos`` clamped to the end, as
-    ``dynamic_update_slice`` clamps), then q against the cache."""
+    """One token's attention on a block of whole K/V groups: the new K/V
+    written (``_write_token``), then q against the cache."""
     b, _, hq, hd = q.shape
     hk = k_new.shape[2]
+    q, valid = _write_token(q, k_new, v_new, cache_k, cache_v, cfg, pos,
+                            ring, cache_k.shape[1])
+    return _attend_one(q.reshape(b, hk, hq // hk, hd), cache_k, cache_v,
+                       cfg, dtype, valid)
+
+
+def _write_token(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 cfg: ModelConfig, pos: torch.Tensor, ring: bool, size: int,
+                 lo: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rope q and the new K at ``pos`` and write the new K/V in place into
+    a cache block of slots ``lo ..`` of ``size`` (at ``pos mod size`` on a
+    ring, else ``pos`` clamped to the end, as ``dynamic_update_slice``
+    clamps); a block that does not hold that slot rewrites one of its own
+    slots with its own value, so the write stays local and reads nothing
+    back.  Returns (the roped q, which of the block's slots the token
+    attends to)."""
+    b = q.shape[0]
     if cfg.rope_theta > 0:
         posv = pos.reshape(1, 1).expand(b, 1)
         q = rope(q, posv, cfg.rope_theta)
         k_new = rope(k_new, posv, cfg.rope_theta)
-    size = cache_k.shape[1]
+    n = cache_k.shape[1]
     slot = torch.remainder(pos, size) if ring else torch.clamp(pos, 0,
                                                                size - 1)
-    slot = slot.reshape(1).long()
-    write_(cache_k, k_new, slot, dim=1)
-    write_(cache_v, v_new, slot, dim=1)
-    idx = torch.arange(size, dtype=torch.int32, device=q.device)
+    if n < size:  # a block of a cache split along its sequence
+        here = slot - lo
+        inside = (here >= 0) & (here < n)
+        at = torch.clamp(here, 0, n - 1).reshape(1).long()
+        k_new, v_new = (torch.where(inside, t.to(c.dtype),
+                                    c.index_select(1, at))
+                        for t, c in ((k_new, cache_k), (v_new, cache_v)))
+    else:
+        at = slot.reshape(1).long()
+    write_(cache_k, k_new, at, dim=1)
+    write_(cache_v, v_new, at, dim=1)
+    idx = torch.arange(n, dtype=torch.int32, device=q.device)
+    if lo:
+        idx = idx + lo
     if ring:
         # slot i holds absolute position p_i = pos - ((pos - i) mod size)
         p_i = pos - torch.remainder(pos - idx, size)
-        valid = (p_i >= 0) & (p_i <= pos) & (p_i > pos - cfg.window)
-    else:
-        valid = idx <= pos
-    return _attend_one(q.reshape(b, hk, hq // hk, hd), cache_k, cache_v,
-                       cfg, dtype, valid)
+        return q, (p_i >= 0) & (p_i <= pos) & (p_i > pos - cfg.window)
+    return q, idx <= pos
+
+
+def _seq_axes(cache_t: torch.Tensor) -> Tuple[int, ...]:
+    """The mesh axes that split a DTensor cache along its sequence."""
+    if not isinstance(cache_t, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(cache_t.placements)
+                 if p.is_shard() and p.dim == 1)
+
+
+def _decode_seq_split(q: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, cfg: ModelConfig,
+                      pos: torch.Tensor, ring: bool,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """One token's attention on a cache split along its sequence (the JAX
+    dry run's ``cache_seq`` rule, where the K/V heads do not divide the
+    model axis): the rank whose block holds the slot writes the new K/V
+    there (``_write_token``: every write local, nothing read back); each
+    rank takes the
+    softmax statistics of its block (the largest score, the sum of the
+    exponentials and their product with V, in fp32), and the blocks are
+    combined across the axes that split the sequence, a max and two sums,
+    as ``logsumexp_and_gold`` combines vocabulary blocks.  The whole
+    cache never forms on one rank.  q, k_new, v_new are split as the
+    cache's batch and heads (``_head_aligned``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..distributed.sharding import block_range
+    mesh = cache_k.device_mesh
+    seq = _seq_axes(cache_k)
+    size = cache_k.shape[1]
+    lo, _ = block_range(cache_k, 1)
+    ql, kl, vl = (t.to_local() if isinstance(t, DTensor) else t
+                  for t in (q, k_new, v_new))
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    b, _, hq, hd = ql.shape
+    hk = kl.shape[2]
+    g = hq // hk
+    ql, valid = _write_token(ql, kl, vl, ck, cv, cfg, pos, ring, size, lo)
+    scores = torch.einsum("bhgd,bshd->bhgs",
+                          ql.reshape(b, hk, g, hd).float(),
+                          ck.float()) * cfg.head_dim ** -0.5
+    scores = _softcap(scores, cfg.attn_softcap)
+    scores = scores + torch.where(valid, 0.0, neg_fill(scores.dtype))
+    m = scores.amax(-1)
+    e = torch.exp(scores - m[..., None])
+    # the statistics (B, Hk, G[, D]): batch and heads split as the cache's
+    base = [Shard(0) if p.is_shard() and p.dim == 0 else
+            Shard(1) if p.is_shard() and p.dim == 2 else Replicate()
+            for p in cache_k.placements]
+
+    def combine(local: torch.Tensor, op: str) -> torch.Tensor:
+        parts = [Partial(op) if i in seq else p for i, p in enumerate(base)]
+        return DTensor.from_local(local, mesh, parts, run_check=False
+                                  ).redistribute(mesh, base).to_local()
+
+    top = combine(m, "max")
+    w = torch.exp(m - top)
+    total = combine(e.sum(-1) * w, "sum")
+    acc = combine(torch.einsum("bhgs,bshd->bhgd", e, cv.float())
+                  * w[..., None], "sum")
+    out = (acc / total[..., None]).to(dtype).reshape(b, 1, hk * g * hd)
+    out_pl = [Shard(0) if p.is_shard() and p.dim == 0 else
+              Shard(2) if p.is_shard() and p.dim == 2 else Replicate()
+              for p in cache_k.placements]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)

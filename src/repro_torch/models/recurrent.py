@@ -170,9 +170,13 @@ def _mamba_scan(h: torch.Tensor, a: torch.Tensor, xc: torch.Tensor,
     da = torch.exp(dt[..., None] * a)                  # (B, S, di, N)
     dbx = (dt * xc.float())[..., None] * b_in[:, :, None, :]
     ys = []
-    for t in range(xc.shape[1]):
-        h = da[:, t] * h + dbx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, c_out[:, t]))
+    # the steps as views (``unbind``): an indexed step's backward would
+    # write a whole (B, S, di, N) gradient for each step; y is contracted
+    # step by step, so no (B, S, di, N) stack of carries forms
+    for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1),
+                                c_out.unbind(1)):
+        h = da_t * h + dbx_t
+        ys.append((h * c_t[:, None, :]).sum(-1))
     return h, torch.stack(ys, dim=1)
 
 
@@ -322,11 +326,11 @@ def _rglru_scan(a: torch.Tensor, beta: torch.Tensor, i: torch.Tensor,
     """The recurrence from a zero carry over (B, S, W'): (the carries in
     ``dtype``, the last carry (B, W') fp32)."""
     drive = beta * i * xc.float()
-    b, s, w = xc.shape
+    b, _, w = xc.shape
     h = torch.zeros((b, w), dtype=torch.float32, device=xc.device)
     hs = []
-    for t in range(s):
-        h = a[:, t] * h + drive[:, t]
+    for a_t, drive_t in zip(a.unbind(1), drive.unbind(1)):  # views, as
+        h = a_t * h + drive_t                               # the mamba scan
         hs.append(h)
     return torch.stack(hs, dim=1).to(dtype), h          # (B, S, W)
 

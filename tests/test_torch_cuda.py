@@ -1960,3 +1960,26 @@ def test_compress_grads_on_split_card_tensors_is_bitwise(split_card):
     card against the one-rank call on the card, 3 steps carrying the
     error: bit for bit."""
     assert split_card["compress"]["bitwise"]
+
+
+# The analysis audit's hostile geometry sweep (``analysis/plans.py``): the
+# JAX audit's post-side geometries, from a prime pre side (7 x 3) and
+# Model 1's (784 x 2), at 1, 5 and 129 rows.
+SWEEP_ROWS, SWEEP_PRE = (1, 5, 129), ((7, 3), (784, 2))
+
+
+def test_kernels_over_the_hostile_geometry_sweep(gen):
+    """The launchers' plans over the sweep are valid (a forward's cluster
+    within 1..8 and no wider than its slices, an int8 plan of 64 or 128
+    rows, a softmax plan that covers its segment), and every kernel
+    wrapper at every swept geometry returns its logical shapes, finite,
+    and agrees with its plain version at this file's tolerances
+    (``plans.check_wrappers``)."""
+    from repro_torch.analysis import plans
+    assert plans.check_launch_plans() == []
+    problems = []
+    for b in SWEEP_ROWS:
+        for hi, mi in SWEEP_PRE:
+            for hj, mj in plans._HC_GEOMS:
+                problems += plans.check_wrappers("cuda", b, hi, mi, hj, mj, 2)
+    assert problems == []

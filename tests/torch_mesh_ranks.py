@@ -189,12 +189,14 @@ def compress(mesh, device, arch="qwen1.5-0.5b", steps=3):
     return {"bitwise": bool(same)}
 
 
-def serve(mesh, device, arch, tree, seed=0, gen=3):
+def serve(mesh, device, arch, tree, seed=0, gen=3, overrides=None):
     """Prefill (B=4, 16 tokens) and ``gen`` greedy decode steps of the JAX
     parameter tree ``tree`` on the split model against one rank: each
     step's logits on both sides, the one-rank greedy tokens (which drive
     both, so the caches compare), the split side's own greedy tokens,
-    every cache leaf's largest difference after the last step."""
+    every cache leaf's largest difference after the last step, and which
+    cache leaves a rank holds split (``split_seq``: along the sequence).
+    ``overrides`` go to ``make_rules`` (the dry run's decode rules)."""
     cfg = config(arch)
     batch = inputs(cfg, seed=20 + seed)
     seq_len = S + gen
@@ -213,7 +215,7 @@ def serve(mesh, device, arch, tree, seed=0, gen=3):
             tok = torch.argmax(logits1, -1)
             toks1.append(tok.cpu().numpy())
         c1 = convert.lm_cache_groups(cache1, cfg)
-        with sharding_context(mesh, make_rules(mesh)):
+        with sharding_context(mesh, make_rules(mesh, overrides)):
             params = convert.lm_params_from_numpy(tree, cfg, device)
             p2 = _placed(batch, device)
             logits2, cache2 = lm.prefill(params, cfg, p2["tokens"], seq_len,
@@ -237,9 +239,14 @@ def serve(mesh, device, arch, tree, seed=0, gen=3):
                 k for k, g in c2.items()
                 if isinstance(g[0], torch.distributed.tensor.DTensor)
                 and any(p.is_shard() for p in g[0].placements)]
+            split_seq = [
+                k for k, g in c2.items()
+                if isinstance(g[0], torch.distributed.tensor.DTensor)
+                and any(p.is_shard() and p.dim == 1
+                        for p in g[0].placements)]
     return {"logits": steps2, "one_logits": steps1, "tokens": toks1,
             "split_tokens": toks2, "cache": cache_err, "pos": int(cache2.pos),
-            "split_cache": split_cache}
+            "split_cache": split_cache, "split_seq": split_seq}
 
 
 def checkpoint(mesh, device, root, arch="qwen1.5-0.5b", steps=4, kill=2):

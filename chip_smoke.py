@@ -40,7 +40,15 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      same rates bit for bit under every plan, and whether ``torch.bmm``
      takes their int8 operands (the product alone); each
      ``hc_softmax`` row (also M = 2, a segment a lane) with its sub-warp
-     width and load width.
+     width and load width.  The peaks that price ``bound_ms`` are
+     ``repro_torch.launch.roofline``'s; each dense and int8 forward row's
+     bytes are held to that module's ``bcpnn_fwd_traffic`` (equal, or both
+     printed with the reason they differ).  Then ``bcpnn_fwd`` at Model
+     3's hidden shape (B 64, 8192 -> 32x128) timed under every cluster
+     size the shape allows, each named through an autotune cache file
+     under ``chiprun_out/`` (``kernels/tuning.py``), the launched size
+     read back, the rates within 1e-5 of the plain version: a reading of
+     the launch plans, not a claim.
   2. the paper's protocol at the full width of Table-1 Model 1 (784x2 ->
      32x128 -> 10): ``Trainer.fit`` for 5 unsupervised epochs and one
      supervised pass over 16384 synthetic images, then ``evaluate`` on
@@ -217,7 +225,13 @@ Phases (any mismatch exits non-zero; nothing is caught and passed over):
      13's (data 2, model 2), its parameter and moment bytes a rank equal to
      phase 13's ranks' exactly and its peak beside each rank's (a ratio);
      and the production cell ``--arch qwen1.5-0.5b --shape train_4k`` on
-     (16, 16), which must be ``ok`` under the card machine's torch.
+     (16, 16), which must be ``ok`` under the card machine's torch.  The
+     one-rank and (16, 16) records' time terms (the least time on the
+     card's peaks, ``launch/roofline.py::analyze``) and bottleneck are
+     printed, and the one-rank record's larger of its compute and memory
+     terms must be at most phase 12's profiled device-busy time a step at
+     the same batch (the ratio printed): a bound above what the card did
+     would mean a wrong count.
   7. the ``gpu`` tests of ``tests/test_torch_cuda.py`` in a pytest
      process, their log kept as ``chiprun_out/gpu_tests_<UTC time>.log``
      (each run under its own name); any failure fails the run (the
@@ -242,13 +256,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
-# fp32 FLOP/s outside the tensor cores, and dense TF32 FLOP/s and int8
-# OP/s of the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOP_S = 67e12
-PEAK_TF32_FLOP_S = 495e12
-PEAK_INT8_OPS_S = 1979e12
-PEAK_BF16_FLOP_S = 989e12
+# fp32 FLOP/s outside the tensor cores, and dense TF32 and bf16 FLOP/s and
+# int8 OP/s of the tensor cores; the dry run's time terms take the same.
+from repro_torch.launch.roofline import (PEAK_BF16_FLOP_S,  # noqa: E402
+                                         PEAK_BYTES_S, PEAK_FP32_FLOP_S,
+                                         PEAK_INT8_OPS_S, PEAK_TF32_FLOP_S,
+                                         bcpnn_fwd_traffic)
+
 TIMED_LAUNCHES = 20
 TIMED_REPLAYS = 10
 
@@ -352,17 +366,20 @@ def kernel_cases(torch, gen):
     cases = []
 
     def add(name, label, kern, plain, lib, nbytes, n_ops, cmp,
-            peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None, note=None):
+            peak=PEAK_FP32_FLOP_S, product=None, fwd_shape=None, note=None,
+            traffic=None):
         """n_ops: a count at ``peak``, or ((count, peak rate), ...);
         fwd_shape: a forward's (B, contraction depth, Hj, Mj, bf16,
         layout); note: the kernel's result -> how the kernel took the
-        shape (printed), for rows that must also repeat bit for bit."""
+        shape (printed), for rows that must also repeat bit for bit;
+        traffic: a dense forward's ``bcpnn_fwd_traffic`` arguments (B, Ni,
+        Nj, weight dtype, Hj), whose bytes phase 1 holds ``nbytes`` to."""
         ops = n_ops if isinstance(n_ops, tuple) else ((n_ops, peak),)
         if fwd_shape is not None:
             note = lambda got, shape=fwd_shape: \
                 f"cluster {cluster_size(*shape)}"
         cases.append((name, label, kern, plain, lib, nbytes, ops, cmp,
-                      product, note))
+                      product, note, traffic))
 
     def trace_ops(product, epilogue):
         """The resident-trace update's operations: its product in 3xTF32
@@ -434,7 +451,8 @@ def kernel_cases(torch, gen):
             None, 4 * (b * ni + ni * nj + nj + b * nj),
             fwd_ops(2 * b * ni * nj, 7 * b * nj), close_abs(1e-5),
             product=addmm(bias, x, w),
-            fwd_shape=(b, ni, hj, mj, False, "dense"))
+            fwd_shape=(b, ni, hj, mj, False, "dense"),
+            traffic=(b, ni, nj, "fp32", hj))
     # n: genuine rows of a zero-padded tail batch (None: all rows are).
     # a = 1 is the first step of every fit: there pij' is XᵀY/n itself, so
     # an error in the product is not damped by a small smoothing.
@@ -574,7 +592,8 @@ def kernel_cases(torch, gen):
         None, 4 * b * ni + 2 * (ni * nj + nj) + 4 * b * nj,
         fwd_ops(2 * b * ni * nj, 7 * b * nj, passes=2), close_abs(1e-5),
         product=addmm(bias.float(), x, w.float()),
-        fwd_shape=(b, ni, hj, mj, True, "dense"))
+        fwd_shape=(b, ni, hj, mj, True, "dense"),
+        traffic=(b, ni, nj, "bf16", hj))
     hi, mi, nact = 784, 2, 128
     k, live = nact * mi, hj * nact * mi * mj
     table = build_table(topk_mask(rand(hi, hj), nact), nact)
@@ -625,7 +644,7 @@ def kernel_cases(torch, gen):
             ref.ref_quant_fwd(x, w, bias, sc, hj, mj),
             None, 4 * b * ni + ni * nj + 4 * (nj + hj + b * nj),
             2 * b * ni * nj, close_abs(1e-6), peak=PEAK_INT8_OPS_S,
-            note=quant_note(x, w_q, hj, mj))
+            note=quant_note(x, w_q, hj, mj), traffic=(b, ni, nj, "int8", hj))
     for label, b, hi, mi, hj, mj, nact in (
             ("struct", 128, 784, 2, 32, 128, 128),
             ("ragged", 37, 13, 3, 3, 10, 4),
@@ -698,7 +717,8 @@ def kernel_cases(torch, gen):
         fwd_ops(2 * b * 2 * hi * nj, 7 * b * nj),
         close_plain_and_fp64(s64, hj, mj),
         product=addmm(bias, x, w),
-        fwd_shape=(b, 2 * hi, hj, mj, False, "dense"))
+        fwd_shape=(b, 2 * hi, hj, mj, False, "dense"),
+        traffic=(b, 2 * hi, nj, "fp32", hj))
 
     # The same fitted weights behind a Model 1-struct table (nact 128 of
     # the 784 input HCs): the gathered forwards held to plain and to the
@@ -741,7 +761,7 @@ def phase1(torch):
     gen.manual_seed(0)
     rows = {}
     for name, label, kern, plain, lib, nbytes, ops, cmp, product, \
-            note in kernel_cases(torch, gen):
+            note, traffic in kernel_cases(torch, gen):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -767,6 +787,8 @@ def phase1(torch):
             row["product_library_ms"] = device_ms(product)
             extra += (f"  library, product only "
                      f"{row['product_library_ms'] * 1e3:.2f} us")
+        if traffic is not None:
+            extra += "  " + traffic_note(name, label, nbytes, traffic)
         print(f"[phase1] {name}[{label}] ok: max_abs_err {err:.3e}  "
               f"kernel {ms * 1e3:.2f} us  plain {plain_ms * 1e3:.2f} us  "
               f"library {'-' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}"
@@ -775,10 +797,80 @@ def phase1(torch):
         rows.setdefault(name, {})[label] = row
     int_mm_yardstick(torch, gen, rows["quant_fwd"]["hidden"])
     quant_plan_times(torch, gen, rows)
+    fwd_cluster_times(torch, gen, rows["bcpnn_fwd"]["m3-hidden"])
     int8_bmm_check(torch, gen, rows)
     copy_yardstick(torch, gen, rows["bcpnn_update"]["hidden"])
     mma_yardstick(torch, rows["bcpnn_update"]["hidden"])
     return rows
+
+
+def traffic_note(name, label, nbytes, traffic):
+    """A dense forward row's bytes against ``bcpnn_fwd_traffic``'s for the
+    same shape and weight dtype (fp32 activations): equal, except that
+    the int8 row counts the pack's fp32 bias (4 bytes a unit) where the
+    model counts the bias at the weight's width (1 byte)."""
+    b, ni, nj, wdt, hj = traffic
+    model = bcpnn_fwd_traffic(b, ni, nj, weight_dtype=wdt, n_hc=hj)["bytes"]
+    if wdt == "int8":
+        check(nbytes == model + 3 * nj,
+              f"{name}[{label}]: bytes {nbytes} are not the traffic model's "
+              f"{model} with the fp32 bias")
+        return (f"bytes {nbytes}, traffic model {model:.0f} (it counts the "
+                f"bias at 1 byte, the int8 pack keeps it in fp32: "
+                f"{3 * nj} more)")
+    check(nbytes == model, f"{name}[{label}]: bytes {nbytes} differ from "
+                           f"the traffic model's {model}")
+    return f"bytes {nbytes} = traffic model's"
+
+
+def fwd_cluster_times(torch, gen, row):
+    """``bcpnn_fwd`` at Model 3's hidden shape (B 64, 8192 -> 32 x 128)
+    under every cluster size the shape allows, each named by an autotune
+    cache entry in ``chiprun_out/autotune_phase1.json`` (the variable
+    ``REPRO_AUTOTUNE_CACHE`` set for this function only, so a user's
+    cache is not touched): the size launched read back, the rates within
+    1e-5 of the plain version, and the time of each.  A reading, not a
+    claim."""
+    from repro_torch.kernels import ops, ref, tuning
+    from repro_torch.kernels.bcpnn_fwd import (LAST_CLUSTER, cluster_range,
+                                               cluster_size)
+    b, ni, hj, mj = 64, 8192, 32, 128
+    x = torch.rand((b, ni), generator=gen, device="cuda")
+    w = torch.randn((ni, hj * mj), generator=gen, device="cuda") * 0.1
+    bias = torch.randn((hj * mj,), generator=gen, device="cuda")
+    want = ref.ref_bcpnn_fwd(x, w, bias, hj, mj)
+    rule = cluster_size(b, ni, hj, mj)
+    lo, hi = cluster_range(b, ni, hj, mj)
+    path = ROOT / "chiprun_out" / "autotune_phase1.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    key = tuning.entry_key("bcpnn_fwd", b=b, ni=ni, n_hc=hj, n_mc=mj)
+    before = os.environ.get(tuning.ENV_CACHE)
+    os.environ[tuning.ENV_CACHE] = str(path)
+    times = {}
+    try:
+        for ks in range(lo, hi + 1):
+            tuning.save_entries({key: {"cluster": ks}})
+            os.utime(path, (ks, ks))  # a new mtime, whatever the clock's grain
+            got = ops.bcpnn_fwd(x, w, bias, hj, mj)
+            check(LAST_CLUSTER["bcpnn_fwd"] == ks,
+                  f"bcpnn_fwd[m3-hidden]: the cache named cluster {ks}, the "
+                  f"launch took {LAST_CLUSTER['bcpnn_fwd']}")
+            err = (got - want).abs().max().item()
+            check(err <= 1e-5, f"bcpnn_fwd[m3-hidden] at cluster {ks}: max "
+                               f"abs err {err:.3e} from the plain version")
+            times[ks] = device_ms(lambda: ops.bcpnn_fwd(x, w, bias, hj, mj))
+    finally:
+        if before is None:
+            os.environ.pop(tuning.ENV_CACHE)
+        else:
+            os.environ[tuning.ENV_CACHE] = before
+    row["cluster_ms"] = times
+    print(f"[phase1] bcpnn_fwd[m3-hidden] by cluster size, each named by "
+          f"the autotune cache ({path.relative_to(ROOT)}; the search takes "
+          f"{rule}; rates within 1e-5 of plain under each): "
+          + ", ".join(f"{ks}: {ms * 1e3:.2f} us" for ks, ms in times.items()),
+          flush=True)
 
 
 def mma_yardstick(torch, row):
@@ -3109,8 +3201,9 @@ def phase12(torch, smi):
     ``index_select``'s backward runs, and ``F.embedding``'s) repeated on
     the same rows; then ``--compress-grads``' step for a few steps.  The
     driver's kill and resume runs beside phase 7 (``phase12_resume``).
-    Returns the peak of allocated bytes over what was held before (phase
-    15 holds the dry run's estimate against it)."""
+    Returns the peak of allocated bytes over what was held before and the
+    profiled device-busy seconds a step (phase 15 holds the dry run's
+    estimate and time terms against them)."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -3223,7 +3316,7 @@ def phase12(torch, smi):
           f"{statistics.median(cwalls[1:]) * 1e3:.2f} ms ({smi})", flush=True)
     del params, opt, groups, step, cstep, batch
     torch.cuda.empty_cache()
-    return peak - held
+    return peak - held, busy * 1e-6
 
 
 def phase12_determinism(torch, F, params, cfg, batch):
@@ -4199,10 +4292,12 @@ def _p15_record(name):
                       .read_text())
 
 
-def phase15_finish(started, held_peak, ranks, smi):
+def phase15_finish(started, held_peak, busy_s, ranks, smi):
     """Phase 15's checks: every process exits 0 and its cell is ``ok``;
     the one-rank estimate's peak within P15_PEAK_REL of phase 12's
-    measured peak over what it held (``held_peak``); on (2, 2) the bytes
+    measured peak over what it held (``held_peak``); the one-rank
+    record's larger of its compute and memory terms at most phase 12's
+    profiled device-busy seconds a step (``busy_s``); on (2, 2) the bytes
     of parameters and of the moments a rank holds equal phase 13's ranks'
     (``ranks``) exactly, and the estimate's peak beside each rank's
     measured peak (a ratio, reported: rank 0 also holds the one-rank
@@ -4236,6 +4331,24 @@ def phase15_finish(started, held_peak, ranks, smi):
           flush=True)
     check(rel <= P15_PEAK_REL, f"phase 15: the dry run's peak {est} is "
                                f"{rel:.3f} from phase 12's {held_peak}")
+    for name, rec in (("one rank", one), ("(16, 16)", pod)):
+        rf = rec["roofline"]
+        print(f"[phase15] {name}: the dry run's least time a step on the "
+              f"card's peaks: compute {rf['compute_s'] * 1e3:.3f} ms "
+              f"({', '.join(f'{k} {v:.4e}' for k, v in rf['flops_by_dtype'].items())}"
+              f" FLOPs), memory {rf['memory_s'] * 1e3:.3f} ms "
+              f"({rf['bytes']:.4e} B), collectives "
+              f"{rf['collective_s'] * 1e3:.3f} ms ({rf['coll_bytes']:.4e} "
+              f"B); bottleneck {rf['bottleneck']}", flush=True)
+    rf = one["roofline"]
+    least = max(rf["compute_s"], rf["memory_s"])
+    print(f"[phase15] one rank: the larger of compute and memory, "
+          f"{least * 1e3:.3f} ms, against phase 12's profiled device-busy "
+          f"time a step at the same batch, {busy_s * 1e3:.3f} ms: ratio "
+          f"{least / busy_s:.4f} ({smi})", flush=True)
+    check(least <= busy_s, f"phase 15: the dry run's least time a step "
+                           f"{least:.6f} s exceeds the card's busy time "
+                           f"{busy_s:.6f} s (a count is wrong)")
     args = split["arguments"]
     moments = args["mu"] + args["nu"]
     speak = split["memory"]["peak_memory_in_bytes"]
@@ -4478,7 +4591,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     head_launches = phase11(torch)
-    held_peak = phase12(torch, smi)
+    held_peak, busy_s = phase12(torch, smi)
     ranks = phase13(torch, smi)
     started = [launcher_start()]
     resume = None
@@ -4491,7 +4604,7 @@ def main() -> int:
         launcher_finish(started[0])
         phase11_finish(started[1:3])
         examples_finish(started[3:6])
-        phase15_finish(started[6:], held_peak, ranks, smi)
+        phase15_finish(started[6:], held_peak, busy_s, ranks, smi)
         phase12_resume_finish(resume)
     finally:
         for proc, _, _ in started:  # nothing left running, whatever failed

@@ -38,12 +38,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "bcpnn_hc_softmax": (_P, _P, ctypes.c_longlong, _I, _F, _P),
     "bcpnn_hc_softmax_plan": (_P, _P, _I, _P),
-    "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "bcpnn_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_fwd_cluster": (_I, _I, _I, _I, _I, _I, _P),
     "bcpnn_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_patchy_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _P),
+                         _I, _F, _P),
     "bcpnn_patchy_update": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "bcpnn_quant_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -46,6 +46,7 @@
 
 #include <cooperative_groups.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -1540,20 +1541,32 @@ size_t fwd_smem(int ks, int Mj, int total) {
   return sizeof(float) * (size_t)FwdSmem::of<F>(ks, Mj, total).words;
 }
 
-// The cluster size with the least time: a block's share of the work is
-// 1/ks, and the clusters run in ceil(clusters / co-resident clusters)
-// waves.  The co-resident counts are kept per (device, cluster size,
-// shared bytes), under a lock.  Also sets the kernel's shared-memory limit.
+// The cluster sizes a forward of this shape may take, [*lo, *hi]: from the
+// smallest whose shared memory fits up to kTcMaxCluster, and no more than
+// the contraction's slices unless the smallest is.  Sets the kernel's
+// shared-memory limit to the smallest's bytes, the most any of them takes.
 // Kc: the contraction's depth (Ni dense, K = nact*Mi gathered).
 template <class F>
-cudaError_t fwd_cluster_size(int B, int Kc, int Hj, int Mj, cudaStream_t stream, int* ks_out) {
+cudaError_t fwd_clusters(int Kc, int Mj, int* lo, int* hi) {
   const int total = (Kc + kTcK - 1) / kTcK;
   int ks_min = 1;
   while (ks_min < kTcMaxCluster && fwd_smem<F>(ks_min, Mj, total) > (size_t)kMaxSmem) ++ks_min;
   if (fwd_smem<F>(ks_min, Mj, total) > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(bcpnn_fwd_tc_kernel<F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)fwd_smem<F>(ks_min, Mj, total));
+  *lo = ks_min;
+  *hi = std::max(ks_min, std::min(kTcMaxCluster, total));
+  return cudaFuncSetAttribute(bcpnn_fwd_tc_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)fwd_smem<F>(ks_min, Mj, total));
+}
+
+// The cluster size with the least time among fwd_clusters': a block's
+// share of the work is 1/ks, and the clusters run in ceil(clusters /
+// co-resident clusters) waves.  The co-resident counts are kept per
+// (device, cluster size, shared bytes), under a lock.
+template <class F>
+cudaError_t fwd_cluster_size(int B, int Kc, int Hj, int Mj, cudaStream_t stream, int* ks_out) {
+  const int total = (Kc + kTcK - 1) / kTcK;
+  int lo = 0, hi = 0;
+  cudaError_t err = fwd_clusters<F>(Kc, Mj, &lo, &hi);
   if (err != cudaSuccess) return err;
   int device = 0;
   err = cudaGetDevice(&device);
@@ -1570,9 +1583,9 @@ cudaError_t fwd_cluster_size(int B, int Kc, int Hj, int Mj, cudaStream_t stream,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int ks = ks_min;
+  int ks = lo;
   double best = 0.0;
-  for (int k = ks_min; k <= kTcMaxCluster && (k == ks_min || k <= total); ++k) {
+  for (int k = lo; k <= hi; ++k) {
     const auto key = std::make_tuple(device, k, fwd_smem<F>(k, Mj, total));
     int n = 0;
     {
@@ -1612,7 +1625,7 @@ struct FwdShape {
 template <class F>
 cudaError_t launch_fwd_tc(const float* x, const typename F::Elem* w,
                           const typename F::Elem* bias, const int* table, float* out,
-                          const FwdShape& sh, int xcopy, int wcopy, float gain,
+                          const FwdShape& sh, int xcopy, int wcopy, int cluster, float gain,
                           cudaStream_t stream) {
   using T = typename F::Elem;
   constexpr int L = F::kLayout;
@@ -1638,8 +1651,17 @@ cudaError_t launch_fwd_tc(const float* x, const typename F::Elem* w,
     }
   }
   if (!ok) return cudaErrorInvalidValue;
-  int ks = 0;
-  cudaError_t err = fwd_cluster_size<F>(sh.B, sh.Kc, sh.Hj, sh.Mj, stream, &ks);
+  // cluster > 0: that size, if fwd_clusters allows it (never clamped);
+  // 0: the search's.
+  int ks = cluster;
+  cudaError_t err = cudaSuccess;
+  if (cluster == 0) {
+    err = fwd_cluster_size<F>(sh.B, sh.Kc, sh.Hj, sh.Mj, stream, &ks);
+  } else {
+    int lo = 0, hi = 0;
+    err = fwd_clusters<F>(sh.Kc, sh.Mj, &lo, &hi);
+    if (err == cudaSuccess && (cluster < lo || cluster > hi)) err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ks, (sh.B + kTcRows - 1) / kTcRows, sh.Hj);
@@ -1678,7 +1700,8 @@ cudaError_t with_fwd_tile(int Mj, Fn&& fn) {
 // loads (a bf16 weight of odd width).
 template <typename T, int L>
 cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, const int* table,
-                              float* out, const FwdShape& sh, float gain, cudaStream_t st) {
+                              float* out, const FwdShape& sh, int cluster, float gain,
+                              cudaStream_t st) {
   const long long Nj = (long long)sh.Hj * sh.Mj;
   constexpr int kPer16 = 16 / (int)sizeof(T), kPer4 = 4 / (int)sizeof(T);
   const bool w16 = Nj % kPer16 == 0 && sh.Mj % kPer16 == 0 && aligned16(w);
@@ -1705,22 +1728,23 @@ cudaError_t launch_fwd_tc_any(const float* x, const T* w, const T* bias, const i
       }
       if (L == kCompact && w16) wcopy = kCopyTma;
     }
-    return launch_fwd_tc<F>(x, w, bias, table, out, sh, xcopy, wcopy, gain, st);
+    return launch_fwd_tc<F>(x, w, bias, table, out, sh, xcopy, wcopy, cluster, gain, st);
   });
 }
 
 // The weight element type: fp32, or the bf16 of a serving pack.
+// ``cluster``: the cluster size to launch, 0 for the search's.
 template <int L>
 cudaError_t launch_fwd_typed(const float* x, const void* w, const void* bias, const int* table,
-                             float* out, const FwdShape& sh, int bf16, float gain,
+                             float* out, const FwdShape& sh, int bf16, int cluster, float gain,
                              cudaStream_t st) {
   if (bf16) {
     return launch_fwd_tc_any<__nv_bfloat16, L>(x, (const __nv_bfloat16*)w,
-                                               (const __nv_bfloat16*)bias, table, out, sh, gain,
-                                               st);
+                                               (const __nv_bfloat16*)bias, table, out, sh,
+                                               cluster, gain, st);
   }
   return launch_fwd_tc_any<float, L>(x, (const float*)w, (const float*)bias, table, out, sh,
-                                     gain, st);
+                                     cluster, gain, st);
 }
 
 }  // namespace
@@ -1751,12 +1775,15 @@ int bcpnn_hc_softmax_plan(const float* s, const float* out, int m, int* plan) {
 }
 
 // ``bf16``: w and bias are __nv_bfloat16 (a bf16 serving pack), else float.
-// The cluster size the forward of ``layout`` (Layout: 0 dense, 1 patchy, 2
-// compact) takes for this shape on the current device, into *ks (phase 1
-// of chip_smoke.py prints it); Kc is the contraction's depth (Ni dense, K
-// = nact*Mi gathered).  Launches nothing.
+// The cluster sizes of the forward of ``layout`` (Layout: 0 dense, 1
+// patchy, 2 compact) for this shape on the current device: ks = {the one
+// the search takes (phase 1 of chip_smoke.py prints it), the least and the
+// most a caller may name}; Kc is the contraction's depth (Ni dense, K =
+// nact*Mi gathered).  Launches nothing.
 int bcpnn_fwd_cluster(int B, int Kc, int Hj, int Mj, int layout, int bf16, int* ks) {
   auto pick = [&](auto tile) {
+    const cudaError_t err = fwd_clusters<decltype(tile)>(Kc, Mj, ks + 1, ks + 2);
+    if (err != cudaSuccess) return err;
     return fwd_cluster_size<decltype(tile)>(B, Kc, Hj, Mj, nullptr, ks);
   };
   auto typed = [&](auto layout_c) {
@@ -1768,24 +1795,30 @@ int bcpnn_fwd_cluster(int B, int Kc, int Hj, int Mj, int layout, int bf16, int* 
   return (int)typed(std::integral_constant<int, kDense>{});
 }
 
+// ``cluster``: the thread-block cluster size to launch, within
+// bcpnn_fwd_cluster's least and most (else cudaErrorInvalidValue, never
+// clamped); 0 for the search's.
 int bcpnn_fwd(const float* x, const void* w, const void* bias, float* out, int B, int Ni,
-              int Hj, int Mj, int bf16, float gain, void* stream) {
+              int Hj, int Mj, int bf16, int cluster, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
   const FwdShape sh = {B, Ni, Ni, Hj, Mj, 1, 0};
-  return (int)launch_fwd_typed<kDense>(x, w, bias, nullptr, out, sh, bf16, gain,
+  return (int)launch_fwd_typed<kDense>(x, w, bias, nullptr, out, sh, bf16, cluster, gain,
                                        (cudaStream_t)stream);
 }
 
 // x (B, Ni); w (Ni, Hj*Mj) dense-resident, or (Hj, K, Mj) when ``compact``;
-// table (Hj, nact) int32 with entries in [0, Ni/Mi).
+// table (Hj, nact) int32 with entries in [0, Ni/Mi); ``cluster`` as for
+// bcpnn_fwd.
 int bcpnn_patchy_fwd(const float* x, const void* w, const void* bias, const int* table,
                      float* out, int B, int Ni, int Hj, int Mj, int Mi, int nact, int compact,
-                     int bf16, float gain, void* stream) {
+                     int bf16, int cluster, float gain, void* stream) {
   if (B <= 0 || Hj <= 0 || Mj <= 0) return (int)cudaSuccess;
   const FwdShape sh = {B, Ni, nact * Mi, Hj, Mj, Mi, nact};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(compact ? launch_fwd_typed<kCompact>(x, w, bias, table, out, sh, bf16, gain, st)
-                       : launch_fwd_typed<kPatchy>(x, w, bias, table, out, sh, bf16, gain, st));
+  return (int)(compact ? launch_fwd_typed<kCompact>(x, w, bias, table, out, sh, bf16, cluster,
+                                                    gain, st)
+                       : launch_fwd_typed<kPatchy>(x, w, bias, table, out, sh, bf16, cluster,
+                                                   gain, st));
 }
 
 int bcpnn_update(const float* pij, const float* log_pi, const float* log_pj, const float* x,

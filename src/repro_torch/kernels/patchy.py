@@ -60,9 +60,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import tuning
 from ._build import (check_launch, check_table, library, require,
                      require_current_device, require_outputs, stream_ptr,
                      weight_dtype)
+from .bcpnn_fwd import LAST_CLUSTER, check_cluster
 from .ref import (ref_compact_forward, ref_compact_update, ref_patchy_forward,
                   ref_patchy_update)
 
@@ -74,7 +76,7 @@ LAUNCHES = {"patchy_forward": 0, "compact_forward": 0, "patchy_update": 0,
 
 def _forward(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
              table: torch.Tensor, mi: int, hj: int, mj: int, gain: float,
-             compact: bool) -> torch.Tensor:
+             compact: bool, cluster: int) -> torch.Tensor:
     require_current_device(x)
     dev = x.device
     b, ni = x.shape
@@ -84,32 +86,40 @@ def _forward(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     require(w, "w", (hj, nact * mi, mj) if compact else (ni, hj * mj), dev,
             wt)
     require(bias, "bias", (hj * mj,), dev, wt)
+    bf16 = wt == torch.bfloat16
+    cluster = tuning.plan(name, {"cluster": cluster}, b=b, ni=ni, n_hc=hj,
+                          n_mc=mj, nact=nact, mi=mi)["cluster"]
+    check_cluster(name, cluster, b, nact * mi, hj, mj, bf16,
+                  "compact" if compact else "patchy")
     out = torch.empty((b, hj * mj), dtype=torch.float32, device=dev)
     rc = library().bcpnn_patchy_fwd(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), table.data_ptr(),
-        out.data_ptr(), b, ni, hj, mj, mi, nact, int(compact),
-        int(wt == torch.bfloat16), ctypes.c_float(gain), stream_ptr(x))
+        out.data_ptr(), b, ni, hj, mj, mi, nact, int(compact), int(bf16),
+        cluster, ctypes.c_float(gain), stream_ptr(x))
     check_launch(rc, name)
     LAUNCHES[name] += 1
+    LAST_CLUSTER[name] = cluster
     return out
 
 
 def patchy_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    table: torch.Tensor, mi: int, hj: int, mj: int,
-                   gain: float = 1.0) -> torch.Tensor:
+                   gain: float = 1.0, *, cluster: int = 0) -> torch.Tensor:
     """x (B, Ni), dense-resident masked w (Ni, Hj*Mj), bias (Hj*Mj,),
-    table (Hj, nact) -> rates (B, Hj*Mj)."""
+    table (Hj, nact) -> rates (B, Hj*Mj).  ``cluster`` as for
+    ``bcpnn_fwd.bcpnn_fwd_cuda``."""
     if x.device.type == "cpu":
         return ref_patchy_forward(x, w, bias, table, mi, hj, mj, gain)
     return _forward("patchy_forward", x, w, bias, table, mi, hj, mj, gain,
-                    compact=False)
+                    compact=False, cluster=cluster)
 
 
 def compact_forward(x: torch.Tensor, w_c: torch.Tensor, bias: torch.Tensor,
                     table: torch.Tensor, mi: int,
-                    gain: float = 1.0) -> torch.Tensor:
+                    gain: float = 1.0, *, cluster: int = 0) -> torch.Tensor:
     """x (B, Ni), compact-resident w_c (Hj, K, Mj), bias (Hj*Mj,), table
-    (Hj, nact) -> rates (B, Hj*Mj)."""
+    (Hj, nact) -> rates (B, Hj*Mj).  ``cluster`` as for
+    ``bcpnn_fwd.bcpnn_fwd_cuda``."""
     if x.device.type == "cpu":
         return ref_compact_forward(x, w_c, bias, table, mi, gain)
     if w_c.dim() != 3:
@@ -117,7 +127,7 @@ def compact_forward(x: torch.Tensor, w_c: torch.Tensor, bias: torch.Tensor,
                          f"(Hj, K, Mj)")
     hj, _, mj = w_c.shape
     return _forward("compact_forward", x, w_c, bias, table, mi, hj, mj, gain,
-                    compact=True)
+                    compact=True, cluster=cluster)
 
 
 def _update(name: str, pij: torch.Tensor, log_pi: torch.Tensor,

@@ -29,8 +29,11 @@ through the derived serving pack.  This module is its int8 tier:
   post-HC, every shape and alignment taken (TMA where rows allow it,
   cp.async pieces or plain loads elsewhere; HCs past 128 columns in
   column chunks).  ``quant_fwd_plan`` says which tile height and cluster
-  size a shape takes.  The body makes the activation codes in the tile load,
-  accumulates exactly in int32, and ends in the fp32 epilogue ``(acc *
+  size a shape takes by the launcher's rule; a caller's plan, or the
+  autotune cache's (``tuning.py``), takes the place of the rule, and the
+  rates are the same bit for bit under every plan (integer sums).  The
+  body makes the activation codes in the tile load, accumulates exactly
+  in int32, and ends in the fp32 epilogue ``(acc *
   scale[j] * fp32(1/127) + b) * gain`` and the HC's softmax.  A CPU tensor
   takes the plain version; a CUDA tensor launches the kernel or raises.
 """
@@ -42,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.compact import gather_pre, unit_indices
+from . import tuning
 from ._build import (check_launch, check_table, library, require,
                      require_current_device, stream_ptr)
 
@@ -55,6 +59,9 @@ MAX_CLUSTER = 8  # blocks a thread-block cluster at most (csrc/quant.cu)
 # launched).
 LAUNCHES = {"quant_fwd": 0, "quant_compact_forward": 0,
             "quant_patchy_forward": 0}
+# The (rows, cluster) each entry point last passed to the C entry point
+# (0: the launcher's rule).
+LAST_PLAN = {name: (0, 0) for name in LAUNCHES}
 
 _DENSE, _PATCHY, _COMPACT = 0, 1, 2  # csrc/common.cuh Layout
 
@@ -144,9 +151,14 @@ def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
     b, ni = x.shape
     if layout == _DENSE:
         nact, k = 0, ni
+        dims = {}
     else:
         nact = check_table(table, hj, ni, mi, dev)
         k = nact * mi
+        dims = {"nact": nact, "mi": mi}
+    plan = tuning.plan(name, {"rows": rows, "cluster": cluster}, b=b, ni=ni,
+                       n_hc=hj, n_mc=mj, **dims)
+    rows, cluster = plan["rows"], plan["cluster"]
     if k > MAX_EXACT_K:
         raise ValueError(f"{name}: a {k}-term int8 contraction can overflow "
                          f"the int32 accumulator (at most {MAX_EXACT_K})")
@@ -168,6 +180,7 @@ def _launch(name: str, x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
         stream_ptr(x))
     check_launch(rc, name)
     LAUNCHES[name] += 1
+    LAST_PLAN[name] = (rows, cluster)
     return out
 
 
@@ -177,9 +190,10 @@ def quant_fwd(x: torch.Tensor, w_q: torch.Tensor, bias: torch.Tensor,
               cluster: int = 0) -> torch.Tensor:
     """x (B, Ni) fp32 rates, w_q (Ni, n_hc*n_mc) int8, bias (Nj,) and
     scale (n_hc,) fp32 -> rates (B, Nj): the int8 ``bcpnn_fwd``.
-    ``rows`` and ``cluster`` (CUDA only, for timing and tests): a block's
-    tile height (64 or 128 rows) and the thread-block cluster size (1 to
-    MAX_CLUSTER); 0 leaves either to the launcher (``quant_fwd_plan``)."""
+    ``rows`` and ``cluster`` (CUDA only): a block's tile height (64 or 128
+    rows) and the thread-block cluster size (1 to MAX_CLUSTER); both 0
+    take the autotune cache's plan for the shape (``tuning.py``), and a 0
+    the cache leaves is the launcher's (``quant_fwd_plan``)."""
     if x.device.type == "cpu":
         from .ref import ref_quant_fwd
         return ref_quant_fwd(x, w_q, bias, scale, n_hc, n_mc, gain)

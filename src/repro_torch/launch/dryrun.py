@@ -43,17 +43,20 @@ Each cell writes one JSON record:
   outputs are the argument tensors themselves).
 * ``roofline.flops``: the FLOPs this rank runs, by torch's FLOP formulas
   (``torch.utils.flop_counter``, the counter of ``FlopCounterMode``) over
-  every operation on this rank's blocks; ``coll_bytes`` and
-  ``coll_detail``: the bytes of the functional collectives DTensor issues,
-  the larger of a collective's operand and result (an all-reduce counted
-  twice), by the JAX names; ``model_flops_per_chip`` and ``useful_ratio``
-  as JAX computes them (``launch/roofline.py``).
+  every operation on this rank's blocks, and ``flops_by_dtype`` by the
+  dtype of each counted operation's operands; ``bytes``: the bytes of
+  every operation's results on this rank times 2 for their reads, the JAX
+  rule (a view writes nothing, an in-place or ``out=`` operation the
+  bytes it writes); ``coll_bytes`` and ``coll_detail``: the bytes of the
+  functional collectives DTensor issues, the larger of a collective's
+  operand and result (an all-reduce counted twice), by the JAX names;
+  ``compute_s``, ``memory_s``, ``collective_s`` and ``bottleneck``: those
+  counts priced with the H100's peaks (``launch/roofline.py::analyze``);
+  ``model_flops_per_chip`` and ``useful_ratio`` as JAX computes them.
 * ``fits_80GB``: the peak is at most 80 GiB, the memory of one rank of an
   NVIDIA H100 80GB HBM3.
-* ``lacks``: the keys of the JAX record that have no counterpart here and
-  are not written: the compiled code's size, the HLO's HBM ``bytes``, and
-  the time terms and ``bottleneck``, which need the card's measured rates
-  (none of a TPU's enters the port).
+* ``lacks``: the key of the JAX record that has no counterpart here and is
+  not written: the compiled code's size (nothing is compiled).
 
 A cell that fails is recorded with its error and the sweep goes on; the
 process exits 1 if any cell failed.
@@ -68,7 +71,7 @@ import time
 import traceback
 import weakref
 from contextlib import contextmanager
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -78,8 +81,9 @@ from torch.utils.flop_counter import flop_registry
 from ..configs import ARCHS, SHAPES, get_config
 from ..configs.base import ModelConfig, ShapeConfig
 from ..convert import lm_leaf_groups
-from ..distributed.sharding import (Mesh, _is_collective, make_rules,
-                                    place_like, sharding_context, split_mesh)
+from ..distributed.sharding import (_COLLECTIVE_NS, Mesh, _is_collective,
+                                    make_rules, place_like, sharding_context,
+                                    split_mesh)
 from ..models import lm
 from ..models.params import distribute_params
 from ..optim import AdamWConfig, init_opt_state
@@ -92,9 +96,7 @@ from .train import batch_dims
 RANK_MEMORY_BYTES = 80 * 2**30
 RANK_DEVICE = "NVIDIA H100 80GB HBM3"
 # Keys of the JAX record this one cannot fill.
-LACKS = ("memory.generated_code_size_in_bytes", "roofline.bytes",
-         "roofline.compute_s", "roofline.memory_s", "roofline.collective_s",
-         "roofline.bottleneck")
+LACKS = ("memory.generated_code_size_in_bytes",)
 DEFAULT_OUT = "experiments/dryrun_torch"
 # The functional collectives by the JAX (HLO) names of the record.
 _COLLECTIVE_NAMES = {"all_gather_into_tensor": "all-gather",
@@ -230,25 +232,55 @@ def _tree_bytes(tree) -> int:
     return n
 
 
+_EFFECTS: Dict[Any, Tuple[Tuple[Tuple[int, str], ...], Tuple[bool, ...]]] = {}
+# Operators whose schema declares a fresh result that is a view of their
+# argument all the same (autograd's reshape of a result it just made).
+_UNANNOTATED_VIEWS = ("_unsafe_view",)
+
+
+def _effects(func):
+    """What an operator writes, from its schema's alias annotations (kept
+    per operator): the (position, name) of each argument it writes (an
+    in-place or ``out=`` operation), and for each return whether it is a
+    fresh tensor (no annotation) rather than a view of an argument.
+    ``wait_tensor`` and the other non-collectives of the collectives'
+    namespaces return a collective's result, already counted; the
+    ``_UNANNOTATED_VIEWS`` return views."""
+    got = _EFFECTS.get(func)
+    if got is None:
+        schema = func._schema
+        written = tuple((i, a.name) for i, a in enumerate(schema.arguments)
+                        if a.alias_info is not None and a.alias_info.is_write)
+        fresh = tuple(r.alias_info is None for r in schema.returns)
+        if (func.namespace in _COLLECTIVE_NS and not _is_collective(func)
+                or func._overloadpacket.__name__ in _UNANNOTATED_VIEWS):
+            written, fresh = (), tuple(False for _ in fresh)
+        got = _EFFECTS[func] = (written, fresh)
+    return got
+
+
 class StepMeter(TorchDispatchMode):
     """Meters a step run on fake tensors, on this rank's blocks only: the
     bytes of fake storage alive (``live``, its highest ``peak``), each
     storage counted from the operation that makes it until it is freed
     (``track``: arguments are tracked before the step starts); the FLOPs
-    of every operation with a formula in ``torch.utils.flop_counter``
-    (``flops``); and the functional collectives (``coll_bytes``,
-    ``coll_detail`` by JAX name, ``coll_counts``).  DTensor operations pass
-    through to DTensor, whose operations on the local blocks come back
-    here; DTensor's sharding propagation runs on global-shape fake tensors
-    outside every mode (``isolated_propagation``), so nothing of it is
-    counted."""
+    of every operation with a formula in ``torch.utils.flop_counter``, by
+    the dtype of its first tensor operand (``flops_by_dtype``); the bytes the operations write (``result_bytes``: each fresh
+    result whole, each argument an in-place or ``out=`` operation writes,
+    a view nothing; ``_effects``); and the functional collectives
+    (``coll_bytes``, ``coll_detail`` by JAX name, ``coll_counts``).
+    DTensor operations pass through to DTensor, whose operations on the
+    local blocks come back here; DTensor's sharding propagation runs on
+    global-shape fake tensors outside every mode
+    (``isolated_propagation``), so nothing of it is counted."""
 
     def __init__(self):
         super().__init__()
         from torch.utils.weak import WeakIdKeyDictionary
         self._seen = WeakIdKeyDictionary()
         self.live = self.peak = 0
-        self.flops = 0
+        self.flops_by_dtype: Dict[str, int] = collections.Counter()
+        self.result_bytes = 0
         self.coll_bytes = 0.0
         self.coll_detail: Dict[str, float] = collections.Counter()
         self.coll_counts: Dict[str, int] = collections.Counter()
@@ -277,7 +309,22 @@ class StepMeter(TorchDispatchMode):
         out = func(*args, **kwargs)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += int(formula(*args, **kwargs, out_val=out))
+            n = int(formula(*args, **kwargs, out_val=out))
+            operand = next(_tensors(args), None)
+            dtype = (operand if operand is not None
+                     else next(_tensors(out))).dtype
+            self.flops_by_dtype[str(dtype).replace("torch.", "")] += n
+        written, fresh = _effects(func)
+        for i, name in written:
+            self.result_bytes += _tree_bytes_plain(
+                args[i] if i < len(args) else kwargs.get(name))
+        if fresh == (True,) and isinstance(out, torch.Tensor):
+            self.result_bytes += out.numel() * out.element_size()
+        else:
+            outs = (out,) if len(fresh) == 1 else out if fresh else ()
+            for o, new in zip(outs, fresh):
+                if new:
+                    self.result_bytes += _tree_bytes_plain(o)
         if _is_collective(func):
             name = func._overloadpacket.__name__
             nbytes = max(_tree_bytes_plain(args[0]), _tree_bytes_plain(out))
@@ -370,8 +417,9 @@ def _args_of(kind: str, cfg: ModelConfig, shape: ShapeConfig, dev):
 def fake_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
               rules) -> Dict[str, Any]:
     """Run the cell's step on this rank of ``mesh`` under fake tensors and
-    meter it: {"arguments": bytes by input, "memory": {...}, "flops",
-    "coll_bytes", "coll_detail", "coll_counts"}.  The arguments' bytes
+    meter it: {"arguments": bytes by input, "memory": {...},
+    "flops_by_dtype", "result_bytes", "coll_bytes", "coll_detail",
+    "coll_counts"}.  The arguments' bytes
     must equal ``holdings``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     dev = torch.device("cpu")
@@ -396,7 +444,8 @@ def fake_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                    "output_size_in_bytes": out_bytes,
                    "temp_size_in_bytes": meter.peak - arg_bytes,
                    "peak_memory_in_bytes": meter.peak},
-        "flops": meter.flops, "coll_bytes": meter.coll_bytes,
+        "flops_by_dtype": dict(meter.flops_by_dtype),
+        "result_bytes": meter.result_bytes, "coll_bytes": meter.coll_bytes,
         "coll_detail": dict(meter.coll_detail),
         "coll_counts": dict(meter.coll_counts),
     }
@@ -457,17 +506,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         rules = rules_for(cfg, shape, mesh, variant)
         got = fake_step(cfg, shape, mesh, rules)
         mflops = rf.model_flops(cfg, shape)
-        mf = mflops / max(1, n_chips)
+        roof = rf.analyze(got["flops_by_dtype"], got["result_bytes"],
+                          got["coll_bytes"], got["coll_detail"],
+                          model_flops_global=mflops, n_chips=n_chips)
         peak = got["memory"]["peak_memory_in_bytes"]
         record.update(
             memory=got["memory"], arguments=got["arguments"],
-            roofline={"flops": float(got["flops"]),
-                      "coll_bytes": got["coll_bytes"],
-                      "coll_detail": got["coll_detail"],
-                      "coll_counts": got["coll_counts"],
-                      "model_flops_per_chip": mf,
-                      "useful_ratio": (mf / got["flops"]) if got["flops"]
-                      else 0.0},
+            roofline={**roof.to_dict(), "coll_counts": got["coll_counts"]},
             model_flops_global=mflops, n_chips=n_chips,
             fits_80GB=peak <= RANK_MEMORY_BYTES,
             fits_on=f"one rank of an {RANK_DEVICE} ({RANK_MEMORY_BYTES} "
@@ -477,11 +522,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         record["trace_s"] = round(time.time() - t0, 1)
         record["status"] = "ok"
         print(f"[dryrun] {tag}: OK  trace={record['trace_s']}s "
+              f"bottleneck={roof.bottleneck} terms(ms): "
+              f"c={roof.compute_s * 1e3:.2f} m={roof.memory_s * 1e3:.2f} "
+              f"coll={roof.collective_s * 1e3:.2f} "
               f"args={got['memory']['argument_size_in_bytes'] / 2**30:.2f}"
               f"GiB peak={peak / 2**30:.2f}GiB fits_80GB="
-              f"{record['fits_80GB']} flops={got['flops']:.3e} coll="
-              f"{got['coll_bytes']:.3e}B useful="
-              f"{record['roofline']['useful_ratio']:.2f}", flush=True)
+              f"{record['fits_80GB']} flops={roof.flops:.3e} coll="
+              f"{roof.coll_bytes:.3e}B useful={roof.useful_ratio:.2f}",
+              flush=True)
     except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
         record["status"] = "failed"
         record["error"] = f"{type(e).__name__}: {e}"

@@ -1983,3 +1983,140 @@ def test_kernels_over_the_hostile_geometry_sweep(gen):
             for hj, mj in plans._HC_GEOMS:
                 problems += plans.check_wrappers("cuda", b, hi, mi, hj, mj, 2)
     assert problems == []
+
+
+# ----------------------------------------------------- launch plans ----
+# The autotune cache (``kernels/tuning.py``) in a temporary file: a cached
+# plan is the plan launched, an explicit keyword wins over it, and a
+# cluster outside the shape's range raises (never clamped).  Another
+# cluster of the float forward sums in another fp32 order, so its rates
+# are held to the forward's 1e-5; the int8 rates are the same bit for bit
+# under every plan.
+
+
+@pytest.fixture
+def plan_cache(gen, tmp_path, monkeypatch):
+    from repro_torch.kernels import tuning
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv(tuning.ENV_CACHE, str(path))
+    return path
+
+
+def test_a_cached_int8_plan_is_the_plan_launched(gen, plan_cache):
+    from repro_torch.kernels import quant, tuning
+    b, ni, hj, mj = M3_HIDDEN
+    x = _rand(gen, b, ni)
+    w_q = _codes(gen, ni, hj * mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    rule = quant.quant_fwd_plan(x, w_q, hj, mj)
+    first = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert quant.LAST_PLAN["quant_fwd"] == (0, 0)  # no file: the rule
+    forced = (64 if rule[0] == 128 else 128, 3 if rule[1] != 3 else 2)
+    tuning.save_entries({tuning.entry_key("quant_fwd", b=b, ni=ni, n_hc=hj,
+                                          n_mc=mj): {"rows": forced[0],
+                                                     "cluster": forced[1]}})
+    got = ops.quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert quant.LAST_PLAN["quant_fwd"] == forced != rule
+    assert torch.equal(got, first)
+    assert torch.equal(ops.quant_fwd(x, w_q, bias, scale, hj, mj,
+                                     rows=rule[0], cluster=rule[1]), first)
+    assert quant.LAST_PLAN["quant_fwd"] == rule  # an explicit plan wins
+    want = ref.ref_quant_fwd(x, w_q, bias, scale, hj, mj)
+    assert (got - want).abs().max().item() <= QUANT_TOL
+    # the gathered layouts, keyed with nact and mi too
+    bs, hi, mi, hj, mj, nact = PATCHY_SHAPES[0]
+    xs = _rand(gen, bs, hi * mi)
+    table = build_table(topk_mask(_rand(gen, hi, hj), nact), nact)
+    w_c = _codes(gen, hj, nact * mi, mj)
+    bias, scale = _quant_operands(gen, hj, hj * mj)
+    first = ops.quant_compact_forward(xs, w_c, bias, scale, table, mi)
+    tuning.save_entries({tuning.entry_key(
+        "quant_compact_forward", b=bs, ni=hi * mi, n_hc=hj, n_mc=mj,
+        nact=nact, mi=mi): {"rows": 64, "cluster": 2}})
+    got = ops.quant_compact_forward(xs, w_c, bias, scale, table, mi)
+    assert quant.LAST_PLAN["quant_compact_forward"] == (64, 2)
+    assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("layout", ["dense", "patchy", "compact"])
+def test_a_cached_cluster_is_the_cluster_launched(gen, plan_cache, layout):
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.bcpnn_fwd import (LAST_CLUSTER, cluster_range,
+                                               cluster_size)
+    if layout == "dense":
+        b, ni, hj, mj = M3_HIDDEN
+        x, w, bias = _rand(gen, b, ni), _randn(gen, ni, hj * mj) * 0.1, \
+            _randn(gen, hj * mj)
+        name, k, dims = "bcpnn_fwd", ni, {}
+        call = lambda **kw: ops.bcpnn_fwd(x, w, bias, hj, mj, **kw)
+        plain = ref.ref_bcpnn_fwd(x, w, bias, hj, mj)
+    else:
+        b, hi, mi, hj, mj, nact = PATCHY_SHAPES[0]
+        ni, k = hi * mi, nact * mi
+        x, bias = _rand(gen, b, ni), _randn(gen, hj * mj)
+        table = build_table(topk_mask(_rand(gen, hi, hj), nact), nact)
+        dims = {"nact": nact, "mi": mi}
+        if layout == "patchy":
+            w = _randn(gen, ni, hj * mj) * 0.1
+            name = "patchy_forward"
+            call = lambda **kw: ops.patchy_forward(x, w, bias, table, mi, hj,
+                                                   mj, **kw)
+            plain = ref.ref_patchy_forward(x, w, bias, table, mi, hj, mj)
+        else:
+            w = _randn(gen, hj, k, mj) * 0.1
+            name = "compact_forward"
+            call = lambda **kw: ops.compact_forward(x, w, bias, table, mi,
+                                                    **kw)
+            plain = ref.ref_compact_forward(x, w, bias, table, mi)
+    rule = cluster_size(b, k, hj, mj, layout=layout)
+    lo, hi_ks = cluster_range(b, k, hj, mj, layout=layout)
+    assert lo <= rule <= hi_ks <= 8
+    first = call()
+    assert LAST_CLUSTER[name] == 0
+    # every size the shape allows, named: within the forward's 1e-5 of the
+    # plain version, and each repeat the same bit for bit
+    by_size = {}
+    for ks in range(lo, hi_ks + 1):
+        got = call(cluster=ks)
+        assert LAST_CLUSTER[name] == ks
+        assert (got - plain).abs().max().item() <= 1e-5, ks
+        assert torch.equal(call(cluster=ks), got)
+        by_size[ks] = got
+    assert torch.equal(by_size[rule], first)
+    forced = next((ks for ks in range(lo, hi_ks + 1) if ks != rule), rule)
+    tuning.save_entries({tuning.entry_key(name, b=b, ni=ni, n_hc=hj, n_mc=mj,
+                                          **dims): {"cluster": forced}})
+    got = call()
+    assert LAST_CLUSTER[name] == forced
+    assert torch.equal(got, by_size[forced])
+    call(cluster=rule)  # an explicit cluster wins over the cache
+    assert LAST_CLUSTER[name] == rule
+
+
+def test_a_cluster_out_of_range_raises(gen, plan_cache):
+    import ctypes
+    from repro_torch.kernels import _build, tuning
+    from repro_torch.kernels.bcpnn_fwd import cluster_range
+    b, ni, hj, mj = 128, 1568, 32, 128
+    x, w, bias = _rand(gen, b, ni), _randn(gen, ni, hj * mj) * 0.1, \
+        _randn(gen, hj * mj)
+    lo, hi = cluster_range(b, ni, hj, mj)
+    for bad in (hi + 1, 9, -1) + ((lo - 1,) if lo > 1 else ()):
+        with pytest.raises(ValueError, match="cluster"):
+            ops.bcpnn_fwd(x, w, bias, hj, mj, cluster=bad)
+    # the C entry point refuses it too, without the wrapper's check
+    out = torch.empty((b, hj * mj), device="cuda")
+    rc = _build.library().bcpnn_fwd(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, ni,
+        hj, mj, 0, hi + 1, ctypes.c_float(1.0), _build.stream_ptr(x))
+    assert rc == 1  # cudaErrorInvalidValue
+    # a cached size out of range raises as a named one does
+    tuning.save_entries({tuning.entry_key("bcpnn_fwd", b=b, ni=ni, n_hc=hj,
+                                          n_mc=mj): {"cluster": hi + 1}})
+    with pytest.raises(ValueError, match="cluster"):
+        ops.bcpnn_fwd(x, w, bias, hj, mj)
+    w_q = _codes(gen, ni, hj * mj)
+    qb, scale = _quant_operands(gen, hj, hj * mj)
+    for kw in ({"cluster": 9}, {"rows": 32}):
+        with pytest.raises(ValueError):
+            ops.quant_fwd(x, w_q, qb, scale, hj, mj, **kw)

@@ -7,8 +7,11 @@ architecture on (2, 16, 16).
 Each cell is ``ok`` (``long_500k`` skipped with JAX's reason where the
 architecture is full-attention), its arguments the bytes its placements
 give (``holdings``, checked inside the cell), its peak at least its
-arguments, and it counts FLOPs and collective bytes; each record lists
-the JAX keys it lacks.  The (data, model)-split decode of a sequence-split
+arguments, and it counts FLOPs and collective bytes and prices them
+(``bytes``, the three time terms, ``bottleneck`` the largest); each
+record lists the one JAX key it lacks, the compiled code's size.
+``scripts/make_tables.py``, the JAX package's table tool, renders the
+records.  The (data, model)-split decode of a sequence-split
 cache that the production decode cells take is held against one rank in
 ``test_torch_dryrun_c.py``."""
 from __future__ import annotations
@@ -71,13 +74,15 @@ def _check_ok(rec):
         rec["model_flops_global"] / rec["n_chips"] / roof["flops"])
     assert rec["fits_80GB"] == (mem["peak_memory_in_bytes"] <= 80 * 2**30)
     assert "H100 80GB HBM3" in rec["fits_on"]
-    assert set(rec["lacks"]) == {
-        "memory.generated_code_size_in_bytes", "roofline.bytes",
-        "roofline.compute_s", "roofline.memory_s", "roofline.collective_s",
-        "roofline.bottleneck"}
+    assert set(rec["lacks"]) == {"memory.generated_code_size_in_bytes"}
     for key in rec["lacks"]:
         section, name = key.split(".")
         assert name not in rec.get(section, {})
+    terms = {"compute": roof["compute_s"], "memory": roof["memory_s"],
+             "collective": roof["collective_s"]}
+    assert roof["bytes"] > 0 and all(t > 0 for t in terms.values())
+    assert terms[roof["bottleneck"]] == max(terms.values())
+    assert sum(roof["flops_by_dtype"].values()) == roof["flops"]
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -106,3 +111,25 @@ def test_every_shape_of_a_dense_moe_and_ssm_arch(records, kind, arch, mesh,
                 "prefill_32k": {"params", "batch"}}.get(
             shape, {"params", "cache", "tokens"})
         assert set(rec["arguments"]) == want, shape
+
+
+def test_make_tables_renders_the_records(records, tmp_path):
+    """The JAX package's ``scripts/make_tables.py``, imported by path and
+    unedited, renders one row per record of the port's dry run."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_tables", ROOT / "scripts" / "make_tables.py")
+    tables = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tables)
+    for name, rec in records.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(rec))
+    rows = tables.fmt(str(tmp_path)).splitlines()
+    assert len(rows) == len(records)
+    ok = [r for r in records.values() if r["status"] == "ok"]
+    assert sum(" | FAILED | " in row for row in rows) == 0
+    assert sum(" | skipped | " in row for row in rows) == len(records) - len(ok)
+    for r in ok:
+        rf = r["roofline"]
+        row = (f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+               f"{rf['bottleneck']} | {rf['compute_s'] * 1e3:.1f} | ")
+        assert any(line.startswith(row) for line in rows), row

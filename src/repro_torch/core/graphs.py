@@ -31,6 +31,10 @@ capture; ``StepProgram`` keeps the rest true between replays:
   and of the generator, so the state starts as it was, and its launches
   are not counted.
 
+Each program counts its captures (``captures``), and a capture, warm-up
+included, is the span ``repro_torch.step.capture`` (``obs.span``); a
+replay has no span of its own.
+
 The clock's host mirror (``Traces.t_host``) and the rewire are the
 caller's, after each replay (``core/trainer.py``).  Capture or replay
 failures raise: nothing falls back to the eager step on the card.
@@ -44,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from .bcpnn_layer import InferPack, Projection, is_patchy
 from .compact import build_table, cached_table
 from .network import (DeepState, InferParams, NetworkSpec, infer_packed,
@@ -119,6 +124,7 @@ class StepProgram:
         self.spec = spec
         self.draws_noise = draws_noise
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0  # graphs captured, the last one held
 
     def _holds(self, state: DeepState,
                batch: Sequence[torch.Tensor]) -> bool:
@@ -172,7 +178,9 @@ class StepProgram:
         """Capture for ``state`` and batches like ``batch`` unless done
         (nothing on the CPU)."""
         if state.device.type == "cuda" and not self._holds(state, batch):
-            self._capture(state, batch)
+            with obs.span("repro_torch.step.capture"):
+                self._capture(state, batch)
+            self.captures += 1
 
     def __call__(self, state: DeepState, *batch: torch.Tensor) -> None:
         if state.device.type != "cuda":

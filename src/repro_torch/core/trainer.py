@@ -51,6 +51,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..checkpoint import CheckpointManager, spec_manifest
 from ..device import DeviceLike, resolve_device
 from ..distributed.fault import StepTimer
@@ -149,8 +150,9 @@ def _projection_epoch(program: StepProgram, state: DeepState,
     for b in range(nb):
         nz = () if noise is None else (noise[b],)
         if valid is not None and b == nb - 1:  # the padded tail
-            state = learn_projection_step(state, spec, hs[b], layer, valid[b],
-                                          *nz, donate=True)
+            with obs.span("repro_torch.step.eager"):
+                state = learn_projection_step(state, spec, hs[b], layer,
+                                              valid[b], *nz, donate=True)
         else:
             program(state, hs[b], *nz)
             state = _tick(state, layer)
@@ -221,8 +223,9 @@ def _supervised_epoch(state: DeepState, spec: NetworkSpec, xs: torch.Tensor,
     nb = xs.shape[0]
     for b in range(nb):
         if valid is not None and b == nb - 1:  # the padded tail
-            state = supervised_readout_step(state, spec, xs[b], ys[b],
-                                            valid[b], donate=True)
+            with obs.span("repro_torch.step.eager"):
+                state = supervised_readout_step(state, spec, xs[b], ys[b],
+                                                valid[b], donate=True)
         else:
             program(state, xs[b], ys[b])
             state = _tick(state, None)
@@ -449,18 +452,57 @@ class Trainer:
         data axis), only the first rank on the axis writes checkpoints, and
         every rank waits for each write before ``on_chunk``.
 
-        Returns the JAX trainer's timing keys, the first fit's capture
-        included; with a mesh also ``comm_s``, the host time of the fit's
-        collectives (``group.DataAxis.gather``).
+        Returns host-clock seconds and counts:
+
+        * ``unsup_s`` and ``sup_s``, the JAX trainer's keys: the
+          unsupervised epochs and the supervised pass, each ending in a
+          wait for the card, the first fit's captures included;
+        * ``train_ms_per_img``, the JAX key with its JAX meaning: ``unsup_s``
+          over the unsupervised images (genuine rows x epochs x depth), the
+          unsupervised time only, without the supervised pass or the
+          preparation;
+        * ``pad_s``, the zero-padding to whole batches on the host, and
+          ``h2d_s``, the copies of the padded arrays to the fit's device;
+        * ``captures``, the steps the fit's programs captured: 0 once they
+          hold this state and batch shape;
+        * ``straggler_events``; with a mesh also ``comm_s``, the host time
+          of the fit's collectives (``group.DataAxis.gather``).
+
+        The fit's phases are spans (``obs.span``): ``repro_torch.fit`` the
+        whole call, ``.fit.pad``, ``.fit.h2d``, ``.fit.unsup`` and
+        ``.fit.sup`` the phases timed above, ``.fit.epoch`` a chunk from
+        its first launch to the end of its ``.fit.sync``, and
+        ``repro_torch.step.eager`` the padded tail's masked step.  Its
+        report (``obs.FitReport``) joins ``obs.FITS``.
         """
+        with obs.span("repro_torch.fit"):
+            return self._fit(x_train, y_train, epochs, batch, log, ckpt_dir,
+                             ckpt_every_batches, resume, on_chunk)
+
+    def _captures(self) -> int:
+        """Captures made so far by the step programs of the epoch
+        programs."""
+        return sum(p.captures for p in self._epoch_cache.values()
+                   if isinstance(p, StepProgram))
+
+    def _fit(self, x_train, y_train, epochs, batch, log, ckpt_dir,
+             ckpt_every_batches, resume, on_chunk) -> Dict[str, float]:
+        from ..kernels import ops
         dev = self.device
-        xs_np, valid_np = _batchify_padded(np.asarray(x_train, np.float32),
-                                           batch)
-        ys_np, _ = _batchify_padded(np.asarray(y_train, np.int32), batch)
-        masked = bool(float(valid_np.min()) < 1.0)
-        xs = torch.from_numpy(xs_np).to(dev)
-        ys = torch.from_numpy(ys_np).to(dev)
-        valid = torch.from_numpy(valid_np).to(dev)
+        captures0 = self._captures()
+        launches0 = ops.launch_counts()
+        fit0 = time.perf_counter()
+        with obs.span("repro_torch.fit.pad"):
+            xs_np, valid_np = _batchify_padded(
+                np.asarray(x_train, np.float32), batch)
+            ys_np, _ = _batchify_padded(np.asarray(y_train, np.int32), batch)
+            masked = bool(float(valid_np.min()) < 1.0)
+            pad1 = time.perf_counter()
+        with obs.span("repro_torch.fit.h2d"):
+            xs = torch.from_numpy(xs_np).to(dev)
+            ys = torch.from_numpy(ys_np).to(dev)
+            valid = torch.from_numpy(valid_np).to(dev)
+            h2d1 = time.perf_counter()
         nb = int(xs.shape[0])
         ax = None
         if self.mesh is not None:
@@ -522,14 +564,16 @@ class Trainer:
                      else min(ckpt_every_batches, nb - b0))
                 end = b0 + n
                 timer.start()
-                if masked and end == nb:
-                    self.state = tail(self.state,
-                                      *(op[b0:end] for op in operands),
-                                      valid[b0:end])
-                else:
-                    self.state = plain(self.state,
-                                       *(op[b0:end] for op in operands))
-                _sync(dev)
+                with obs.span("repro_torch.fit.epoch"):
+                    if masked and end == nb:
+                        self.state = tail(self.state,
+                                          *(op[b0:end] for op in operands),
+                                          valid[b0:end])
+                    else:
+                        self.state = plain(self.state,
+                                           *(op[b0:end] for op in operands))
+                    with obs.span("repro_torch.fit.sync"):
+                        _sync(dev)
                 timer.stop(int(self.state.step), tag=tag)
                 b0 = end
                 cur = cursor_at(b0)
@@ -538,66 +582,84 @@ class Trainer:
                     on_chunk(cur)
 
         depth = self.spec.depth
-        t0 = time.perf_counter()
-        if cursor.phase == "unsupervised":
-            # ``cur`` holds the dataset's rates at the current layer's
-            # input, computed once per greedy phase (the layers below are
-            # frozen), and recomputed up to the cursor on resume.
-            cur = xs
-            for l in range(cursor.layer):
-                cur = _propagate_batches(self.state, self.spec, cur, l)
-            for layer in range(cursor.layer, depth):
-                first = layer == cursor.layer
-                plain = self._unsup_fn(layer, False)
-                tail = self._unsup_fn(layer, True) if masked else None
-                for e in range(cursor.epoch if first else 0, epochs):
-                    start_b = (cursor.batch if first and e == cursor.epoch
-                               else 0)
-
-                    def cursor_at(b, layer=layer, e=e):
-                        if b < nb:
-                            return FitCursor("unsupervised", layer, e, b)
-                        if e + 1 < epochs:
-                            return FitCursor("unsupervised", layer, e + 1, 0)
-                        if layer + 1 < depth:
-                            return FitCursor("unsupervised", layer + 1, 0, 0)
-                        return FitCursor("supervised", depth, 0, 0)
-
-                    run_epoch(plain, tail, (local(cur),), start_b,
-                              f"unsup/L{layer}/e{e}", cursor_at)
-                    if log:
-                        print(f"  layer {layer + 1}/{depth} "
-                              f"unsupervised epoch {e + 1}/{epochs} done")
-                if layer + 1 < depth:
+        with obs.span("repro_torch.fit.unsup"):
+            t0 = time.perf_counter()
+            if cursor.phase == "unsupervised":
+                # ``cur`` holds the dataset's rates at the current layer's
+                # input, computed once per greedy phase (the layers below
+                # are frozen), and recomputed up to the cursor on resume.
+                cur = xs
+                for l in range(cursor.layer):
                     cur = _propagate_batches(self.state, self.spec, cur,
-                                             layer)
-            cursor = FitCursor("supervised", depth, 0, 0)
-        _sync(dev)
-        t1 = time.perf_counter()
-        if cursor.phase == "supervised":
-            def sup_cursor_at(b):
-                if b < nb:
-                    return FitCursor("supervised", depth, 0, b)
-                return FitCursor("done", depth, 0, 0)
+                                             l)
+                for layer in range(cursor.layer, depth):
+                    first = layer == cursor.layer
+                    plain = self._unsup_fn(layer, False)
+                    tail = (self._unsup_fn(layer, True) if masked
+                            else None)
+                    for e in range(cursor.epoch if first else 0, epochs):
+                        start_b = (cursor.batch
+                                   if first and e == cursor.epoch else 0)
 
-            run_epoch(self._sup_fn(False),
-                      self._sup_fn(True) if masked else None,
-                      (local(xs), local(ys)),
-                      cursor.batch, "sup/readout", sup_cursor_at)
-            cursor = FitCursor("done", depth, 0, 0)
-        _sync(dev)
-        t2 = time.perf_counter()
+                        def cursor_at(b, layer=layer, e=e):
+                            if b < nb:
+                                return FitCursor("unsupervised", layer, e, b)
+                            if e + 1 < epochs:
+                                return FitCursor("unsupervised", layer,
+                                                 e + 1, 0)
+                            if layer + 1 < depth:
+                                return FitCursor("unsupervised", layer + 1,
+                                                 0, 0)
+                            return FitCursor("supervised", depth, 0, 0)
+
+                        run_epoch(plain, tail, (local(cur),), start_b,
+                                  f"unsup/L{layer}/e{e}", cursor_at)
+                        if log:
+                            print(f"  layer {layer + 1}/{depth} "
+                                  f"unsupervised epoch {e + 1}/{epochs} "
+                                  f"done")
+                    if layer + 1 < depth:
+                        cur = _propagate_batches(self.state, self.spec, cur,
+                                                 layer)
+                cursor = FitCursor("supervised", depth, 0, 0)
+            _sync(dev)
+            t1 = time.perf_counter()
+        with obs.span("repro_torch.fit.sup"):
+            if cursor.phase == "supervised":
+                def sup_cursor_at(b):
+                    if b < nb:
+                        return FitCursor("supervised", depth, 0, b)
+                    return FitCursor("done", depth, 0, 0)
+
+                run_epoch(self._sup_fn(False),
+                          self._sup_fn(True) if masked else None,
+                          (local(xs), local(ys)),
+                          cursor.batch, "sup/readout", sup_cursor_at)
+                cursor = FitCursor("done", depth, 0, 0)
+            _sync(dev)
+            t2 = time.perf_counter()
         save(cursor, every=False)
         n_img = int(valid_np.sum())
+        captures = self._captures() - captures0
         stats = {
             "unsup_s": t1 - t0,
             "sup_s": t2 - t1,
             "train_ms_per_img": 1e3 * (t1 - t0)
             / max(1, n_img * epochs * depth),
+            "pad_s": pad1 - fit0,
+            "h2d_s": h2d1 - pad1,
+            "captures": float(captures),
             "straggler_events": float(len(timer.events)),
         }
         if ax is not None:
             stats["comm_s"] = ax.comm_s - comm0
+        launches = ops.launch_counts()
+        obs.FITS.append(obs.FitReport(
+            t0=fit0, t1=time.perf_counter(), pad=(fit0, pad1),
+            h2d=(pad1, h2d1), unsup=(t0, t1), sup=(t1, t2),
+            captures=captures,
+            launches={k: n - launches0[k] for k, n in launches.items()
+                      if n != launches0[k]}))
         return stats
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,

@@ -43,6 +43,11 @@ from .ref import ref_bcpnn_fwd
 
 # Kernel launches in this process (only where the kernel is launched).
 LAUNCHES = 0
+# The device kernels one call launches, as patterns (``re.search``) of the
+# profiler's names for them, each starting with its ``__global__``: the
+# forward body's dense instantiation (``FwdTile<BN, T, L>`` at ``Layout``
+# 0, csrc/common.cuh); ``patchy.py``'s forwards launch it at 1 and 2.
+DEVICE_KERNELS = (r"bcpnn_fwd_tc_kernel<.*FwdTile<\d+, \w+, 0>",)
 # The cluster size each forward (this one, ``patchy_forward``,
 # ``compact_forward``) last passed to its C entry point (0: the search's).
 LAST_CLUSTER = {"bcpnn_fwd": 0, "patchy_forward": 0, "compact_forward": 0}

@@ -47,6 +47,11 @@ from .ref import ref_bcpnn_update
 
 # Kernel launches in this process (only where the kernel is launched).
 LAUNCHES = 0
+# The device kernels one call launches, as patterns (``re.search``) of the
+# profiler's names for them, each starting with its ``__global__``: the
+# update body's dense instantiation (``Layout`` 0, csrc/common.cuh);
+# ``patchy.py``'s updates launch the same body at layouts 1 and 2.
+DEVICE_KERNELS = (r"trace_update_kernel<0,",)
 
 
 def bcpnn_update_cuda(pij: torch.Tensor, log_pi: torch.Tensor,

@@ -25,6 +25,10 @@ from .ref import ref_hc_softmax
 
 # Kernel launches in this process (only where the kernel is launched).
 LAUNCHES = 0
+# The device kernels one call launches, as patterns (``re.search``) of the
+# profiler's names for them, each starting with its ``__global__``: one of
+# the two, as ``softmax_plan`` says.
+DEVICE_KERNELS = (r"hc_softmax_kernel<", r"hc_softmax_long_kernel<")
 
 
 def hc_softmax_cuda(support: torch.Tensor, n_hc: int, n_mc: int,

@@ -11,7 +11,7 @@ compact-resident; a serving pack's int8 codes go to the int8 kernels of
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -45,6 +45,18 @@ def launch_counts() -> Dict[str, int]:
     counts.update(_patchy_module.LAUNCHES)
     counts.update(_quant_module.LAUNCHES)
     return counts
+
+
+def device_kernels() -> Dict[str, Tuple[str, ...]]:
+    """Under ``launch_counts()``'s keys, the device kernels one call of
+    each entry point launches: patterns (``re.search``) of the profiler's
+    kernel names, each starting with a ``__global__`` of ``csrc/*.cu``.
+    Entries that share a body (the forwards; the updates) name its
+    instantiation at their layout, so no kernel matches two entries."""
+    kernels = {name: m.DEVICE_KERNELS for name, m in _KERNEL_MODULES.items()}
+    kernels.update(_patchy_module.DEVICE_KERNELS)
+    kernels.update(_quant_module.DEVICE_KERNELS)
+    return kernels
 
 
 def set_launch_counts(counts: Dict[str, int]) -> None:

@@ -72,6 +72,15 @@ from .ref import (ref_compact_forward, ref_compact_update, ref_patchy_forward,
 # launched).
 LAUNCHES = {"patchy_forward": 0, "compact_forward": 0, "patchy_update": 0,
             "compact_update": 0}
+# The device kernels one call of each launches, as patterns (``re.search``)
+# of the profiler's names for them, each starting with its ``__global__``:
+# the dense bodies' instantiations at ``Layout`` 1 (patchy) and 2
+# (compact), csrc/common.cuh.
+DEVICE_KERNELS = {
+    "patchy_forward": (r"bcpnn_fwd_tc_kernel<.*FwdTile<\d+, \w+, 1>",),
+    "compact_forward": (r"bcpnn_fwd_tc_kernel<.*FwdTile<\d+, \w+, 2>",),
+    "patchy_update": (r"trace_update_kernel<1,",),
+    "compact_update": (r"trace_update_kernel<2,",)}
 
 
 def _forward(name: str, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

@@ -59,6 +59,14 @@ MAX_CLUSTER = 8  # blocks a thread-block cluster at most (csrc/quant.cu)
 # launched).
 LAUNCHES = {"quant_fwd": 0, "quant_compact_forward": 0,
             "quant_patchy_forward": 0}
+# The device kernels one call of each launches, as patterns (``re.search``)
+# of the profiler's names for them, each starting with its ``__global__``:
+# the one body's instantiation at its ``Layout`` (the second template
+# argument; csrc/common.cuh).
+DEVICE_KERNELS = {
+    "quant_fwd": (r"quant_fwd_tc_kernel<\d+, 0,",),
+    "quant_patchy_forward": (r"quant_fwd_tc_kernel<\d+, 1,",),
+    "quant_compact_forward": (r"quant_fwd_tc_kernel<\d+, 2,",)}
 # The (rows, cluster) each entry point last passed to the C entry point
 # (0: the launcher's rule).
 LAST_PLAN = {name: (0, 0) for name in LAUNCHES}

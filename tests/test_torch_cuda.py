@@ -1183,6 +1183,81 @@ def test_captures_survive_graphs_collected_as_garbage(gen):
         gc.set_threshold(*threshold)
 
 
+def test_a_second_fit_on_one_trainer_captures_nothing(gen):
+    """The first fit captures the unsupervised and the readout step; a
+    second on the same state and batch shape replays them."""
+    from repro_torch import obs
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    spec = deep_synth_spec(side=12, depth=1, hidden_hc=4, hidden_mc=8)
+    x, labels = _small_fit_data(spec)
+    tr = Trainer(spec, seed=0, device="cuda")
+    assert tr.fit(x, labels, epochs=1, batch=16)["captures"] == 2
+    assert obs.FITS[-1].captures == 2
+    stats = tr.fit(x, labels, epochs=2, batch=16)
+    assert stats["captures"] == 0 == obs.FITS[-1].captures
+    tr.reset(1)  # a new state: each step is captured again
+    assert tr.fit(x, labels, epochs=1, batch=16)["captures"] == 2
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_profiled_fits_launch_the_kernels_their_wrappers_declare(gen,
+                                                                 layout):
+    """Under the profiler, a fit, an evaluation and an int8 evaluation,
+    each replaying steps captured before (a capture's warm-up launches
+    kernels it does not count): each entry's declared kernels
+    (``ops.device_kernels``) run as often as its launch counter moved,
+    every launch of a hand-written kernel is one entry's, the fit's report
+    holds its share of the counts, and the program's spans are on the
+    host alone."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    from repro_torch.core.trainer import _eval_data, _EvalProgram
+    spec = deep_synth_spec(side=12, depth=2, hidden_hc=4, hidden_mc=8,
+                           struct_every=3, **LAYOUTS[layout])
+    x, labels = _small_fit_data(spec)
+    tr = Trainer(spec, seed=3, device="cuda")
+    data = _eval_data(x, labels, 16, torch.device("cuda"))
+    int8 = _EvalProgram(spec.with_infer_dtype("int8"))
+    tr.fit(x, labels, epochs=1, batch=16)
+    tr.evaluate(x, labels, batch=16)
+    int8(tr.state, *data)
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.fit(x, labels, epochs=2, batch=16)
+        fitted = ops.launch_counts()
+        tr.evaluate(x, labels, batch=16)
+        int8(tr.state, *data)
+        torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert obs.FITS[-1].captures == 0
+    assert obs.FITS[-1].launches == {k: n - before[k]
+                                     for k, n in fitted.items()
+                                     if n != before[k]}
+    events = prof.events()
+    device = [e.name for e in events if e.device_type.name == "CUDA"]
+    assert not [n for n in device if n.startswith("repro_torch.")]
+    host = {e.name for e in events if e.device_type.name == "CPU"}
+    assert {"repro_torch.fit", "repro_torch.fit.epoch",
+            "repro_torch.step.eager"} <= host
+    declared = ops.device_kernels()
+    owners = {n: [k for k, ps in declared.items()
+                  if any(re.search(p, n) for p in ps)] for n in device}
+    bodies = ("trace_update_kernel", "bcpnn_fwd_tc_kernel",
+              "hc_softmax", "quant_fwd_tc_kernel")
+    for n, who in owners.items():
+        assert len(who) == (1 if any(b in n for b in bodies) else 0), n
+    for entry in declared:
+        ran = sum(1 for n in device if owners[n] == [entry])
+        assert ran == after[entry] - before[entry], entry
+    quant = ("quant_fwd", "quant_patchy_forward", "quant_compact_forward")
+    assert sum(after[k] - before[k] for k in quant) > 0
+
+
 # ------------------------------------------ checkpoints and serving ----
 
 def _serve_spec(**over):

@@ -72,7 +72,8 @@ from .network import (
 
 def _batchify_padded(x: np.ndarray, batch: int):
     """Zero-pad to a whole number of batches; also return the (nb, B)
-    validity mask marking genuine rows."""
+    validity mask marking genuine rows.  The plain host version of what
+    ``_stage_padded`` builds on the device."""
     n = x.shape[0]
     nb = max(1, -(-n // batch))
     pad = nb * batch - n
@@ -82,6 +83,116 @@ def _batchify_padded(x: np.ndarray, batch: int):
     valid = (np.arange(nb * batch) < n).astype(np.float32)
     return (x.reshape(nb, batch, *x.shape[1:]),
             valid.reshape(nb, batch))
+
+
+# Bytes of one slot of the pinned staging ring: big enough that a chunk's
+# copy dwarfs its launch, small enough that the ring stays a fixed 32 MiB
+# of pinned memory a trainer device whatever the dataset (a row wider
+# than a slot widens both slots to the row).
+STAGING_SLOT_BYTES = 16 << 20
+# Staging rings allocated in this process: one a trainer device, so it
+# stays flat over a run of fits.
+STAGING_ALLOCS = 0
+
+
+class _StagingRing:
+    """Two host slots through which a fit's rows reach the card in chunks
+    of whole rows: pinned, each with the event of the last copy out of
+    it, which the host waits on before it fills the slot again, so the
+    host fills one slot while the card drains the other.  On a CPU device
+    (tests) the slots are plain memory and each copy is done when it
+    returns."""
+
+    def __init__(self, device: torch.device, row_bytes: int):
+        global STAGING_ALLOCS
+        cuda = device.type == "cuda"
+        self.slot_bytes = max(STAGING_SLOT_BYTES, row_bytes)
+        self.slots = [torch.empty(self.slot_bytes, dtype=torch.uint8,
+                                  pin_memory=cuda) for _ in range(2)]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(2)]
+        self.turn = 0
+        STAGING_ALLOCS += 1
+
+    def copy_rows(self, dst: torch.Tensor, src: np.ndarray) -> None:
+        """``dst[:len(src)] = src`` in ``dst``'s dtype, chunk by chunk
+        through the slots; the copies are queued on ``dst``'s stream."""
+        row = dst[0].numel() * dst.element_size()
+        step = self.slot_bytes // row
+        stream = (torch.cuda.current_stream(dst.device)
+                  if dst.is_cuda else None)
+        for a in range(0, len(src), step):
+            b = min(len(src), a + step)
+            slot, event = self.slots[self.turn], self.events[self.turn]
+            self.turn ^= 1
+            if event is not None:
+                event.synchronize()
+            buf = slot[:(b - a) * row].view(dst.dtype).view(
+                b - a, *dst.shape[1:])
+            buf.copy_(_host_tensor(src[a:b]))
+            dst[a:b].copy_(buf, non_blocking=True)
+            if event is not None:
+                event.record(stream)
+
+    def wait(self) -> None:
+        """Until every copy out of the slots has landed."""
+        for event in self.events:
+            if event is not None:
+                event.synchronize()
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor, sharing its memory where its layout allows."""
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@dataclasses.dataclass
+class _Staged:
+    """A fit's batches on its device (``_stage_padded``)."""
+
+    xs: torch.Tensor      # (nb, B, *row) float32, pad rows zero
+    ys: torch.Tensor      # (nb, B) int32, pad rows zero
+    valid: torch.Tensor   # (nb, B) float32, 1 on genuine rows
+    masked: bool          # whether any pad row exists
+    n_img: int            # genuine rows
+    h2d_bytes: int        # bytes copied from the host
+    padded: float         # perf_counter at the end of the padding
+
+
+def _stage_padded(x, y, batch: int, device: torch.device,
+                  ring: Optional[_StagingRing]) -> _Staged:
+    """``_batchify_padded``'s arrays of ``x`` (as float32) and ``y`` (as
+    int32), bit for bit, made on ``device`` with no padded host copy:
+    the batches are allocated there and only their pad rows zeroed
+    (span ``repro_torch.fit.pad``), then the genuine rows copied in
+    (``repro_torch.fit.h2d``), through ``ring`` where one is given (the
+    card's pinned staging), else straight into the device tensors; the
+    span ends when the copies have landed."""
+    x, y = np.asarray(x), np.asarray(y)
+    n = len(x)
+    if len(y) != n:
+        raise ValueError(f"x has {n} samples but y has {len(y)} labels")
+    nb = max(1, -(-n // batch))
+    with obs.span("repro_torch.fit.pad"):
+        xs = torch.empty((nb * batch, *x.shape[1:]), dtype=torch.float32,
+                         device=device)
+        ys = torch.empty((nb * batch,), dtype=torch.int32, device=device)
+        xs[n:].zero_()
+        ys[n:].zero_()
+        valid = (torch.arange(nb * batch, device=device) < n).to(
+            torch.float32).view(nb, batch)
+        padded = time.perf_counter()
+    with obs.span("repro_torch.fit.h2d"):
+        for dst, src in ((xs, x), (ys, y)):
+            if ring is None:
+                dst[:n].copy_(_host_tensor(src))
+            else:
+                ring.copy_rows(dst, src)
+        if ring is not None:
+            ring.wait()
+    return _Staged(xs.view(nb, batch, *x.shape[1:]), ys.view(nb, batch),
+                   valid, nb * batch > n, n, xs[:n].nbytes + ys[:n].nbytes,
+                   padded)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,6 +453,7 @@ class Trainer:
         self.data_axis = data_axis
         self.timer = None  # the last fit's StepTimer
         self._epoch_cache: Dict[tuple, Callable] = {}
+        self._ring: Optional[_StagingRing] = None
         if mesh is not None:
             # Fail at construction, not mid-fit: every projection the DP
             # programs touch needs whole post-HCs per shard.
@@ -461,8 +573,13 @@ class Trainer:
           over the unsupervised images (genuine rows x epochs x depth), the
           unsupervised time only, without the supervised pass or the
           preparation;
-        * ``pad_s``, the zero-padding to whole batches on the host, and
-          ``h2d_s``, the copies of the padded arrays to the fit's device;
+        * ``pad_s``, the padding to whole batches on the fit's device (the
+          batches allocated there, their pad rows zeroed, the validity
+          mask built), and ``h2d_s``, the copies of the genuine rows into
+          them, on the card through the trainer's pinned staging ring
+          (two slots of ``STAGING_SLOT_BYTES``, allocated at its first
+          fit), until they have landed; ``h2d_bytes``, the bytes those
+          copies moved (the rows as float32, the labels as int32);
         * ``captures``, the steps the fit's programs captured: 0 once they
           hold this state and batch shape;
         * ``straggler_events``; with a mesh also ``comm_s``, the host time
@@ -479,6 +596,17 @@ class Trainer:
             return self._fit(x_train, y_train, epochs, batch, log, ckpt_dir,
                              ckpt_every_batches, resume, on_chunk)
 
+    def _staging_ring(self, x) -> Optional[_StagingRing]:
+        """The ring a fit of rows ``x`` stages through: on the card, this
+        trainer's, made at its first fit (and again only for a row wider
+        than its slots); none on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        row_bytes = 4 * int(np.prod(np.shape(x)[1:]))
+        if self._ring is None or self._ring.slot_bytes < row_bytes:
+            self._ring = _StagingRing(self.device, row_bytes)
+        return self._ring
+
     def _captures(self) -> int:
         """Captures made so far by the step programs of the epoch
         programs."""
@@ -492,17 +620,12 @@ class Trainer:
         captures0 = self._captures()
         launches0 = ops.launch_counts()
         fit0 = time.perf_counter()
-        with obs.span("repro_torch.fit.pad"):
-            xs_np, valid_np = _batchify_padded(
-                np.asarray(x_train, np.float32), batch)
-            ys_np, _ = _batchify_padded(np.asarray(y_train, np.int32), batch)
-            masked = bool(float(valid_np.min()) < 1.0)
-            pad1 = time.perf_counter()
-        with obs.span("repro_torch.fit.h2d"):
-            xs = torch.from_numpy(xs_np).to(dev)
-            ys = torch.from_numpy(ys_np).to(dev)
-            valid = torch.from_numpy(valid_np).to(dev)
-            h2d1 = time.perf_counter()
+        staged = _stage_padded(x_train, y_train, batch, dev,
+                               self._staging_ring(x_train))
+        h2d1 = time.perf_counter()
+        pad1 = staged.padded
+        xs, ys, valid = staged.xs, staged.ys, staged.valid
+        masked = staged.masked
         nb = int(xs.shape[0])
         ax = None
         if self.mesh is not None:
@@ -639,7 +762,7 @@ class Trainer:
             _sync(dev)
             t2 = time.perf_counter()
         save(cursor, every=False)
-        n_img = int(valid_np.sum())
+        n_img = staged.n_img
         captures = self._captures() - captures0
         stats = {
             "unsup_s": t1 - t0,
@@ -648,6 +771,7 @@ class Trainer:
             / max(1, n_img * epochs * depth),
             "pad_s": pad1 - fit0,
             "h2d_s": h2d1 - pad1,
+            "h2d_bytes": float(staged.h2d_bytes),
             "captures": float(captures),
             "straggler_events": float(len(timer.events)),
         }
@@ -659,7 +783,8 @@ class Trainer:
             h2d=(pad1, h2d1), unsup=(t0, t1), sup=(t1, t2),
             captures=captures,
             launches={k: n - launches0[k] for k, n in launches.items()
-                      if n != launches0[k]}))
+                      if n != launches0[k]},
+            h2d_bytes=staged.h2d_bytes))
         return stats
 
     def evaluate(self, x: np.ndarray, y: np.ndarray,

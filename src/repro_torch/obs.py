@@ -41,7 +41,9 @@ class FitReport:
     bounds and those of its phases, the spans of the same names
     (``repro_torch.fit.pad``, ``.h2d``, ``.unsup``, ``.sup``); the captures
     its step programs made; the kernel launches it counted (the change of
-    ``kernels.ops.launch_counts()``, entries that moved)."""
+    ``kernels.ops.launch_counts()``, entries that moved); the bytes its
+    ``h2d`` phase copied from the host (``h2d_bytes`` in ``fit``'s
+    return)."""
 
     t0: float
     t1: float
@@ -51,6 +53,7 @@ class FitReport:
     sup: Interval
     captures: int
     launches: Dict[str, int]
+    h2d_bytes: int = 0
 
 
 FITS: Deque[FitReport] = collections.deque(maxlen=1024)

@@ -1200,6 +1200,83 @@ def test_a_second_fit_on_one_trainer_captures_nothing(gen):
     assert tr.fit(x, labels, epochs=1, batch=16)["captures"] == 2
 
 
+@pytest.mark.parametrize("xdt", [np.float32, np.float64])
+def test_staged_batches_at_model1_width_equal_the_host_path(gen, xdt):
+    """Model 1's rows (1568 floats) in three whole slots and a part,
+    through the pinned ring, land on the card as ``_batchify_padded``'s
+    arrays copied there, bit for bit."""
+    from repro_torch.core import trainer as tt
+    per = tt.STAGING_SLOT_BYTES // (1568 * 4)
+    n = 3 * per + 1000  # a padded tail: n % 128 = 3 * per % 128 + 104
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((n, 1568)).astype(xdt)
+    y = rng.integers(0, 10, n)
+    dev = torch.device("cuda")
+    ring = tt._StagingRing(dev, 1568 * 4)
+    assert all(s.is_pinned() for s in ring.slots)
+    got = tt._stage_padded(x, y, 128, dev, ring)
+    xs, valid = tt._batchify_padded(np.asarray(x, np.float32), 128)
+    ys, _ = tt._batchify_padded(y.astype(np.int32), 128)
+    for a, b in ((got.xs, xs), (got.ys, ys), (got.valid, valid)):
+        assert a.is_cuda and torch.equal(a, torch.from_numpy(b).cuda())
+    assert got.masked and got.n_img == n
+
+
+def test_back_to_back_stagings_keep_each_fits_rows(gen, monkeypatch):
+    """With 64 KiB slots (10 rows of Model 1's 1568 floats a chunk) the
+    host laps the ring hundreds of times a fit: two stagings of different
+    rows, one after the other through one trainer's ring, each land whole,
+    so no slot was refilled before its copy drained; two fits on new data
+    allocate one ring between them."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    from repro_torch.core import trainer as tt
+    monkeypatch.setattr(tt, "STAGING_SLOT_BYTES", 1 << 16)
+    rng = np.random.default_rng(2)
+    dev = torch.device("cuda")
+    data = [(rng.random((3001, 1568), dtype=np.float32),
+             rng.integers(0, 10, 3001)) for _ in range(2)]
+    allocs = tt.STAGING_ALLOCS
+    tr = Trainer(deep_synth_spec(side=28, depth=1, n_classes=10,
+                                 hidden_hc=4, hidden_mc=8),
+                 seed=0, device="cuda")
+    got = [tt._stage_padded(x, y, 128, dev, tr._staging_ring(x))
+           for x, y in data]
+    for g, (x, y) in zip(got, data):
+        xs, _ = tt._batchify_padded(x, 128)
+        ys, _ = tt._batchify_padded(y.astype(np.int32), 128)
+        assert torch.equal(g.xs, torch.from_numpy(xs).cuda())
+        assert torch.equal(g.ys, torch.from_numpy(ys).cuda())
+    for x, y in data:
+        assert tr.fit(x, y, epochs=1, batch=128)["h2d_bytes"] == 3001 * (
+            1568 + 1) * 4
+    assert tt.STAGING_ALLOCS - allocs == 1
+
+
+@pytest.mark.parametrize("slot", [None, 4096])
+def test_a_fit_staged_through_the_ring_equals_the_eager_step_loop(
+        gen, monkeypatch, slot):
+    """A fit of float64 rows and int64 labels staged through the pinned
+    ring (16 MiB slots, or 4 KiB ones: 3 rows a chunk) ends in the state
+    of the eager step loop fed ``_batchify_padded``'s arrays, bit for
+    bit."""
+    from repro_torch.configs.bcpnn_models import deep_synth_spec
+    from repro_torch.core import Trainer
+    from repro_torch.core import trainer as tt
+    from repro_torch.core.graphs import state_tensors
+    if slot is not None:
+        monkeypatch.setattr(tt, "STAGING_SLOT_BYTES", slot)
+    spec = deep_synth_spec(side=12, depth=2, hidden_hc=4, hidden_mc=8)
+    x, labels = _small_fit_data(spec)
+    want, _ = _eager_fit(spec, x, labels, 2, 16, seed=3)
+    tr = Trainer(spec, seed=3, device="cuda")
+    tr.fit(x.astype(np.float64), labels.astype(np.int64), epochs=2,
+           batch=16)
+    torch.cuda.synchronize()
+    for a, b in zip(state_tensors(tr.state), state_tensors(want)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_profiled_fits_launch_the_kernels_their_wrappers_declare(gen,
                                                                  layout):

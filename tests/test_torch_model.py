@@ -298,7 +298,7 @@ def test_fit_through_padded_tail_matches_jax_accuracy():
     stats = ttr.fit(xtr, ds.y_train, epochs=4, batch=64)
     acc_t = ttr.evaluate(xte, ds.y_test)
     assert set(stats) == {"unsup_s", "sup_s", "train_ms_per_img",
-                          "pad_s", "h2d_s", "captures",
+                          "pad_s", "h2d_s", "h2d_bytes", "captures",
                           "straggler_events"}
     assert acc_t > 0.5, acc_t  # chance is 0.2
     assert abs(acc_t - acc_j) <= 0.05, (acc_t, acc_j)

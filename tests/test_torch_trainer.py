@@ -27,7 +27,7 @@ import torch
 from repro.configs.bcpnn_models import deep_synth_spec as j_deep_synth_spec
 from repro.core import network as jn
 from repro.core import trainer as jt
-from repro_torch import convert
+from repro_torch import convert, obs
 from repro_torch.configs.bcpnn_models import deep_synth_spec
 from repro_torch.core import (BCPNNConfig, Trainer, eval_batches,
                               evaluate_padded, graphs, hidden_rates,
@@ -427,6 +427,60 @@ def test_fit_through_the_programs_equals_the_step_loop(layout):
     acc = tr.evaluate(xtr, ytr, batch=16)
     assert acc == tr.evaluate(xtr, ytr, batch=16)
     assert acc == evaluate_padded(want, tspec, xtr, ytr, batch=16)
+
+
+# ------------------------------------------------ the fit's staging --
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("n,xdt,ydt,slot", [
+    (64, np.float32, np.int32, None),   # whole batches
+    (75, np.float32, np.int32, None),   # a tail
+    (5, np.float32, np.int32, None),    # fewer rows than a batch
+    (0, np.float32, np.int32, None),    # no rows: one batch, all pad
+    (75, np.float64, np.int64, None),   # converted as numpy converts
+    (75, np.float64, np.int64, 5 * 24 * 4),  # 5-row slots: 15 chunks
+])
+def test_staged_batches_equal_the_padded_host_arrays(monkeypatch, n, xdt,
+                                                     ydt, slot, ring):
+    """``_stage_padded``'s batches, straight or through a staging ring
+    (plain slots on the CPU), equal ``_batchify_padded``'s arrays of the
+    float32 rows and int32 labels bit for bit, with the same ``masked``;
+    it counts the rows' and labels' bytes it copied."""
+    if slot is not None:
+        monkeypatch.setattr(tt, "STAGING_SLOT_BYTES", slot)
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((n, 12, 2)) * 1e3).astype(xdt)
+    y = rng.integers(-2**40, 2**40, n).astype(ydt)
+    batch = 16
+    cpu = torch.device("cpu")
+    r = tt._StagingRing(cpu, 24 * 4) if ring else None
+    got = tt._stage_padded(x, y, batch, cpu, r)
+    xs, valid = tt._batchify_padded(np.asarray(x, np.float32), batch)
+    ys, _ = tt._batchify_padded(np.asarray(y, np.int32), batch)
+    for a, b in ((got.xs, xs), (got.ys, ys), (got.valid, valid)):
+        assert a.dtype == torch.from_numpy(b).dtype and a.shape == b.shape
+        assert np.array_equal(a.numpy().view(np.uint8),
+                              b.view(np.uint8))
+    assert got.masked == bool(valid.min() < 1) and got.n_img == n
+    assert got.h2d_bytes == n * (24 + 1) * 4
+    with pytest.raises(ValueError, match="labels"):
+        tt._stage_padded(x, np.zeros(n + 1, ydt), batch, cpu, r)
+
+
+def test_a_fit_reports_the_bytes_it_staged():
+    """A CPU fit makes no staging ring and reports the bytes of its rows
+    as float32 and its labels as int32, whatever the caller's dtypes, in
+    its stats and its report."""
+    _, tspec = _specs("dense", 1)
+    rng = np.random.default_rng(1)
+    x = rng.random((75, tspec.input_geom.N))  # float64
+    y = rng.integers(0, tspec.n_classes, 75)  # int64
+    allocs = tt.STAGING_ALLOCS
+    tr = Trainer(tspec, seed=0, device="cpu")
+    stats = tr.fit(x, y, epochs=1, batch=16)
+    want = x.astype(np.float32).nbytes + y.astype(np.int32).nbytes
+    assert stats["h2d_bytes"] == want == obs.FITS[-1].h2d_bytes
+    assert tr._ring is None and tt.STAGING_ALLOCS == allocs
 
 
 # ------------------------------------------- launch-count bookkeeping --
